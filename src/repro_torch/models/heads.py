@@ -1,0 +1,29 @@
+"""PAAC two-headed output (paper §4).
+
+A single trunk feeds two output layers: a softmax policy head (one logit per
+action — for token-manipulation environments the action space is the
+vocabulary) and a single linear value node. The reference's ``constrain``
+is a sharding hint; on one device there is nothing to hint.
+"""
+from __future__ import annotations
+
+from repro_torch.models.common import dtype_of, init_linear, linear
+
+
+def init_heads(generator, cfg):
+    dtype = dtype_of(cfg.param_dtype)
+    p = {}
+    if not cfg.tie_policy_head:
+        p["policy"] = init_linear(generator, cfg.d_model, cfg.actions(), dtype)
+    p["value"] = init_linear(generator, cfg.d_model, 1, dtype, bias=True)
+    return p
+
+
+def apply_heads(p, cfg, hidden, embed=None):
+    """hidden: (..., d_model) -> (logits (..., A) fp32, value (...,) fp32)."""
+    if cfg.tie_policy_head:
+        logits = hidden @ embed.T
+    else:
+        logits = linear(p["policy"], hidden)
+    value = linear(p["value"], hidden).float()[..., 0]
+    return logits.float(), value

@@ -7,3 +7,8 @@ import pytest
 @pytest.fixture(scope="session")
 def key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
