@@ -6,20 +6,45 @@ Run from the repository root on a machine with a CUDA device:
     python3 chip_smoke.py
 
 It builds the port's kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
-into ``build/repro_torch/``) and drives the serving path:
+into ``build/repro_torch/``) and drives the training path and the serving
+path:
 
 1. card     — the card's name and power limit as nvidia-smi gives them,
               then the build of every kernel;
-2. kernels  — each hand-written kernel against its plain PyTorch version on
-              the card, at the serving path's shapes, in fp32 (atol 1e-4)
-              and bf16 (|err| <= 2e-2 + 2e-2 |ref| against the plain
-              version in fp32 on the same bf16 inputs), with CUDA-event
-              times (median of 30, L2 flushed) of the kernel, the plain
-              version and scaled_dot_product_attention (a yardstick only);
-3. model    — reduced qwen2-7b in fp32, one set of weights on the CPU
+2. returns  — K1 (n-step returns) against its plain PyTorch version on the
+              card over E in {1, 32, 33, 256, 4096}, T in {1, 5, 64} and
+              gamma in {0, 0.99, 1}, dones at a 10% rate plus an all-done
+              and a never-done row (|err| <= 1e-5 + 1e-5 |ref|), with
+              CUDA-event times (median of 30, L2 flushed) at the paper's
+              E=32, T=5 and at E=4096, T=64;
+3. kernels  — K3 and K4 against their plain versions on the card, at the
+              serving path's shapes, in fp32 (atol 1e-4) and bf16
+              (|err| <= 2e-2 + 2e-2 |ref| against the plain version in
+              fp32 on the same bf16 inputs), with CUDA-event times of the
+              kernel, the plain version and scaled_dot_product_attention
+              (a yardstick only);
+4. rl_model — paac_nature at full size in fp32, one set of weights on the
+              CPU and on the card: logits and values of 32 frames agree
+              within 1e-4, and one PAAC update on the same replayed
+              trajectory agrees within 1e-4 on the loss, the global grad
+              norm (relative) and every new parameter;
+5. training — the paper's setting through ``launch/paper_atari.py``'s code
+              path: FrameStack(AtariLike(32)), paac_nature, t_max 5,
+              RMSProp, lr 0.0224, seed 0; 10 warm-up iterations, then 200
+              timed ones, which must launch K1 exactly once each, keep
+              every loss finite, change the parameters and keep the mean
+              entropy in (0, log 3]; timesteps/s and the wall of an
+              iteration, then a torch.profiler window of 10 iterations
+              (device-busy share, device time and launches by kernel
+              class), then each layer of an iteration alone (env steps,
+              acting forwards, learning pass, K1, optimizer: wall ms,
+              device-busy ms, launches); then the entry point itself,
+              ``paper_atari --arch paac_nature --n-envs 32 --iters 50``;
+              then n_e = 256 for timesteps/s;
+6. model    — reduced qwen2-7b in fp32, one set of weights on the CPU
               (plain versions) and on the card (kernels): prefill and
               decode logits must agree within 1e-4;
-4. serving  — qwen2-7b at full width and depth (28 layers, d_model 3584,
+7. serving  — qwen2-7b at full width and depth (28 layers, d_model 3584,
               bf16, random weights from a seed): 8 requests over 4 slots,
               prompts of 128 to 512 tokens, 16 to 32 new tokens each, burst
               arrival, through the port's continuous-batching entry point;
@@ -31,13 +56,15 @@ into ``build/repro_torch/``) and drives the serving path:
               then the lockstep demo, whose decode runs K4 with a scalar
               position.
 
-The line before the last is a JSON object with each kernel's numbers; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-when any phase fails, it exits non-zero and prints no result.
+TF32 is off for matmuls and convolutions throughout. The line before the
+last is a JSON object with each kernel's numbers; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
+phase fails, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -49,6 +76,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; fp32 off the tenso
 FP32_ATOL = 1e-4
 BF16_TOL = 2e-2
 MODEL_ATOL = 1e-4
+RETURNS_TOL = 1e-5
+RL_TOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -227,18 +256,297 @@ def phase_kernels(torch, np, F, ref, fa, da):
     return rows
 
 
-def _tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+def device_window(prof, n: int):
+    """Device activity of a profiler window of ``n`` iterations: (busy ms an
+    iteration as the union of the kernels' and copies' intervals on the
+    card, {name: [ms an iteration, launches an iteration]})."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    by_name = {}
+    for e in events:
+        row = by_name.setdefault(e.name, [0.0, 0])
+        row[0] += (e.time_range.end - e.time_range.start) / n / 1e3
+        row[1] += 1
+    for row in by_name.values():
+        row[1] /= n
+    return busy / n / 1e3, by_name
 
 
-def phase_model(torch, np, configs, models):
+def kernel_class(name: str) -> str:
+    n = name.lower()
+    if "nstep" in n:
+        return "K1 nstep_returns"
+    if any(k in n for k in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                            "implicit", "winograd", "fft")):
+        return "convolution"
+    if any(k in n for k in ("gemm", "nvjet", "cublas", "cutlass", "splitk")):
+        return "GEMM"
+    if "memcpy" in n or "memset" in n:
+        return "copy/set"
+    return "elementwise/reduction (env, losses, optimizer)"
+
+
+def phase_returns(torch, ref, nr, dev="cuda"):
+    """K1 against its plain version over the sweep, then timed."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    worst, cases = 0.0, 0
+    data = {}
+    for E in (1, 32, 33, 256, 4096):
+        for T in (1, 5, 64):
+            r = torch.randn(T, E, generator=g, device=dev)
+            d = torch.rand(T, E, generator=g, device=dev) < 0.1
+            if E >= 2:
+                d[:, 0], d[:, 1] = True, False  # all done, never done
+            b = torch.randn(E, generator=g, device=dev)
+            data[(E, T)] = (r, d, b)
+            for gamma in (0.0, 0.99, 1.0):
+                out = nr.nstep_returns_cuda(r, d, b, gamma)
+                plain = ref.nstep_returns_ref(r, d, b, gamma)
+                err = (out - plain).abs()
+                check(bool(torch.isfinite(out).all()), "K1: non-finite output")
+                check(bool((err <= RETURNS_TOL + RETURNS_TOL * plain.abs()).all()),
+                      f"K1 disagrees with its plain version at E={E} T={T} "
+                      f"gamma={gamma}: max err {err.max().item():.3g}")
+                worst = max(worst, err.max().item())
+                cases += 1
+    say("returns", f"K1 nstep_returns fp32, {cases} cases (E in 1/32/33/256/"
+        f"4096, T in 1/5/64, gamma 0/0.99/1): max_abs_err {worst:.3g} "
+        f"(atol {RETURNS_TOL} + rtol {RETURNS_TOL})")
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
+    row = {"max_abs_err": worst, "library_ms": None}
+    for E, T in ((32, 5), (4096, 64)):
+        r, d, b = data[(E, T)]
+        ms = time_ms(torch, lambda: nr.nstep_returns_cuda(r, d, b, 0.99), flush)
+        plain_ms = time_ms(torch, lambda: ref.nstep_returns_ref(r, d, b, 0.99),
+                           flush)
+        b_ms, b_by = bound(T * E * (4 + 1 + 4) + 4 * E, 3 * T * E, "float32")
+        say("returns", f"K1 timed (fp32 T={T} E={E}): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.3g} ms ({b_by}), "
+            "library none")
+        if (E, T) == (32, 5):  # the training path's shape
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       shape=f"fp32 T={T} E={E}")
+        else:
+            row.update(large={"shape": f"fp32 T={T} E={E}", "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": b_ms})
+    del flush
+    return row
+
+
+def phase_rl_model(torch, configs, models, envs, paac, optim, tree,
+                   dev="cuda"):
+    """paac_nature at full size, fp32: the CPU against the card."""
+    cfg = configs.get_config("paac_nature").replace(num_actions=3)
+    check((cfg.cnn_spec, cfg.cnn_dense, cfg.obs_shape, cfg.param_dtype)
+          == (((32, 8, 4), (64, 4, 2), (64, 3, 1)), 512, (84, 84, 4),
+              "float32"), f"not the full paac_nature config: {cfg}")
+    cpu = models.init_policy(cfg, generator=torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    gpu = tree.tree_map(lambda t: t.to(dev), cpu)
+    n_params = sum(t.numel() for t in tree.tree_leaves(cpu))
+
+    env = envs.FrameStack(envs.AtariLike(32, device="cpu"), 4)
+    hp = paac.PAACConfig(gamma=0.99, entropy_beta=0.01, t_max=5)
+    agent = paac.PAACAgent(cfg, hp)
+    g = torch.Generator().manual_seed(SEED)
+    state = env.reset(g)
+    _, _, traj, boot = agent.make_collect_step(env)(
+        cpu, state, env.observe(state), torch.Generator().manual_seed(SEED + 1),
+        g)
+    traj_g = type(traj)(*(x.to(dev) for x in traj))
+    boot_g = boot.to(dev)
+
+    obs = traj.obs[1]  # 32 frames a few steps into episodes
+    lc, vc, _ = models.policy_apply(cpu, cfg, obs)
+    lg, vg, _ = models.policy_apply(gpu, cfg, obs.to(dev))
+    fwd = max((lc - lg.cpu()).abs().max().item(),
+              (vc - vg.cpu()).abs().max().item())
+    check(fwd <= RL_TOL, f"paac_nature logits/values: card vs CPU {fwd:.3g}")
+
+    loss_c, _, grads_c = paac.loss_and_grads(cpu, cfg, hp, traj, boot)
+    loss_g, _, grads_g = paac.loss_and_grads(gpu, cfg, hp, traj_g, boot_g)
+    gn_c = tree.tree_global_norm(grads_c).item()
+    gn_g = tree.tree_global_norm(grads_g).item()
+    opt = optim.make_optimizer("rmsprop")
+    update = agent.make_update_step(opt, optim.constant(0.0007 * 32))
+    new_c, _, _ = update(cpu, opt.init(cpu), traj, boot, 0)
+    new_g, _, _ = update(gpu, opt.init(gpu), traj_g, boot_g, 0)
+    d_loss = abs(loss_c.item() - loss_g.item())
+    d_norm = abs(gn_c - gn_g) / max(1.0, abs(gn_c))
+    d_param = max((a - b.cpu()).abs().max().item() for a, b in
+                  zip(tree.tree_leaves(new_c), tree.tree_leaves(new_g)))
+    moved = max((a - b).abs().max().item() for a, b in
+                zip(tree.tree_leaves(new_c), tree.tree_leaves(cpu)))
+    check(d_loss <= RL_TOL, f"PAAC loss: card vs CPU {d_loss:.3g}")
+    check(d_norm <= RL_TOL, f"global grad norm: card {gn_g} vs CPU {gn_c}")
+    check(d_param <= RL_TOL, f"new parameters: card vs CPU {d_param:.3g}")
+    check(moved > 10 * RL_TOL, f"the update moved no parameter ({moved:.3g})")
+    say("rl_model", f"paac_nature full size fp32 ({n_params / 1e6:.2f} M "
+        f"parameters): logits/values of 32 frames card vs CPU max {fwd:.3g}; "
+        f"one update on a replayed 5x32 trajectory: loss {loss_c.item():.6f} "
+        f"(|d| {d_loss:.3g}), grad norm {gn_c:.6f} (rel d {d_norm:.3g}), new "
+        f"params max |d| {d_param:.3g} (largest step {moved:.3g}); all <= "
+        f"{RL_TOL}")
+
+
+def measure(torch, fn, n: int):
+    """(host wall ms a call over ``n`` calls ended by a device drain,
+    device-busy ms a call, device activities a call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy_ms, by_name = device_window(prof, n)
+    return host_ms, busy_ms, sum(c for _, c in by_name.values())
+
+
+def layer_costs(torch, rl, n: int):
+    """The layers of one iteration, each run alone: the env steps and the
+    acting forwards of a rollout, the learning pass (forward over all
+    frames, K1, losses, backward), K1 alone and the optimizer."""
+    from repro_torch.core.agents.paac import loss_and_grads
+    from repro_torch.kernels import ops
+    from repro_torch.utils.sampling import categorical
+
+    agent, env, hp = rl.agent, rl.env, rl.agent.hp
+    act = agent.act_fn()
+    g = torch.Generator(device=rl.device).manual_seed(SEED)
+    _, _, traj, boot = agent.make_collect_step(env)(
+        rl.params, rl.env_state, rl.obs, g, g)
+    _, _, grads = loss_and_grads(rl.params, agent.cfg, hp, traj, boot)
+    lr = rl.lr_schedule(0)
+
+    def env_steps():
+        for t in range(hp.t_max):
+            env.step(rl.env_state, traj.action[t], g)
+
+    def acting():
+        with torch.no_grad():
+            for _ in range(hp.t_max + 1):  # the last one is the bootstrap
+                categorical(act(rl.params, rl.obs)[0], g)
+
+    fns = {
+        f"env step x{hp.t_max}": env_steps,
+        f"acting forward + draw x{hp.t_max + 1}": acting,
+        "learning pass": lambda: loss_and_grads(rl.params, agent.cfg, hp,
+                                                traj, boot),
+        "K1": lambda: ops.nstep_returns(traj.reward, traj.done, boot,
+                                        hp.gamma),
+        "optimizer": lambda: rl.optimizer.update(grads, rl.opt_state,
+                                                 rl.params, lr),
+    }
+    return {k: measure(torch, fn, n) for k, fn in fns.items()}
+
+
+def phase_training(torch, paper_atari, ops, tree, card, dev="cuda",
+                   n_envs=32, warmup=10, iters=200, window=10, wide=256,
+                   wide_iters=50):
+    """The paper's setting, timed; returns the launch counts of the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rl = paper_atari.build("paac_nature", n_envs, SEED, dev)
+    check(rl.lr_schedule(0) == 0.0007 * n_envs, "lr is not 0.0007 n_e")
+    check(rl.env.obs_shape == (84, 84, 4) and rl.env.num_actions == 3,
+          f"env obs {rl.env.obs_shape}, {rl.env.num_actions} actions")
+    rl.run(warmup)
+    before = [t.clone() for t in tree.tree_leaves(rl.params)]
+    ops.reset_launches()
+    res = rl.run(iters)
+    counts = dict(ops.launches)
+    m = res.mean_metrics
+    check(counts["nstep_returns"] == iters,
+          f"K1 launched {counts['nstep_returns']} times in {iters} iterations")
+    # a non-finite loss in any iteration makes the mean non-finite
+    check(all(math.isfinite(v) for v in m.values()),
+          f"non-finite training metrics: {m}")
+    changed = max((a - b).abs().max().item() for a, b in
+                  zip(before, tree.tree_leaves(rl.params)))
+    check(changed > 0, "the parameters did not change")
+    check(0 < m["entropy"] <= math.log(3) + 1e-6,
+          f"mean entropy {m['entropy']} outside (0, log 3]")
+    iter_ms = 1e3 * n_envs * rl.agent.hp.t_max / res.timesteps_per_sec
+    say("training", f"paac_nature on FrameStack(AtariLike({n_envs})), t_max 5, "
+        f"RMSProp lr {0.0007 * n_envs:g}: {iters} iterations after {warmup} "
+        f"warm-up, K1 launched {counts['nstep_returns']} times; "
+        f"{res.timesteps_per_sec:.1f} timesteps/s, {iter_ms:.2f} ms an "
+        f"iteration; mean loss {m['loss']:.4f}, entropy {m['entropy']:.4f}, "
+        f"reward/iter {m['reward_sum']:+.3f}, episodes {res.episodes:.0f}; "
+        f"largest parameter change {changed:.3g} ({card})")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rl.run(window)
+        torch.cuda.synchronize()
+    busy_ms, by_name = device_window(prof, window)
+    classes = {}
+    for name, (ms, n) in by_name.items():
+        row = classes.setdefault(kernel_class(name), [0.0, 0.0])
+        row[0] += ms
+        row[1] += n
+    launches = sum(n for _, n in by_name.values())
+    busy = (f"device busy {busy_ms:.3f} ms an iteration "
+            f"({100 * busy_ms / iter_ms:.1f}% of the unprofiled {iter_ms:.2f} "
+            "ms)" if busy_ms > 0 else "device time not measured (the "
+            "profiler saw no device activity)")
+    say("training", f"torch.profiler window of {window} iterations: {busy}, "
+        f"{launches:.0f} device activities an iteration; by class (ms, "
+        "launches an iteration): "
+        + "; ".join(f"{k} {ms:.3f} x{n:.0f}" for k, (ms, n) in
+                    sorted(classes.items(), key=lambda kv: -kv[1][0])))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    say("training", "top device activities (ms, launches an iteration): "
+        + "; ".join(f"{k[:60]} {ms:.3f} x{n:.0f}" for k, (ms, n) in top))
+
+    layers = layer_costs(torch, rl, window)
+    say("training", "each layer alone, at the state the run reached (host "
+        "wall ms with the device drained, device-busy ms, launches; a "
+        "call): " + "; ".join(f"{k} {h:.3f} / {b:.3f} / {n:.0f}" for k, (h, b, n)
+                              in layers.items()))
+
+    del rl
+    argv = ["--arch", "paac_nature", "--n-envs", str(n_envs), "--iters", "50",
+            "--seed", str(SEED), "--device", str(dev)]
+    cli = paper_atari.main(argv)
+    check(len(cli) == 2 and cli[-1].steps == 50 * n_envs * 5
+          and all(math.isfinite(v) for r in cli for v in r.mean_metrics.values()),
+          f"paper_atari {' '.join(argv)}: {cli}")
+    say("training", f"entry point: python -m repro_torch.launch.paper_atari "
+        f"{' '.join(argv)}: {cli[-1].steps} steps in 2 epochs, "
+        f"{cli[-1].timesteps_per_sec:.1f} timesteps/s in the second")
+
+    wide_rl = paper_atari.build("paac_nature", wide, SEED, dev)
+    wide_rl.run(warmup)
+    wres = wide_rl.run(wide_iters)
+    check(all(math.isfinite(v) for v in wres.mean_metrics.values()),
+          f"non-finite metrics at n_e={wide}")
+    say("training", f"n_e={wide} (lr {0.0007 * wide:g}): {wide_iters} "
+        f"iterations after {warmup} warm-up, {wres.timesteps_per_sec:.1f} "
+        f"timesteps/s, {1e3 * wide * 5 / wres.timesteps_per_sec:.2f} ms an "
+        "iteration")
+    return counts
+
+
+def phase_model(torch, np, configs, models, tree):
     """Reduced qwen2-7b, fp32: CPU (plain versions) against the card."""
     cfg = configs.get_config("qwen2-7b").reduced()
     cpu = models.init_policy(cfg, generator=torch.Generator().manual_seed(SEED),
                              device="cpu")
-    gpu = _tree_to(cpu, "cuda")
+    gpu = tree.tree_map(lambda t: t.to("cuda"), cpu)
     rng = np.random.default_rng(SEED)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 37)))
     worst = 0.0
@@ -260,7 +568,8 @@ def phase_model(torch, np, configs, models):
         f"{worst:.3g} <= {MODEL_ATOL}")
 
 
-def phase_serving(torch, np, configs, models, ops, serve, serving, card):
+def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
+                  card):
     from repro_torch.pipeline.queue import TrajectoryQueue
 
     cfg = configs.get_config("qwen2-7b")
@@ -273,7 +582,7 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, card):
         cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
         device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree.tree_leaves(params))
     say("serving", f"qwen2-7b full size: {n_params / 1e9:.2f} B parameters "
         f"(bf16) initialised on the card from seed {SEED} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -327,15 +636,17 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, card):
         "engine: bitwise equal")
     del engine
 
-    wall_ms, busy_ms, top = profile_decode(torch, np, serving, cfg, params,
-                                           slots, max_len)
+    wall_ms, busy_ms, summed_ms, top = profile_decode(
+        torch, np, serving, cfg, params, slots, max_len)
     busy = (f"device busy {busy_ms:.2f} ms a step ({100 * busy_ms / wall_ms:.0f}%"
-            " of the unprofiled step)" if busy_ms > 0 else
+            " of the unprofiled step; the sum of self device times over "
+            f"key_averages, which counts a kernel under its op too, gives "
+            f"{summed_ms:.2f} ms)" if busy_ms > 0 else
             "device time not measured (the profiler saw no device activity)")
     say("serving", f"decode step, {slots} rows at pos 256-264, torch.profiler "
         f"window of 8 steps: wall {wall_ms:.2f} ms a step without the "
         f"profiler, {busy}; top kernels (ms a step, launches a step): "
-        + "; ".join(f"{k} {ms:.3f} x{n}" for k, ms, n in top))
+        + "; ".join(f"{k[:60]} {ms:.3f} x{n:.0f}" for k, (ms, n) in top))
 
     _, prompt_gen, decode_gen = serve.demo_generators(SEED, "cuda")
     ops.reset_launches()
@@ -347,7 +658,8 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, card):
     check(lock["tokens"].shape == (4, 9), f"lockstep tokens {lock['tokens'].shape}")
     check(bool(((lock["tokens"] >= 0) & (lock["tokens"] < cfg.vocab_size)).all()),
           "lockstep token out of range")
-    check(lock_counts == {"flash_attention": L, "decode_attention": 8 * L},
+    check(lock_counts == {"nstep_returns": 0, "flash_attention": L,
+                          "decode_attention": 8 * L},
           f"lockstep launches {lock_counts}")
     say("serving", f"lockstep demo (scalar pos): batch 4, prompt 128, 8 steps, "
         f"launches {lock_counts}; prefill {lock['prefill_s'] * 1e3:.1f} ms, "
@@ -359,7 +671,9 @@ def profile_decode(torch, np, serving, cfg, params, slots, max_len,
                    steps: int = 8):
     """Decode step time with and without torch.profiler, over a steady
     window of ``steps`` steps with every slot leased: (wall ms a step,
-    device-busy ms a step, top kernels by device time)."""
+    device-busy ms a step, the sum of self device times over
+    ``key_averages`` that earlier runs reported as busy, top kernels by
+    device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     engine = serving.DecodeEngine(cfg, params, max_slots=slots,
@@ -379,23 +693,16 @@ def profile_decode(torch, np, serving, cfg, params, slots, max_len,
         for _ in range(steps):
             engine.step()
         torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    busy_ms = sum(e.self_device_time_total for e in avgs) / steps / 1e3
-    top = sorted(avgs, key=lambda e: e.self_device_time_total, reverse=True)
-    top = [(e.key[:60], e.self_device_time_total / steps / 1e3, e.count // steps)
-           for e in top[:5] if e.self_device_time_total > 0]
-    return wall_ms, busy_ms, top
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+    summed_ms = sum(e.self_device_time_total
+                    for e in prof.key_averages()) / steps / 1e3
+    busy_ms, by_name = device_window(prof, steps)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return wall_ms, busy_ms, summed_ms, top
 
 
 KERNELS = {
+    "nstep_returns": ("src/repro_torch/csrc/nstep_returns.cu",
+                      "src/repro/kernels/nstep_returns.py:54"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:113"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
@@ -413,19 +720,29 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch import configs, models, serving
+    from repro_torch import configs, envs, models, optim, serving
+    from repro_torch.core.agents import paac
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import serve
+    from repro_torch.kernels import nstep_returns as nr
+    from repro_torch.launch import paper_atari, serve
+    from repro_torch.utils import tree
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     card = phase_card(torch, _build)
-    rows = phase_kernels(torch, np, F, ref, fa, da)
-    phase_model(torch, np, configs, models)
-    counts = phase_serving(torch, np, configs, models, ops, serve, serving, card)
+    rows = {"nstep_returns": phase_returns(torch, ref, nr)}
+    rows.update(phase_kernels(torch, np, F, ref, fa, da))
+    phase_rl_model(torch, configs, models, envs, paac, optim, tree)
+    counts = {"nstep_returns": phase_training(torch, paper_atari, ops, tree,
+                                              card)["nstep_returns"]}
+    phase_model(torch, np, configs, models, tree)
+    serving_counts = phase_serving(torch, np, configs, models, ops, serve,
+                                   serving, tree, card)
+    counts.update(flash_attention=serving_counts["flash_attention"],
+                  decode_attention=serving_counts["decode_attention"])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -436,7 +753,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"]})
+            **{k: row[k] for k in ("shape", "large") if k in row}})
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

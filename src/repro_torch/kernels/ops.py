@@ -11,13 +11,27 @@ from __future__ import annotations
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.nstep_returns import check_inputs as _check_nstep
+from repro_torch.kernels.nstep_returns import nstep_returns_cuda
 
-launches = {"flash_attention": 0, "decode_attention": 0}
+launches = {"nstep_returns": 0, "flash_attention": 0, "decode_attention": 0}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def nstep_returns(rewards, dones, bootstrap, gamma: float):
+    """K1. Time-major rewards (T, E) float32, dones (T, E) bool, bootstrap
+    (E,) float32 -> returns (T, E) float32. Both routes refuse the same
+    inputs."""
+    if rewards.device.type == "cpu":
+        _check_nstep(rewards, dones, bootstrap)
+        return _ref.nstep_returns_ref(rewards, dones, bootstrap, gamma)
+    out = nstep_returns_cuda(rewards, dones, bootstrap, gamma)
+    launches["nstep_returns"] += 1
+    return out
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

@@ -14,6 +14,19 @@ import torch
 NEG_INF = -1e30
 
 
+def nstep_returns_ref(rewards, dones, bootstrap, gamma: float):
+    """Paper Algorithm 1 lines 11-15, time-major: rewards/dones (T, E),
+    bootstrap (E,) -> returns (T, E) float32, with
+    R_t = r_t + gamma * (1 - done_t) * R_{t+1} from R_T = bootstrap."""
+    nd = 1.0 - dones.float()
+    carry = bootstrap.float()
+    out = []
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        carry = rewards[t].float() + (gamma * nd[t]) * carry
+        out.append(carry)
+    return torch.stack(out[::-1])
+
+
 def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
     """q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D). Returns (B, Sq, H, Dv)."""
     B, Sq, H, D = q.shape

@@ -35,21 +35,15 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.steps import build_serve_step
 from repro_torch.models import init_policy, policy_prefill
 from repro_torch.utils import get_logger
+from repro_torch.utils.sampling import seeded_generators
 
 log = get_logger("serve")
 
 
 def demo_generators(seed: int, device):
     """Three independent generators on ``device`` — parameters, prompts,
-    decode sampling — from one root seed. No stream reuses another's
-    seed, so weights and data are never correlated."""
-    states = np.random.SeedSequence(seed).spawn(3)
-    gens = []
-    for ss in states:
-        g = torch.Generator(device=device)
-        g.manual_seed(int(ss.generate_state(1, np.uint64)[0]))
-        gens.append(g)
-    return tuple(gens)
+    decode sampling — from one root seed."""
+    return seeded_generators(seed, 3, device)
 
 
 def percentile_ms(xs, q: float) -> float:

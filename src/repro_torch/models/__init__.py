@@ -1,9 +1,10 @@
-"""Unified policy/value model API of the port (token families).
+"""Unified policy/value model API of the port.
 
 The same functional surface as ``repro.models``, for the families ported
-so far (dense GQA):
+so far — the paper's CNNs and MLP (``family == "cnn"``) and dense GQA:
 
 * ``init_policy(cfg, *, generator, device)``           -> params
+* ``policy_apply(params, cfg, obs)``  -> (logits, values, {})  (CNN family)
 * ``init_policy_cache(cfg, batch, max_len, *, device)``  -> decode cache
 * ``policy_prefill(params, cfg, tokens, …)``  -> (logits, values, cache)
 * ``policy_decode(params, cfg, cache, tok, pos)`` -> (logits, value, cache)
@@ -17,6 +18,7 @@ from typing import Optional
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
+from repro_torch.models.convnet import cnn_forward, init_cnn
 from repro_torch.models.heads import apply_heads, init_heads
 
 
@@ -27,8 +29,24 @@ def init_policy(cfg, *, generator, device="cuda"):
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, parameters "
                          f"are asked for on {dev}")
-    return {"trunk": tfm.init_model(generator, cfg),
-            "heads": init_heads(generator, cfg)}
+    if cfg.family == "cnn":
+        trunk = init_cnn(generator, cfg)
+    else:
+        trunk = tfm.init_model(generator, cfg)
+    return {"trunk": trunk, "heads": init_heads(generator, cfg)}
+
+
+def policy_apply(params, cfg, obs):
+    """Full batched evaluation of the CNN family: obs (B, *obs_shape) ->
+    (logits (B, A), values (B,), {}). The token families' full-sequence
+    pass comes with the token training path (ROADMAP Queue 1 item 11)."""
+    if cfg.family != "cnn":
+        raise NotImplementedError(
+            f"policy_apply: family {cfg.family!r} is not ported yet; the "
+            "token families' training pass is ROADMAP Queue 1 item 11")
+    h = cnn_forward(params["trunk"], cfg, obs)
+    logits, value = apply_heads(params["heads"], cfg, h)
+    return logits, value, {}
 
 
 def init_policy_cache(cfg, batch: int, max_len: int, dtype=None, *,

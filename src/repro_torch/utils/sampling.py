@@ -9,8 +9,9 @@ whatever else runs beside it — the port's counterpart of the reference's
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -23,6 +24,18 @@ def stream_generator(seed: int, t: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed((seed << 32) | t)
     return g
+
+
+def seeded_generators(seed: int, n: int, device) -> Tuple[torch.Generator, ...]:
+    """``n`` independent generators on ``device`` from one root seed (numpy's
+    ``SeedSequence(seed).spawn(n)``): no stream reuses another's seed, so
+    e.g. weights and data are never correlated."""
+    gens = []
+    for ss in np.random.SeedSequence(seed).spawn(n):
+        g = torch.Generator(device=device)
+        g.manual_seed(int(ss.generate_state(1, np.uint64)[0]))
+        gens.append(g)
+    return tuple(gens)
 
 
 def _gumbel_max(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

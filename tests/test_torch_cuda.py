@@ -1,12 +1,15 @@
 """The port on the card: hand-written kernels against their plain versions,
-and the reduced qwen2 on the card against the same weights on the CPU.
+the reduced qwen2 and the full-size ``paac_nature`` on the card against
+the same weights on the CPU, and one training iteration through K1.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one. This file imports no JAX, so it also runs on a machine that has
 none: from the repository root,
 ``PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py``.
 Tolerances: fp32 1e-4; bf16 2e-2 (absolute and relative) against the
-plain version in fp32 on the same bf16 inputs; logits 1e-4.
+plain version in fp32 on the same bf16 inputs; logits 1e-4; n-step
+returns 1e-5 (absolute and relative). TF32 is off for matmuls and
+convolutions.
 """
 import numpy as np
 import pytest
@@ -17,6 +20,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.nstep_returns import nstep_returns_cuda  # noqa: E402
+from repro_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
 
 @pytest.fixture
@@ -24,6 +29,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -83,7 +89,8 @@ def test_dispatch_counts_only_kernel_launches(cuda):
     ops.flash_attention(q, k, k)
     ops.decode_attention(q[:, 0].contiguous(), k, k, 3)
     ops.flash_attention(q.cpu(), k.cpu(), k.cpu())
-    assert ops.launches == {"flash_attention": 1, "decode_attention": 1}
+    assert ops.launches == {"nstep_returns": 0, "flash_attention": 1,
+                            "decode_attention": 1}
     with pytest.raises(ValueError):  # no fallback: a bad input raises
         ops.flash_attention(q.half(), k.half(), k.half())
 
@@ -114,3 +121,63 @@ def test_reduced_qwen2_on_the_card_matches_the_cpu(cuda):
         lc, _, cc = policy_decode(cpu, cfg, cc, tok, pos)
         lg, _, cg = policy_decode(gpu, cfg, cg, tok.to(cuda), pg)
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.0, 0.99, 1.0])
+@pytest.mark.parametrize("E,T", [(1, 1), (33, 5), (256, 64), (4096, 5)])
+def test_nstep_kernel_matches_plain_version(cuda, E, T, gamma):
+    g = torch.Generator(cuda).manual_seed(E + T)
+    r = torch.randn(T, E, generator=g, device=cuda)
+    d = torch.rand(T, E, generator=g, device=cuda) < 0.1
+    if E >= 2:
+        d[:, 0], d[:, 1] = True, False
+    b = torch.randn(E, generator=g, device=cuda)
+    got = nstep_returns_cuda(r, d, b, gamma)
+    want = ref.nstep_returns_ref(r, d, b, gamma)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):  # no fallback: a bad input raises
+        nstep_returns_cuda(r, d, b.requires_grad_(True), gamma)
+
+
+def _paac_nature(device, n_envs):
+    from repro_torch.configs import get_config
+    from repro_torch.core.agents import PAACAgent, PAACConfig
+    from repro_torch.envs import AtariLike, FrameStack
+
+    env = FrameStack(AtariLike(n_envs, device=device), 4)
+    cfg = get_config("paac_nature").replace(obs_shape=env.obs_shape,
+                                            num_actions=env.num_actions)
+    return env, PAACAgent(cfg, PAACConfig(t_max=5))
+
+
+@pytest.mark.cuda
+def test_one_training_iteration_on_the_card_launches_k1_once(cuda):
+    import math
+
+    from repro_torch.core import ParallelRL
+
+    env, agent = _paac_nature(cuda, 8)
+    rl = ParallelRL(env, agent, seed=0, device=cuda)
+    before = [t.clone() for t in tree_leaves(rl.params)]
+    ops.reset_launches()
+    res = rl.run(1)
+    assert ops.launches["nstep_returns"] == 1
+    assert all(t.is_cuda for t in tree_leaves(rl.params))
+    assert all(math.isfinite(v) for v in res.mean_metrics.values())
+    assert not all(torch.equal(a, b) for a, b in zip(before, tree_leaves(rl.params)))
+
+
+@pytest.mark.cuda
+def test_paac_nature_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.models import init_policy, policy_apply
+
+    _, agent = _paac_nature("cpu", 1)
+    cpu = init_policy(agent.cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    obs = torch.rand(32, 84, 84, 4, generator=torch.Generator().manual_seed(1))
+    lc, vc, _ = policy_apply(cpu, agent.cfg, obs)
+    lg, vg, _ = policy_apply(gpu, agent.cfg, obs.to(cuda))
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(vg.cpu(), vc, rtol=1e-4, atol=1e-4)

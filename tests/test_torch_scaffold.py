@@ -4,9 +4,10 @@
   interpreter where ``jax`` and ``repro`` cannot be imported;
 * no module under ``src/repro_torch`` and not ``chip_smoke.py`` names
   ``jax`` or ``repro`` in an import (AST scan);
-* every kernel source carries its note and C entry point, the build goes
-  to an ignored directory, and ``chip_smoke.py`` refuses to run without a
-  CUDA device, printing no result.
+* every kernel source carries its note and C entry point, is built, the
+  build goes to an ignored directory, and ``chip_smoke.py`` refuses to run
+  without a CUDA device, printing no result;
+* the training slice's modules are among those the pins above cover.
 """
 import ast
 import os
@@ -87,6 +88,21 @@ def test_every_kernel_source_is_annotated_and_built_into_an_ignored_dir():
     assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_every_source_is_built_and_the_training_slice_is_pinned():
+    from repro_torch.kernels import _build
+
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == sorted(
+        _build.SOURCES)
+    mods = set(_modules())
+    for m in ("kernels.nstep_returns", "core.returns", "core.rollout",
+              "core.framework", "core.agents.base", "core.agents.paac",
+              "optim.optimizer", "optim.schedules", "configs.paac_cnn",
+              "models.convnet", "envs.base", "envs.gridworld", "envs.catch",
+              "envs.atari_like", "envs.wrappers", "launch.paper_atari",
+              "utils.tree", "utils.bridge"):
+        assert f"repro_torch.{m}" in mods, m
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
