@@ -17,6 +17,15 @@ path:
               and a never-done row (|err| <= 1e-5 + 1e-5 |ref|), with
               CUDA-event times (median of 30, L2 flushed) at the paper's
               E=32, T=5 and at E=4096, T=64;
+   vtrace   — K2 (V-trace targets) against its plain version on the card
+              over E in {1, 8, 32, 33, 256, 4096}, T in {1, 5, 64},
+              (rho_bar, c_bar) in {(1, 1), (2, 1), (1e9, 1e9), (inf, inf)}
+              and gamma in {0, 0.99, 1}; rho = exp(N(0, 0.5)) with a row of
+              rho = 50, dones at 10% with an all-done and a never-done row
+              (|err| <= 1e-5 + 1e-5 |ref|; where unclipped c on the rho = 50
+              row overflows float32 in the plain version, the kernel must
+              give the same inf or nan), with CUDA-event times at
+              (T=5, E=32), (T=5, E=8) and (T=64, E=4096);
 3. kernels  — K3 and K4 against their plain versions on the card, at the
               serving path's shapes, in fp32 (atol 1e-4) and bf16
               (|err| <= 2e-2 + 2e-2 |ref| against the plain version in
@@ -41,6 +50,23 @@ path:
               device-busy ms, launches); then the entry point itself,
               ``paper_atari --arch paac_nature --n-envs 32 --iters 50``;
               then n_e = 256 for timesteps/s;
+   pipeline — the pipelined actor/learner (``PipelinedRL``, device ring,
+              thread actors) in the paper's setting (paac_nature,
+              FrameStack(AtariLike(32)), fp32): (a) two same-seed
+              ParallelRL runs agree bitwise, then lockstep at depth 1 with
+              rho_bar = c_bar = inf for 20 iterations equals ParallelRL
+              bitwise (metrics and every parameter) and launches K1 20
+              times and K2 never (cuDNN deterministic for this part);
+              (b) one actor at depth 2, clips 1: 10 warm-up and 200 timed
+              updates, K2 launched 200 times and K1 never, losses finite,
+              parameters changed, every (actor_id, seq) learned once,
+              mean staleness > 0 and the largest <= depth + 1; (c) four
+              actors of 8 envs at depth 4, the same checks but the
+              staleness bound; timesteps/s, actor/learner idle and a
+              profiler window (device-busy share, time two streams are
+              busy at once) for (b), (c) and ParallelRL at n_e = 32; then
+              ``paper_atari --arch paac_nature --n-envs 32 --iters 50
+              --pipeline``;
 6. model    — reduced qwen2-7b in fp32, one set of weights on the CPU
               (plain versions) and on the card (kernels): prefill and
               decode logits must agree within 1e-4;
@@ -59,12 +85,16 @@ path:
 TF32 is off for matmuls and convolutions throughout. The line before the
 last is a JSON object with each kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
-phase fails, it exits non-zero and prints no result.
+phase fails, it exits non-zero and prints no result. ``--trace-dir DIR``
+also writes the pipeline runs' Chrome traces (actor, ring and learner
+spans) there.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -339,6 +369,76 @@ def phase_returns(torch, ref, nr, dev="cuda"):
     return row
 
 
+def phase_vtrace(torch, ref, vt, dev="cuda"):
+    """K2 against its plain version over the sweep, then timed."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    inf = float("inf")
+    worst, cases, overflow = 0.0, 0, 0
+    data = {}
+    for E in (1, 8, 32, 33, 256, 4096):
+        for T in (1, 5, 64):
+            r = torch.randn(T, E, generator=g, device=dev)
+            d = torch.rand(T, E, generator=g, device=dev) < 0.1
+            v = torch.randn(T, E, generator=g, device=dev)
+            rho = torch.exp(0.5 * torch.randn(T, E, generator=g, device=dev))
+            if E >= 3:  # all done, never done, rho far above every clip
+                d[:, 0], d[:, 1], rho[:, 2] = True, False, 50.0
+            b = torch.randn(E, generator=g, device=dev)
+            data[(E, T)] = (r, d, v, b, rho)
+            for rho_bar, c_bar in ((1.0, 1.0), (2.0, 1.0), (1e9, 1e9),
+                                   (inf, inf)):
+                for gamma in (0.0, 0.99, 1.0):
+                    args = (r, d, v, b, rho, gamma, rho_bar, c_bar)
+                    for out, plain in zip(vt.vtrace_returns_cuda(*args),
+                                          ref.vtrace_returns_ref(*args)):
+                        # unclipped c over the rho = 50 row overflows
+                        # float32 in both versions (50^T): there the kernel
+                        # must give exactly the plain version's inf or nan
+                        fin = torch.isfinite(plain)
+                        check(bool((torch.isfinite(out) == fin).all())
+                              and bool((out[~fin].nan_to_num(0.0, 1.0, -1.0)
+                                        == plain[~fin].nan_to_num(
+                                            0.0, 1.0, -1.0)).all()),
+                              f"K2 non-finite where its plain version is not "
+                              f"(or the other way) at E={E} T={T} clips="
+                              f"({rho_bar}, {c_bar}) gamma={gamma}")
+                        overflow += int((~fin).sum())
+                        err = (out[fin] - plain[fin]).abs()
+                        check(bool((err <= RETURNS_TOL
+                                    + RETURNS_TOL * plain[fin].abs()).all()),
+                              f"K2 disagrees with its plain version at E={E} "
+                              f"T={T} clips=({rho_bar}, {c_bar}) gamma="
+                              f"{gamma}: max err {err.max().item():.3g}")
+                        if err.numel():
+                            worst = max(worst, err.max().item())
+                    cases += 1
+    say("vtrace", f"K2 vtrace_returns fp32, {cases} cases (E in 1/8/32/33/"
+        "256/4096, T in 1/5/64, clips (1,1)/(2,1)/(1e9,1e9)/(inf,inf), gamma "
+        f"0/0.99/1, a row of rho=50): max_abs_err {worst:.3g} over vs and "
+        f"pg_adv (atol {RETURNS_TOL} + rtol {RETURNS_TOL}); {overflow} "
+        "entries overflow float32 in both versions (unclipped c on the "
+        "rho=50 row) and match exactly")
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
+    row = {"max_abs_err": worst, "library_ms": None, "other": []}
+    for E, T in ((32, 5), (8, 5), (4096, 64)):
+        args = data[(E, T)] + (0.99, 1.0, 1.0)
+        ms = time_ms(torch, lambda: vt.vtrace_returns_cuda(*args), flush)
+        plain_ms = time_ms(torch, lambda: ref.vtrace_returns_ref(*args), flush)
+        b_ms, b_by = bound(T * E * (4 + 1 + 4 + 4) + 2 * T * E * 4 + 4 * E,
+                           15 * T * E, "float32")
+        say("vtrace", f"K2 timed (fp32 T={T} E={E}): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.3g} ms ({b_by}), "
+            "library none")
+        if (E, T) == (32, 5):  # the one-actor pipeline's shape
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       shape=f"fp32 T={T} E={E}")
+        else:
+            row["other"].append({"shape": f"fp32 T={T} E={E}", "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": b_ms})
+    del flush
+    return row
+
+
 def phase_rl_model(torch, configs, models, envs, paac, optim, tree,
                    dev="cuda"):
     """paac_nature at full size, fp32: the CPU against the card."""
@@ -541,6 +641,247 @@ def phase_training(torch, paper_atari, ops, tree, card, dev="cuda",
     return counts
 
 
+def _merge(intervals):
+    """Sorted, merged copies of ``(start, end)`` intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def stream_overlap(prof, n: int):
+    """(ms an iteration during which work of two or more CUDA streams runs
+    at once, {stream id: busy ms an iteration}) of a profiler window."""
+    from torch.autograd import DeviceType
+
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per.setdefault(e.device_resource_id, []).append(
+                (e.time_range.start, e.time_range.end))
+    busy, edges = {}, []
+    for sid, iv in per.items():
+        merged = _merge(iv)
+        busy[sid] = sum(b - a for a, b in merged) / n / 1e3
+        edges += [(a, 1) for a, _ in merged] + [(b, -1) for _, b in merged]
+    both, depth, last = 0.0, 0, 0.0
+    for t, step in sorted(edges):
+        if depth >= 2:
+            both += t - last
+        depth, last = depth + step, t
+    return both / n / 1e3, busy
+
+
+def span_overlap(hub) -> float:
+    """Share of the learner's update spans (host clock) during which some
+    actor was inside its collect span."""
+    from repro_torch.telemetry.spans import COLLECT, LEARNER_UPDATE
+
+    updates, collects = [], []
+    for _, _, em in hub.tracks():
+        for cat, t0, t1 in em.snapshot():
+            if em.name == "learner" and cat == LEARNER_UPDATE:
+                updates.append((t0, t1))
+            elif em.name.startswith("actor") and cat == COLLECT:
+                collects.append((t0, t1))
+    merged = _merge(collects)
+    inter = sum(max(0.0, min(b, d) - max(a, c))
+                for a, b in updates for c, d in merged)
+    total = sum(b - a for a, b in updates)
+    return inter / total if total > 0 else 0.0
+
+
+def span_means(hub) -> str:
+    """Mean host ms of each (track, stage) span of a run: the learner's
+    ring wait, lease wait, update and publish, the actors' collect and
+    ring wait."""
+    from repro_torch.telemetry.spans import CATEGORIES
+
+    sums = {}
+    for _, _, em in hub.tracks():
+        who = "actors" if em.name.startswith("actor") else em.name
+        if who == "ring":
+            continue
+        for cat, t0, t1 in em.snapshot():
+            row = sums.setdefault((who, CATEGORIES[cat]), [0.0, 0])
+            row[0] += (t1 - t0) * 1e3
+            row[1] += 1
+    return ", ".join(f"{who} {cat} {ms / n:.3f} x{n}"
+                     for (who, cat), (ms, n) in sorted(sums.items()))
+
+
+def phase_pipeline(torch, paper_atari, configs, ops, tree, card, dev="cuda",
+                   n_envs=32, warmup=10, iters=200, lock_iters=20, window=10,
+                   trace_dir=None):
+    """The pipelined actor/learner in the paper's setting: lockstep against
+    ParallelRL bitwise, then one and four actors timed beside ParallelRL.
+    Returns K2's launches in the one-actor run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    PipelineConfig = configs.PipelineConfig
+    leaves = tree.tree_leaves
+    inf = float("inf")
+    shared = ("loss", "policy_loss", "value_loss", "entropy", "reward_sum",
+              "episodes")
+
+    def bitwise(ra, a, rb, b, what):
+        for k in shared:
+            check(ra.mean_metrics[k] == rb.mean_metrics[k],
+                  f"{what}: mean {k} {ra.mean_metrics[k]!r} != "
+                  f"{rb.mean_metrics[k]!r}")
+        diff = [i for i, (x, y) in enumerate(zip(leaves(a.params),
+                                                 leaves(b.params)))
+                if not torch.equal(x, y)]
+        check(not diff, f"{what}: parameter leaves {diff} differ")
+
+    # (a) lockstep, infinite clips: the synchronous update, bit for bit
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        sync = [paper_atari.build("paac_nature", n_envs, SEED, dev)
+                for _ in range(2)]
+        sync_res = [rl.run(lock_iters) for rl in sync]
+        bitwise(sync_res[0], sync[0], sync_res[1], sync[1],
+                "two same-seed ParallelRL runs on the card")
+        lock = paper_atari.build("paac_nature", n_envs, SEED, dev,
+                                 PipelineConfig(queue_depth=1, lockstep=True,
+                                                rho_bar=inf, c_bar=inf))
+        ops.reset_launches()
+        lock_res = lock.run(lock_iters)
+        counts = dict(ops.launches)
+        check(counts["nstep_returns"] == lock_iters
+              and counts["vtrace_returns"] == 0,
+              f"lockstep launches {counts}, not K1 x{lock_iters} and no K2")
+        check(lock.staleness == [0.0] * lock_iters,
+              f"lockstep staleness {lock.staleness}")
+        bitwise(lock_res, lock, sync_res[0], sync[0],
+                "lockstep PipelinedRL vs ParallelRL")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    say("pipeline", f"(a) two same-seed ParallelRL runs of {lock_iters} "
+        "iterations agree bitwise; lockstep PipelinedRL (depth 1, rho_bar = "
+        f"c_bar = inf) equals them bitwise in every metric and all "
+        f"{len(leaves(lock.params))} parameter leaves; launches K1 "
+        f"{counts['nstep_returns']}, K2 {counts['vtrace_returns']}")
+    del sync, lock
+
+    def timed(label, key, rl, expect):
+        rl.run(warmup)
+        before = [t.clone() for t in leaves(rl.params)]
+        ops.reset_launches()
+        res = rl.run(iters)
+        counts = dict(ops.launches)
+        m = res.mean_metrics
+        check(all(math.isfinite(v) for v in m.values()),
+              f"{label}: non-finite metrics {m}")
+        changed = max((a - b).abs().max().item() for a, b in
+                      zip(before, leaves(rl.params)))
+        check(changed > 0, f"{label}: the parameters did not change")
+        expect(rl, res, counts)
+        hub = getattr(rl, "telemetry", None)
+        host_overlap = span_overlap(hub) if hub is not None else None
+        if hub is not None:
+            say("pipeline", f"{label}: mean host ms of each span (track, "
+                f"stage, count): {span_means(hub)}")
+        if trace_dir and hub is not None:
+            hub.write_trace(os.path.join(trace_dir, f"pipeline_{key}.json"))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rl.run(window)
+            torch.cuda.synchronize()
+        busy_ms, _ = device_window(prof, window)
+        both_ms, streams = stream_overlap(prof, window)
+        per_iter = rl._steps_per_iter  # timesteps an update
+        iter_ms = 1e3 * per_iter / res.timesteps_per_sec
+        wall_s = iters * iter_ms / 1e3
+        n_act = len(res.per_actor_idle_s) or 1
+        row = dict(tps=res.timesteps_per_sec, iter_ms=iter_ms,
+                   busy_ms=busy_ms, both_ms=both_ms,
+                   actor_idle=res.actor_idle_s / (n_act * wall_s),
+                   learner_idle=res.learner_idle_s / wall_s)
+        say("pipeline", f"{label}: {iters} updates after {warmup} warm-up, "
+            f"launches K1 {counts['nstep_returns']} K2 "
+            f"{counts['vtrace_returns']}; {res.timesteps_per_sec:.1f} "
+            f"timesteps/s, {iter_ms:.2f} ms an update of {per_iter} "
+            f"timesteps; mean loss {m['loss']:.4f}, entropy "
+            f"{m['entropy']:.4f}, rho_mean {m.get('rho_mean', 1.0):.4f}, "
+            f"rho_clip_frac {m.get('rho_clip_frac', 0.0):.4f}, staleness "
+            f"{m.get('staleness', 0.0):.3f}; actor idle {res.actor_idle_s:.3f}"
+            f" s ({100 * row['actor_idle']:.1f}% of each actor's wall), "
+            f"learner idle {res.learner_idle_s:.3f} s "
+            f"({100 * row['learner_idle']:.1f}%); learner update spans "
+            "overlapping an actor's collect span: "
+            + ("n/a" if host_overlap is None else f"{100 * host_overlap:.1f}%")
+            + f"; profiler window of {window}: device busy {busy_ms:.3f} ms "
+            f"an update ({100 * busy_ms / iter_ms:.1f}% of the unprofiled "
+            f"{iter_ms:.2f} ms), two or more streams busy at once "
+            f"{both_ms:.3f} ms; busy ms by stream "
+            + ", ".join(f"{k}: {v:.3f}" for k, v in sorted(streams.items()))
+            + f" ({card})")
+        return row, counts
+
+    def one_actor(rl, res, counts):
+        check(counts["vtrace_returns"] == iters
+              and counts["nstep_returns"] == 0,
+              f"one actor: launches {counts}, not K2 x{iters} and no K1")
+        check(sorted(rl.learned_ids) == [(0, s) for s in range(iters)],
+              "one actor: an (actor_id, seq) was dropped or learned twice")
+        check(res.mean_metrics["staleness"] > 0
+              and max(rl.staleness) <= rl.pipeline.queue_depth + 1,
+              f"one actor: staleness mean {res.mean_metrics['staleness']} "
+              f"max {max(rl.staleness)}")
+        check(0 < res.mean_metrics["rho_mean"] < math.inf,
+              f"one actor: rho_mean {res.mean_metrics['rho_mean']}")
+
+    def four_actors(rl, res, counts):
+        check(counts["vtrace_returns"] == iters
+              and counts["nstep_returns"] == 0,
+              f"four actors: launches {counts}, not K2 x{iters} and no K1")
+        check(sorted(rl.learned_ids) == [(a, s) for a in range(4)
+                                         for s in range(iters // 4)],
+              "four actors: an (actor_id, seq) was dropped or learned twice")
+        check(0 < res.mean_metrics["rho_mean"] < math.inf,
+              f"four actors: rho_mean {res.mean_metrics['rho_mean']}")
+
+    def synchronous(rl, res, counts):
+        check(counts["nstep_returns"] == iters
+              and counts["vtrace_returns"] == 0,
+              f"ParallelRL: launches {counts}")
+
+    rows = {}
+    rows["sync"], _ = timed(f"ParallelRL n_e={n_envs}", "sync",
+                            paper_atari.build("paac_nature", n_envs, SEED, dev),
+                            synchronous)
+    rows["one"], counts = timed(
+        "(b) one actor, depth 2", "one_actor",
+        paper_atari.build("paac_nature", n_envs, SEED, dev,
+                          PipelineConfig(queue_depth=2)), one_actor)
+    rows["four"], _ = timed(
+        f"(c) four actors of {n_envs // 4} envs, depth 4", "four_actors",
+        paper_atari.build("paac_nature", n_envs, SEED, dev,
+                          PipelineConfig(queue_depth=4, num_actors=4)),
+        four_actors)
+    say("pipeline", "timesteps/s: " + ", ".join(
+        f"{k} {r['tps']:.1f} ({r['tps'] / rows['sync']['tps']:.2f}x sync)"
+        for k, r in rows.items()))
+
+    argv = ["--arch", "paac_nature", "--n-envs", str(n_envs), "--iters", "50",
+            "--seed", str(SEED), "--device", str(dev), "--pipeline"]
+    cli = paper_atari.main(argv)
+    check(len(cli) == 2 and cli[-1].steps == 50 * n_envs * 5
+          and all(math.isfinite(v) for r in cli for v in r.mean_metrics.values()),
+          f"paper_atari {' '.join(argv)}: {cli}")
+    say("pipeline", f"entry point: python -m repro_torch.launch.paper_atari "
+        f"{' '.join(argv)}: {cli[-1].steps} steps in 2 epochs, "
+        f"{cli[-1].timesteps_per_sec:.1f} timesteps/s in the second, "
+        f"staleness {cli[-1].mean_metrics['staleness']:.2f}")
+    return counts["vtrace_returns"]
+
+
 def phase_model(torch, np, configs, models, tree):
     """Reduced qwen2-7b, fp32: CPU (plain versions) against the card."""
     cfg = configs.get_config("qwen2-7b").reduced()
@@ -658,8 +999,8 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
     check(lock["tokens"].shape == (4, 9), f"lockstep tokens {lock['tokens'].shape}")
     check(bool(((lock["tokens"] >= 0) & (lock["tokens"] < cfg.vocab_size)).all()),
           "lockstep token out of range")
-    check(lock_counts == {"nstep_returns": 0, "flash_attention": L,
-                          "decode_attention": 8 * L},
+    check(lock_counts == {"nstep_returns": 0, "vtrace_returns": 0,
+                          "flash_attention": L, "decode_attention": 8 * L},
           f"lockstep launches {lock_counts}")
     say("serving", f"lockstep demo (scalar pos): batch 4, prompt 128, 8 steps, "
         f"launches {lock_counts}; prefill {lock['prefill_s'] * 1e3:.1f} ms, "
@@ -703,6 +1044,8 @@ def profile_decode(torch, np, serving, cfg, params, slots, max_len,
 KERNELS = {
     "nstep_returns": ("src/repro_torch/csrc/nstep_returns.cu",
                       "src/repro/kernels/nstep_returns.py:54"),
+    "vtrace_returns": ("src/repro_torch/csrc/vtrace.cu",
+                       "src/repro/kernels/vtrace.py:92"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:113"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
@@ -710,7 +1053,12 @@ KERNELS = {
 }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="smoke run of the port on one "
+                                 "CUDA card")
+    ap.add_argument("--trace-dir", default="",
+                    help="also write the pipeline runs' Chrome traces here")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -726,6 +1074,7 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import nstep_returns as nr
+    from repro_torch.kernels import vtrace as vt
     from repro_torch.launch import paper_atari, serve
     from repro_torch.utils import tree
 
@@ -733,11 +1082,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     card = phase_card(torch, _build)
-    rows = {"nstep_returns": phase_returns(torch, ref, nr)}
+    rows = {"nstep_returns": phase_returns(torch, ref, nr),
+            "vtrace_returns": phase_vtrace(torch, ref, vt)}
     rows.update(phase_kernels(torch, np, F, ref, fa, da))
     phase_rl_model(torch, configs, models, envs, paac, optim, tree)
     counts = {"nstep_returns": phase_training(torch, paper_atari, ops, tree,
                                               card)["nstep_returns"]}
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
+    counts["vtrace_returns"] = phase_pipeline(
+        torch, paper_atari, configs, ops, tree, card,
+        trace_dir=args.trace_dir or None)
     phase_model(torch, np, configs, models, tree)
     serving_counts = phase_serving(torch, np, configs, models, ops, serve,
                                    serving, tree, card)
@@ -753,7 +1108,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            **{k: row[k] for k in ("shape", "large") if k in row}})
+            **{k: row[k] for k in ("shape", "large", "other") if k in row}})
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

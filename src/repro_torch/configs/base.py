@@ -3,15 +3,16 @@
 Every selectable architecture (``--arch <id>``) is an ``ArchConfig``,
 registered by one file under ``repro_torch/configs``. Each config also
 exposes a ``reduced()`` variant (<=2 layers, d_model<=256, fp32) used by
-the CPU tests. The port keeps its own copy rather than importing
-``repro``; ``PipelineConfig`` and the input-shape table wait for the slices
-that use them.
+the CPU tests. ``PipelineConfig`` holds the knobs of the asynchronous
+actor/learner pipeline (``repro_torch.pipeline``). The port keeps its own
+copy rather than importing ``repro``; the input-shape table waits for the
+slice that uses it.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 @dataclass(frozen=True)
 class ArchConfig:
@@ -164,6 +165,162 @@ class ArchConfig:
             dense = min(self.cnn_dense, 64)
             kw.update(cnn_spec=self.cnn_spec[:2], cnn_dense=dense, d_model=dense)
         return self.replace(**kw)
+
+
+# ---------------------------------------------------------------------------
+# Pipeline (asynchronous actor/learner) config — repro_torch.pipeline
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """Knobs for the asynchronous actor/learner pipeline
+    (``repro_torch.pipeline``), a copy of ``repro``'s: every field, its
+    default and the validation of ``__post_init__``.
+
+    ``num_actors`` actor replicas feed the learner; a single env handed to
+    ``PipelinedRL`` is split along the env axis into ``num_actors`` equal
+    shards, or a list of envs gives each replica its own. ``queue_depth``
+    bounds the shared trajectory ring: the actors collectively run at most
+    that many rollouts ahead. ``rho_bar`` and ``c_bar`` are the V-trace
+    clips (Espeholt et al. 2018) on the importance ratio
+    ρ_t = π_learner(a|s)/π_behaviour(a|s); ``float("inf")`` for both turns
+    the correction off exactly (the synchronous PAAC update, bit for bit).
+    ``lockstep`` makes the (single) actor wait for the learner's newest
+    params before each rollout: synchronous semantics through the
+    pipelined code path.
+
+    The port runs the device rollout plane with thread actors. The other
+    settings are validated here as in ``repro`` but ``PipelinedRL`` refuses
+    them with ``NotImplementedError`` naming the ROADMAP item that ports
+    them: the host plane (Queue 1 item 8), the mesh plane (item 14), the
+    process backend, the replay plane, elastic recovery, fault plans and
+    checkpoints (items 9 and 10), the heartbeat and the stall watchdog
+    (item 13). ``trace_path`` writes a Chrome trace of the run's spans.
+    """
+
+    queue_depth: int = 2
+    rho_bar: float = 1.0
+    c_bar: float = 1.0
+    num_actors: int = 1
+    lockstep: bool = False
+    rollout_plane: str = "auto"  # "auto" | "device" | "host" | "mesh"
+    actor_backend: str = "thread"  # "thread" | "process"
+    mesh_shape: int = 1  # devices on the ("data",) rollout mesh
+    # off-policy replay plane (sampled ReplayRing instead of the FIFO ring)
+    replay_plane: bool = False
+    replay_capacity: int = 64  # resident rollouts before FIFO eviction
+    replay_batch: int = 1  # rollouts sampled per learner update
+    prioritized: bool = False  # TD-error-weighted sampling (else uniform)
+    # observability (repro_torch.telemetry)
+    trace_path: str = ""  # "" -> no Chrome trace written at run end
+    metrics_jsonl: str = ""  # "" -> no JSONL heartbeat stream
+    heartbeat_s: float = 1.0  # heartbeat tick interval
+    stall_timeout_s: float = 0.0  # 0 -> stall watchdog off
+    # fault tolerance
+    elastic: bool = False  # False -> fail-fast
+    restart_budget: int = 1  # respawns per actor slot before degrading
+    restart_backoff_s: float = 0.05  # base of the exponential respawn backoff
+    lease_timeout_s: float = 60.0  # param-slot reserve/publish deadline
+    fault_plan: Optional[object] = None  # a FaultPlan, where ported
+    checkpoint_dir: str = ""  # "" -> periodic checkpointing off
+    checkpoint_every: int = 0  # learner iterations between snapshots (0=off)
+
+    def __post_init__(self):
+        if self.mesh_shape < 1:
+            raise ValueError(f"mesh_shape must be >= 1, got {self.mesh_shape}")
+        if self.heartbeat_s <= 0:
+            raise ValueError(
+                f"heartbeat_s must be > 0, got {self.heartbeat_s}")
+        if self.stall_timeout_s < 0:
+            raise ValueError(
+                f"stall_timeout_s must be >= 0 (0 = off), got "
+                f"{self.stall_timeout_s}")
+        if self.mesh_shape > 1:
+            if self.actor_backend == "process":
+                raise ValueError(
+                    "mesh_shape > 1 requires actor_backend='thread': process"
+                    " rollouts are born in host shared memory and cannot ride"
+                    " the device-resident mesh plane"
+                )
+            if self.rollout_plane in ("host", "device"):
+                raise ValueError(
+                    f"mesh_shape={self.mesh_shape} requires rollout_plane="
+                    "'auto' or 'mesh': the host TrajectoryQueue cannot carry"
+                    " a sharded rollout, and the flat single-device ring"
+                    " cannot carry more than one lane"
+                )
+            if self.num_actors not in (1, self.mesh_shape):
+                raise ValueError(
+                    "the mesh plane runs exactly one actor lane per mesh"
+                    f" device: num_actors must be 1 (auto) or mesh_shape"
+                    f"={self.mesh_shape}, got {self.num_actors}"
+                )
+        if self.actor_backend == "process" and self.rollout_plane in (
+                "device", "mesh"):
+            raise ValueError(
+                "actor_backend='process' forces the host rollout plane"
+                " (worker rollouts are born in shared memory); rollout_plane"
+                f"={self.rollout_plane!r} is a contradiction"
+            )
+        if self.replay_capacity < 1:
+            raise ValueError(
+                f"replay_capacity must be >= 1, got {self.replay_capacity}")
+        if self.replay_batch < 1:
+            raise ValueError(
+                f"replay_batch must be >= 1, got {self.replay_batch}")
+        if self.replay_plane:
+            if self.actor_backend == "process":
+                raise ValueError(
+                    "replay_plane requires actor_backend='thread': replay"
+                    " payloads are device-resident whole rollouts and cannot"
+                    " ride the process backend's shared-memory staging"
+                )
+            if self.mesh_shape > 1 or self.rollout_plane == "mesh":
+                raise ValueError(
+                    "replay_plane does not compose with the mesh plane yet:"
+                    " a sampled batch would have to draw one sub-rollout per"
+                    " lane coherently; use mesh_shape=1"
+                )
+            if self.rollout_plane == "host":
+                raise ValueError(
+                    "replay_plane requires the device plane (rollout_plane"
+                    " 'auto' or 'device'): the ReplayRing retains sampled"
+                    " slots on the accelerator, which the host TrajectoryQueue"
+                    " staging buffers cannot do"
+                )
+        elif self.prioritized:
+            raise ValueError(
+                "prioritized=True requires replay_plane=True: FIFO rings"
+                " consume each rollout exactly once, so sampling priorities"
+                " have no meaning there"
+            )
+        if self.restart_budget < 0:
+            raise ValueError(
+                f"restart_budget must be >= 0, got {self.restart_budget}")
+        if self.restart_backoff_s < 0:
+            raise ValueError(
+                f"restart_backoff_s must be >= 0, got "
+                f"{self.restart_backoff_s}")
+        if self.lease_timeout_s <= 0:
+            raise ValueError(
+                f"lease_timeout_s must be > 0, got {self.lease_timeout_s}")
+        if self.checkpoint_every < 0:
+            raise ValueError(
+                f"checkpoint_every must be >= 0 (0 = off), got "
+                f"{self.checkpoint_every}")
+        if self.checkpoint_every > 0 and not self.checkpoint_dir:
+            raise ValueError(
+                "checkpoint_every > 0 requires checkpoint_dir: periodic"
+                " snapshots need somewhere to land")
+        if self.elastic and (self.mesh_shape > 1
+                             or self.rollout_plane == "mesh"):
+            raise ValueError(
+                "elastic=True does not compose with the mesh plane: a dead"
+                " lane leaves every subsequent sharded batch unassemblable,"
+                " so the mesh plane stays fail-fast (see"
+                " docs/fault_tolerance.md)"
+            )
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,7 @@ later slices (ROADMAP Queue 1 items 8 and 9).
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -32,13 +32,18 @@ log = get_logger("framework")
 
 @dataclass
 class RunResult:
-    """The reference's pipeline accounting (actor/learner idle time) comes
-    with the pipeline (ROADMAP Queue 1 item 10)."""
-
     steps: int
     episodes: float
     mean_metrics: Dict[str, float]
     timesteps_per_sec: float = 0.0
+    # pipeline accounting (0 for the synchronous backend): time the actors
+    # spent blocked on a full ring / waiting for params (merged across
+    # replicas), and time the learner spent blocked on an empty ring.
+    # ``per_actor_idle_s[i]`` attributes the merged actor idle time to
+    # replica i; it sums to ``actor_idle_s``.
+    actor_idle_s: float = 0.0
+    learner_idle_s: float = 0.0
+    per_actor_idle_s: List[float] = field(default_factory=list)
 
 
 def _done_event(metrics: Dict):

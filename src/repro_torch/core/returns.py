@@ -1,4 +1,4 @@
-"""Return estimation — paper Algorithm 1 lines 11–15.
+"""Return estimation — paper Algorithm 1 lines 11–15, and V-trace.
 
 ``n_step_returns`` is the exact recursion the paper batches over actors:
 
@@ -11,9 +11,17 @@ time-major, (T, E), as the rollout stores it (the reference takes (E, T)),
 and computes it through ``kernels.ops.nstep_returns``: K1, the hand-written
 kernel, on the card; the plain version on the CPU.
 
-V-trace and GAE come with the pipelined learner (ROADMAP Queue 1 item 5).
+``vtrace_returns`` is the full IMPALA V-trace estimator (Espeholt et al.
+2018) the pipelined learner uses for queue-stale data: the n-step targets
+with truncated-importance corrections folded into the recursion. It runs
+through ``kernels.ops.vtrace_returns``: K2 on the card, the plain version
+on the CPU; time-major as well.
+
+GAE waits for a later slice (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -30,3 +38,30 @@ def n_step_returns(rewards: torch.Tensor,  # (T, E)
     return ops.nstep_returns(rewards.to(torch.float32).contiguous(),
                              dones.to(torch.bool).contiguous(),
                              bootstrap.to(torch.float32).contiguous(), gamma)
+
+
+def vtrace_returns(rewards: torch.Tensor,  # (T, E)
+                   dones: torch.Tensor,  # (T, E) bool
+                   values: torch.Tensor,  # (T, E) — V(s_t), learner params
+                   bootstrap: torch.Tensor,  # (E,) — V(s_{T+1}), learner params
+                   rho: torch.Tensor,  # (T, E) — pi_learner / pi_behaviour
+                   gamma: float,
+                   rho_bar: float = 1.0,
+                   c_bar: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full V-trace targets (Espeholt et al. 2018, eqs. 1–4), time-major.
+
+    With ρ_t = min(ρ̄, rho_t), c_t = min(c̄, rho_t) and γ_t = γ·(1-done_t):
+
+        δ_t  = ρ_t · (r_t + γ_t·V(s_{t+1}) - V(s_t))
+        v_t  = V(s_t) + δ_t + γ_t·c_t·(v_{t+1} - V(s_{t+1}))
+        adv_t = ρ_t · (r_t + γ_t·v_{t+1} - V(s_t))
+
+    Returns ``(vs, pg_adv)``, each (T, E) float32. The inputs are constants
+    of the loss: any that requires a gradient is refused (``ValueError``).
+    """
+    return ops.vtrace_returns(rewards.to(torch.float32).contiguous(),
+                              dones.to(torch.bool).contiguous(),
+                              values.to(torch.float32).contiguous(),
+                              bootstrap.to(torch.float32).contiguous(),
+                              rho.to(torch.float32).contiguous(), gamma,
+                              rho_bar, c_bar)

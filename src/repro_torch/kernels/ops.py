@@ -13,8 +13,11 @@ from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.nstep_returns import check_inputs as _check_nstep
 from repro_torch.kernels.nstep_returns import nstep_returns_cuda
+from repro_torch.kernels.vtrace import check_inputs as _check_vtrace
+from repro_torch.kernels.vtrace import vtrace_returns_cuda
 
-launches = {"nstep_returns": 0, "flash_attention": 0, "decode_attention": 0}
+launches = {"nstep_returns": 0, "vtrace_returns": 0, "flash_attention": 0,
+            "decode_attention": 0}
 
 
 def reset_launches() -> None:
@@ -31,6 +34,21 @@ def nstep_returns(rewards, dones, bootstrap, gamma: float):
         return _ref.nstep_returns_ref(rewards, dones, bootstrap, gamma)
     out = nstep_returns_cuda(rewards, dones, bootstrap, gamma)
     launches["nstep_returns"] += 1
+    return out
+
+
+def vtrace_returns(rewards, dones, values, bootstrap, rho, gamma: float,
+                   rho_bar: float = 1.0, c_bar: float = 1.0):
+    """K2. Time-major rewards, values, rho (T, E) float32, dones (T, E)
+    bool, bootstrap (E,) float32 -> ``(vs, pg_adv)``, each (T, E) float32.
+    Both routes refuse the same inputs."""
+    if rewards.device.type == "cpu":
+        _check_vtrace(rewards, dones, values, bootstrap, rho)
+        return _ref.vtrace_returns_ref(rewards, dones, values, bootstrap, rho,
+                                       gamma, rho_bar, c_bar)
+    out = vtrace_returns_cuda(rewards, dones, values, bootstrap, rho, gamma,
+                              rho_bar, c_bar)
+    launches["vtrace_returns"] += 1
     return out
 
 

@@ -27,6 +27,38 @@ def nstep_returns_ref(rewards, dones, bootstrap, gamma: float):
     return torch.stack(out[::-1])
 
 
+def vtrace_returns_ref(rewards, dones, values, bootstrap, rho, gamma: float,
+                       rho_bar: float = 1.0, c_bar: float = 1.0):
+    """V-trace (Espeholt et al. 2018) by the definition, time-major:
+    rewards/dones/values/rho (T, E), bootstrap (E,) -> ``(vs, pg_adv)``,
+    each (T, E) float32. With rc = min(rho, rho_bar), c = min(rho, c_bar)
+    and nd = 1 - done:
+
+        delta_t = rc_t (r_t + gamma nd_t V_{t+1} - V_t)
+        A_t = delta_t + gamma nd_t c_t A_{t+1}        A_T = 0
+        vs_t = V_t + A_t
+        pg_adv_t = rc_t (r_t + gamma nd_t vs_{t+1} - V_t)
+
+    with V_T = vs_T = bootstrap."""
+    r = rewards.float()
+    nd = 1.0 - dones.float()
+    v = values.float()
+    b = bootstrap.float()
+    rc = torch.clamp(rho.float(), max=rho_bar)
+    c = torch.clamp(rho.float(), max=c_bar)
+    v_next = torch.cat([v[1:], b[None]])
+    delta = rc * (r + gamma * nd * v_next - v)
+    acc = torch.zeros_like(b)
+    out = []
+    for t in range(r.shape[0] - 1, -1, -1):
+        acc = delta[t] + gamma * nd[t] * c[t] * acc
+        out.append(v[t] + acc)
+    vs = torch.stack(out[::-1])
+    vs_next = torch.cat([vs[1:], b[None]])
+    pg_adv = rc * (r + gamma * nd * vs_next - v)
+    return vs, pg_adv
+
+
 def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
     """q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D). Returns (B, Sq, H, Dv)."""
     B, Sq, H, D = q.shape

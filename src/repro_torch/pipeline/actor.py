@@ -1,0 +1,443 @@
+"""The pipeline's acting half: rollout collection decoupled from learning
+(a port of ``repro.pipeline.actor``, device plane and thread backend).
+
+``ParamSlot`` is the basic learner→actor exchange (a reference swap).
+``PingPongParamSlot`` is its safe upgrade: the learner's working params
+are *never* handed to actors — each update lands a bitwise copy in one of
+two alternating actor-facing buffers, and actors bracket their rollouts
+with ``acquire``/``release`` read leases, so the learner overwrites the
+stale buffer in place only once nobody reads it.
+
+``Rollout`` is the ring payload: the trajectory, the bootstrap
+observation, the behaviour params version (staleness = learner_version −
+behaviour_version), the producing replica and its sequence number.
+
+``ActorThread`` is one replica on its own thread. On the card the
+reference's ordering through XLA buffers becomes CUDA stream order:
+
+* each replica collects on its own ``torch.cuda.Stream``;
+* ``commit`` records an event on the learner's stream after the copy into
+  a ping-pong buffer and ``acquire`` returns it: the replica's stream
+  waits on it before its first forward, so it never reads a half-written
+  buffer;
+* after the collect the replica records an event on its stream and waits
+  for it on the host *before* it releases the lease: then ``reserve``'s
+  host-side wait for readers also covers their device reads, and the ring
+  depth really bounds the rollouts in flight (the reference's
+  ``block_until_ready`` before release). The event rides the payload, and
+  the learner's stream waits on it before reading
+  (``repro_torch.pipeline.ring.adopt``).
+
+The reference's supervisor, quota ledger, fault injector and checkpoint
+snapshot hooks wait for ROADMAP Queue 1 item 10: ``ActorThread`` keeps
+their arguments and refuses them.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from queue import Full
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.rollout import Transition, make_collect_fn  # noqa: F401
+from repro_torch.pipeline.queue import QueueClosed
+from repro_torch.telemetry.spans import (COLLECT, LEASE, QUEUE_PUT_WAIT,
+                                         SpanEmitter)
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+__all__ = [
+    "ParamSlot",
+    "PingPongParamSlot",
+    "Rollout",
+    "ActorBase",
+    "ActorThread",
+    "make_collect_fn",
+    "record_event",
+]
+
+
+def record_event(tree) -> Optional["torch.cuda.Event"]:
+    """A CUDA event recorded on the current stream of the card that
+    ``tree``'s first CUDA tensor lives on; ``None`` when no tensor of
+    ``tree`` lives on a card."""
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            with torch.cuda.device(leaf.device):
+                return torch.cuda.current_stream().record_event()
+    return None
+
+
+def on_stream(stream):
+    """``torch.cuda.stream(stream)``, or nothing for ``None`` (the CPU)."""
+    return (contextlib.nullcontext() if stream is None
+            else torch.cuda.stream(stream))
+
+
+class ParamSlot:
+    """Versioned single-slot param exchange (learner → actor).
+
+    The learner ``publish``es params after every update; the actor
+    ``acquire``s whatever is newest when it starts a rollout. ``wait_for``
+    lets a lock-stepped actor block until the learner has caught up —
+    synchronous semantics through the pipelined code path.
+
+    ``acquire`` returns ``(params, version, ready)``: ``ready`` is the CUDA
+    event after which the params may be read, ``None`` here (the publisher
+    orders its own stream) and on the CPU. ``release`` is a no-op here:
+    reference-swapped params are never overwritten, so holding them needs
+    no protection.
+    """
+
+    def __init__(self, params: Any, version: int = 0):
+        self._params = params
+        self._version = version
+        self._cond = threading.Condition()
+
+    def publish(self, params: Any, version: int) -> None:
+        with self._cond:
+            self._params = params
+            self._version = version
+            self._cond.notify_all()
+
+    def read(self) -> Tuple[Any, int]:
+        with self._cond:
+            return self._params, self._version
+
+    def acquire(self, holder: Optional[str] = None):
+        """Take a read lease on the newest params (paired with
+        ``release``); returns ``(params, version, ready)``. ``holder``
+        labels the leasing party for timeout diagnostics."""
+        with self._cond:
+            return self._params, self._version, None
+
+    def release(self, version: int, holder: Optional[str] = None) -> None:
+        """Return the lease taken by ``acquire`` (no-op for the base slot)."""
+
+    def wait_for(self, version: int, timeout: Optional[float] = None) -> bool:
+        with self._cond:
+            return self._cond.wait_for(lambda: self._version >= version,
+                                       timeout=timeout)
+
+    @property
+    def version(self) -> int:
+        with self._cond:
+            return self._version
+
+
+@torch.no_grad()
+def _copy_tree(tree):
+    return tree_map(lambda a: a.detach().clone(), tree)
+
+
+class PingPongParamSlot(ParamSlot):
+    """Two alternating actor-facing param buffers with read leases.
+
+    The hazard: if actors read the learner's working params, the next
+    update replaces or overwrites them under an in-flight rollout. So the
+    learner's params are never shared: ``publish`` of version ``v`` lands a
+    bitwise copy in buffer ``v % 2``, actors lease the newest buffer for
+    exactly one rollout, and the learner ``reserve``s a buffer for reuse
+    only after its last reader released. The learner writes the new params
+    into the reserved buffer in place — one param copy per update, no
+    allocation.
+
+    Lease protocol (actor side)::
+
+        params, version, ready = slot.acquire()   # readers[v % 2] += 1
+        try:  ... wait on ready, collect with params, wait for the collect
+        finally: slot.release(version)            # readers[v % 2] -= 1
+
+    Publish protocol (learner side, per update ``v``)::
+
+        dst = slot.reserve(v)     # blocks until readers[v % 2] == 0
+        ... copy the new params into dst in place ...
+        slot.commit(dst, v)       # records the ready event, notifies
+
+    ``reserve`` can only wait on a reader that is mid-rollout — actors
+    release before blocking on the ring — so the wait is bounded by one
+    collect and cannot deadlock.
+    """
+
+    def __init__(self, params: Any, version: int = 0):
+        # actors only ever see copies; the caller keeps the original as the
+        # learner's private working params
+        bufs = [_copy_tree(params), _copy_tree(params)]
+        super().__init__(bufs[version % 2], version)
+        self._bufs = bufs
+        ready = record_event(bufs)  # both copies are done after it
+        self._events = [ready, ready]
+        self._readers = [0, 0]
+        # per-buffer holder labels, parallel to _readers: a reserve that
+        # times out names *who* never released
+        self._holders: dict = {0: [], 1: []}
+
+    def acquire(self, holder: Optional[str] = None):
+        with self._cond:
+            idx = self._version % 2
+            self._readers[idx] += 1
+            if holder is not None:
+                self._holders[idx].append(holder)
+            return self._params, self._version, self._events[idx]
+
+    def release(self, version: int, holder: Optional[str] = None) -> None:
+        with self._cond:
+            idx = version % 2
+            self._readers[idx] -= 1
+            assert self._readers[idx] >= 0, "unbalanced release"
+            if holder is not None:
+                try:
+                    self._holders[idx].remove(holder)
+                except ValueError:
+                    pass  # unlabeled acquire / already revoked
+            self._cond.notify_all()
+
+    def holders(self, idx: int) -> List[str]:
+        """Labels of the parties currently leasing buffer ``idx``."""
+        with self._cond:
+            return list(self._holders[idx])
+
+    def revoke(self, holder: str) -> int:
+        """Drop every lease ``holder`` still holds (a replica that died
+        without releasing). Returns the leases cleared."""
+        cleared = 0
+        with self._cond:
+            for idx in (0, 1):
+                while holder in self._holders[idx]:
+                    self._holders[idx].remove(holder)
+                    self._readers[idx] -= 1
+                    cleared += 1
+            if cleared:
+                self._cond.notify_all()
+        return cleared
+
+    def reserve(self, version: int, timeout: Optional[float] = None):
+        """Claim buffer ``version % 2`` for the upcoming publish.
+
+        Blocks until every reader of the buffer's previous contents has
+        released — and an actor releases only after its device reads have
+        finished — then returns the stale param tree to overwrite in place.
+        Returns ``None`` on timeout.
+        """
+        idx = version % 2
+        with self._cond:
+            if not self._cond.wait_for(lambda: self._readers[idx] == 0,
+                                       timeout=timeout):
+                return None
+            return self._bufs[idx]
+
+    def commit(self, params: Any, version: int) -> None:
+        """Install the published copy (written into ``reserve``'s target)
+        and record, on the committing thread's current stream, the event
+        after which actors may read it."""
+        idx = version % 2
+        with self._cond:
+            assert self._readers[idx] == 0, "commit while buffer leased"
+            self._bufs[idx] = params
+            self._events[idx] = record_event(params)
+            self._params = params
+            self._version = version
+            self._cond.notify_all()
+
+    def publish(self, params: Any, version: int,
+                timeout: Optional[float] = 60.0) -> None:
+        """Unfused publish: copy ``params`` into the alternating buffer.
+
+        Blocks for the buffer's readers, copies in place, commits. A
+        reserve timeout means a reader never released its lease — raise
+        loudly rather than write over a still-leased buffer (which would
+        hand actors a tree mutating under them). The copy runs on the
+        caller's current stream, and ``commit`` records the event after
+        it."""
+        dst = self.reserve(version, timeout=timeout)
+        if dst is None:
+            held = ", ".join(self.holders(version % 2)) or "an unlabeled party"
+            raise RuntimeError(
+                f"PingPongParamSlot.publish(version={version}): reserve "
+                f"timed out after {timeout}s — buffer {version % 2} is "
+                f"still leased by {held} (died without release()?)")
+        assert dst is self._bufs[version % 2], (
+            "reserve() returned a tree that is not the reserved buffer")
+        with torch.no_grad():
+            for d, s in zip(tree_leaves(dst), tree_leaves(params)):
+                d.copy_(s)
+        self.commit(dst, version)
+
+
+class Rollout(NamedTuple):
+    """Ring payload: one collected rollout plus its provenance.
+
+    ``actor_id``/``seq`` tag which replica produced the rollout and where it
+    sits in that replica's stream — the learner uses them to attribute
+    staleness, and the tests to prove every ``(actor_id, seq)`` is learned
+    exactly once. ``release`` returns host staging buffers on the
+    reference's host plane (ROADMAP Queue 1 item 8); it is ``None`` on the
+    device plane. ``ready`` is the CUDA event recorded on the actor's stream
+    after the collect (``None`` on the CPU)."""
+
+    traj: Transition  # time-major (T, E, ...)
+    last_obs: torch.Tensor  # (E, *obs_shape) — bootstrap observation
+    behavior_version: int  # params version the actor acted with
+    actor_id: int = 0  # which actor replica collected it
+    seq: int = 0  # per-actor rollout sequence number
+    release: Optional[Callable[[], None]] = None  # staging-set return hook
+    ready: Any = None  # CUDA event after the collect, or None
+
+
+class ActorBase(threading.Thread):
+    """Shared replica protocol.
+
+    * **quota** — produce exactly ``assigned`` payloads (possibly zero: a
+      replica handed quota 0 by an ``iterations < num_actors`` run goes
+      straight to checkout),
+    * **never-drop** — every produced payload is ``_put`` into the shared
+      stream, which blocks (backpressure) rather than discards,
+    * **shutdown** — finishing the quota (or being ``stop()``ed, or finding
+      the stream closed underneath) checks out via ``producer_done()``; the
+      stream closes only after the *last* replica checks out. A replica
+      that dies records its exception and hard-``close()``s the stream so
+      the learner and sibling replicas unwind promptly instead of
+      deadlocking.
+
+    Subclasses implement ``_produce()``.
+    """
+
+    def __init__(self, queue, actor_id: int = 0, telemetry=None):
+        super().__init__(name=f"pipeline-actor-{actor_id}", daemon=True)
+        self._queue = queue
+        self.actor_id = actor_id
+        self._stop_requested = threading.Event()
+        # this replica's span track (single-writer: only this thread
+        # records); wait_s/put_wait_s are derived from its totals
+        if telemetry is not None:
+            self.span_emitter = telemetry.emitter(f"actor{actor_id}")
+        else:
+            self.span_emitter = SpanEmitter(f"actor{actor_id}")
+        self.error: Optional[BaseException] = None
+        self.slot_index = actor_id
+        self.assigned = 0  # payloads this replica must produce
+        self.produced = 0  # payloads successfully put so far
+
+    @property
+    def wait_s(self) -> float:
+        """Time blocked waiting for params (lockstep) — span-derived."""
+        return self.span_emitter.total(LEASE)
+
+    @property
+    def put_wait_s(self) -> float:
+        """Time blocked in queue.put (backpressure) — span-derived."""
+        return self.span_emitter.total(QUEUE_PUT_WAIT)
+
+    def stop(self) -> None:
+        """Ask the actor to exit at its next blocking point (learner died)."""
+        self._stop_requested.set()
+
+    def _put(self, rollout: Rollout) -> bool:
+        """Bounded put, interruptible by stop()/close(). Returns False when
+        the actor should exit instead of producing more."""
+        self.span_emitter.begin(QUEUE_PUT_WAIT)
+        try:
+            while True:
+                try:
+                    self._queue.put(rollout, timeout=0.1)
+                    return True
+                except Full:
+                    if self._stop_requested.is_set():
+                        return False
+                except QueueClosed:
+                    return False  # stream aborted under us — not our error
+        finally:
+            self.span_emitter.end()
+
+    def _produce(self) -> None:
+        raise NotImplementedError
+
+    def run(self) -> None:
+        try:
+            self._produce()
+        except BaseException as e:  # surfaced by the learner loop
+            self.error = e
+        finally:
+            if self.error is not None:
+                self._queue.close()  # abort: wake learner + siblings
+            else:
+                self._queue.producer_done()
+
+
+class ActorThread(ActorBase):
+    """One in-process actor replica: collects ``iterations`` rollouts on its
+    own thread (and, on the card, its own CUDA ``stream``) and feeds the
+    shared trajectory ring.
+
+    ``collect(params, key) -> (key, traj, last_obs, release)`` encapsulates
+    the collection with env state captured in the closure; ``key`` is the
+    replica's ``(act_generator, env_generator)`` pair, owned by this thread.
+    Params are taken under an ``acquire``/``release`` lease for exactly the
+    duration of the collect — never while blocked on the ring — which is
+    what lets a ping-pong slot reuse stale buffers without racing this
+    thread. In ``lockstep`` mode the actor waits until the learner has
+    published version i before collecting rollout i (so data is never
+    stale); otherwise it reads the freshest available params and runs ahead
+    up to the ring depth (shared across all replicas).
+
+    ``slot_index`` and ``start_seq`` are kept from the reference; its
+    ``ledger``, ``injector`` and ``snapshot`` hooks (elastic recovery,
+    fault injection, checkpoints) are ROADMAP Queue 1 item 10 and are
+    refused.
+    """
+
+    def __init__(self, collect: Callable, queue, slot: ParamSlot, key,
+                 iterations: int, lockstep: bool = False, actor_id: int = 0,
+                 telemetry=None, slot_index: Optional[int] = None,
+                 start_seq: int = 0, ledger=None, injector=None,
+                 snapshot: Optional[Callable] = None, stream=None):
+        if ledger is not None or injector is not None or snapshot is not None:
+            raise NotImplementedError(
+                "ActorThread's quota ledger, fault injector and checkpoint "
+                "snapshot are not ported yet (ROADMAP Queue 1 item 10)")
+        super().__init__(queue, actor_id, telemetry=telemetry)
+        self._collect = collect
+        self._slot = slot
+        self._key = key
+        self.assigned = iterations
+        self._lockstep = lockstep
+        self.slot_index = actor_id if slot_index is None else slot_index
+        self._start_seq = start_seq
+        self._stream = stream
+
+    def _produce(self) -> None:
+        for i in range(self.assigned):
+            if self._lockstep:
+                # lease span: the stop-abort path cancels instead of ending
+                self.span_emitter.begin(LEASE)
+                while not self._slot.wait_for(i, timeout=0.1):
+                    if self._stop_requested.is_set():
+                        self.span_emitter.cancel()
+                        return
+                self.span_emitter.end()
+            if self._stop_requested.is_set():
+                return
+            # lease the params only for the collect: released before the
+            # (potentially long) blocking put, so the learner's reserve()
+            # wait is bounded by one rollout
+            params, version, ready = self._slot.acquire(holder=self.name)
+            self.span_emitter.begin(COLLECT)
+            try:
+                with on_stream(self._stream):
+                    if ready is not None:  # the publish copy is done first
+                        torch.cuda.current_stream().wait_event(ready)
+                    self._key, traj, last_obs, release = self._collect(
+                        params, self._key)
+                    done = record_event(traj)
+                if done is not None:
+                    # the lease covers the collect's device reads of the
+                    # params: wait for them before giving the lease back
+                    done.synchronize()
+            finally:
+                self.span_emitter.end()
+                self._slot.release(version, holder=self.name)
+            if not self._put(Rollout(traj, last_obs, version, self.actor_id,
+                                     self._start_seq + i, release, done)):
+                return
+            self.produced += 1

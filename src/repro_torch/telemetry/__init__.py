@@ -1,5 +1,29 @@
-"""Telemetry of the port: span recording. The hub, heartbeat and trace
-export wait for ROADMAP.md Queue 1, item 13."""
-from repro_torch.telemetry.spans import SpanEmitter
+"""Telemetry of the port: span recording (``spans``), the per-run hub
+(``hub.Telemetry``: emitter registry, counters, gauges, reports) and the
+Chrome trace export (``trace``). The reference's heartbeat and stall
+watchdog wait for ROADMAP.md Queue 1, item 13."""
+from repro_torch.telemetry.hub import Telemetry
+from repro_torch.telemetry.spans import (
+    CATEGORIES,
+    COLLECT,
+    LEARNER_UPDATE,
+    LEASE,
+    PUBLISH,
+    QUEUE_GET_WAIT,
+    QUEUE_PUT_WAIT,
+    SpanEmitter,
+)
+from repro_torch.telemetry.trace import write_chrome_trace
 
-__all__ = ["SpanEmitter"]
+__all__ = [
+    "CATEGORIES",
+    "COLLECT",
+    "QUEUE_PUT_WAIT",
+    "QUEUE_GET_WAIT",
+    "LEASE",
+    "PUBLISH",
+    "LEARNER_UPDATE",
+    "SpanEmitter",
+    "Telemetry",
+    "write_chrome_trace",
+]

@@ -1,6 +1,8 @@
 """The port on the card: hand-written kernels against their plain versions,
 the reduced qwen2 and the full-size ``paac_nature`` on the card against
-the same weights on the CPU, and one training iteration through K1.
+the same weights on the CPU, one training iteration through K1, and the
+pipeline: five async updates through K2, and lockstep with infinite clips
+bitwise equal to ``ParallelRL`` through K1.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one. This file imports no JAX, so it also runs on a machine that has
@@ -8,8 +10,8 @@ none: from the repository root,
 ``PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py``.
 Tolerances: fp32 1e-4; bf16 2e-2 (absolute and relative) against the
 plain version in fp32 on the same bf16 inputs; logits 1e-4; n-step
-returns 1e-5 (absolute and relative). TF32 is off for matmuls and
-convolutions.
+returns and V-trace targets 1e-5 (absolute and relative). TF32 is off for
+matmuls and convolutions.
 """
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.nstep_returns import nstep_returns_cuda  # noqa: E402
+from repro_torch.kernels.vtrace import vtrace_returns_cuda  # noqa: E402
 from repro_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
 
@@ -89,8 +92,8 @@ def test_dispatch_counts_only_kernel_launches(cuda):
     ops.flash_attention(q, k, k)
     ops.decode_attention(q[:, 0].contiguous(), k, k, 3)
     ops.flash_attention(q.cpu(), k.cpu(), k.cpu())
-    assert ops.launches == {"nstep_returns": 0, "flash_attention": 1,
-                            "decode_attention": 1}
+    assert ops.launches == {"nstep_returns": 0, "vtrace_returns": 0,
+                            "flash_attention": 1, "decode_attention": 1}
     with pytest.raises(ValueError):  # no fallback: a bad input raises
         ops.flash_attention(q.half(), k.half(), k.half())
 
@@ -181,3 +184,76 @@ def test_paac_nature_on_the_card_matches_the_cpu(cuda):
     lg, vg, _ = policy_apply(gpu, agent.cfg, obs.to(cuda))
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(vg.cpu(), vc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.0, 0.99, 1.0])
+@pytest.mark.parametrize("rho_bar,c_bar", [(1.0, 1.0), (2.0, 1.0),
+                                           (1e9, 1e9),
+                                           (float("inf"), float("inf"))])
+@pytest.mark.parametrize("E,T", [(1, 1), (33, 5), (256, 64), (4096, 5)])
+def test_vtrace_kernel_matches_plain_version(cuda, E, T, rho_bar, c_bar,
+                                             gamma):
+    g = torch.Generator(cuda).manual_seed(E + T)
+    r = torch.randn(T, E, generator=g, device=cuda)
+    d = torch.rand(T, E, generator=g, device=cuda) < 0.1
+    v = torch.randn(T, E, generator=g, device=cuda)
+    rho = torch.exp(0.5 * torch.randn(T, E, generator=g, device=cuda))
+    if E >= 3:
+        d[:, 0], d[:, 1], rho[:, 2] = True, False, 50.0
+    b = torch.randn(E, generator=g, device=cuda)
+    got = vtrace_returns_cuda(r, d, v, b, rho, gamma, rho_bar, c_bar)
+    want = ref.vtrace_returns_ref(r, d, v, b, rho, gamma, rho_bar, c_bar)
+    for x, y in zip(got, want):
+        # unclipped c on the rho = 50 row overflows float32 in both
+        # versions over long T: the same inf and nan in the same places
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5,
+                                   equal_nan=True)
+    with pytest.raises(ValueError):  # no fallback: a bad input raises
+        vtrace_returns_cuda(r, d, v.requires_grad_(True), b, rho, gamma)
+
+
+def _pipelined(cuda, iters, **pipeline):
+    from repro_torch.configs import PipelineConfig
+    from repro_torch.pipeline import PipelinedRL
+
+    env, agent = _paac_nature(cuda, 8)
+    prl = PipelinedRL(env, agent, seed=0, device=cuda,
+                      pipeline=PipelineConfig(**pipeline))
+    before = [t.clone() for t in tree_leaves(prl.params)]
+    ops.reset_launches()
+    res = prl.run(iters)
+    return prl, res, dict(ops.launches), before
+
+
+@pytest.mark.cuda
+def test_five_async_updates_on_the_card_launch_k2_five_times(cuda):
+    import math
+
+    prl, res, launches, before = _pipelined(cuda, 5, queue_depth=2)
+    assert launches["vtrace_returns"] == 5 and launches["nstep_returns"] == 0
+    assert sorted(prl.learned_ids) == [(0, s) for s in range(5)]
+    assert all(math.isfinite(v) for v in res.mean_metrics.values())
+    assert all(t.is_cuda for t in tree_leaves(prl.params))
+    assert not all(torch.equal(a, b) for a, b in zip(before,
+                                                      tree_leaves(prl.params)))
+
+
+@pytest.mark.cuda
+def test_lockstep_infinite_clips_on_the_card_is_parallel_rl_bitwise(
+        cuda, monkeypatch):
+    from repro_torch.core import ParallelRL
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    inf = float("inf")
+    prl, res, launches, _ = _pipelined(cuda, 4, queue_depth=1, lockstep=True,
+                                       rho_bar=inf, c_bar=inf)
+    assert launches["nstep_returns"] == 4 and launches["vtrace_returns"] == 0
+    env, agent = _paac_nature(cuda, 8)
+    rl = ParallelRL(env, agent, seed=0, device=cuda)
+    sync = rl.run(4)
+    for k in ("loss", "policy_loss", "value_loss", "entropy", "reward_sum"):
+        assert res.mean_metrics[k] == sync.mean_metrics[k], k
+    for a, b in zip(tree_leaves(rl.params), tree_leaves(prl.params)):
+        assert torch.equal(a, b)

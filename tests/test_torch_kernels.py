@@ -130,8 +130,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     pos = torch.tensor([7], dtype=torch.int32)
     _close(ops.decode_attention(qd, k, v, pos),
            tref.decode_attention_ref(qd, k, v, pos))
-    assert ops.launches == {"nstep_returns": 0, "flash_attention": 0,
-                            "decode_attention": 0}
+    assert ops.launches == {"nstep_returns": 0, "vtrace_returns": 0,
+                            "flash_attention": 0, "decode_attention": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -7,7 +7,8 @@
 * every kernel source carries its note and C entry point, is built, the
   build goes to an ignored directory, and ``chip_smoke.py`` refuses to run
   without a CUDA device, printing no result;
-* the training slice's modules are among those the pins above cover.
+* the training and pipeline slices' modules are among those the pins
+  above cover.
 """
 import ast
 import os
@@ -79,9 +80,11 @@ def test_no_import_of_jax_or_repro(path):
 def test_every_kernel_source_is_annotated_and_built_into_an_ignored_dir():
     from repro_torch.kernels import _build
 
+    pallas = {"vtrace": "vtrace_returns"}  # source name -> Pallas function
     for name in _build.SOURCES:
         src = (_build.CSRC / f"{name}.cu").read_text()
-        assert f"src/repro/kernels/{name}.py::{name}_pallas" in src
+        fn = pallas.get(name, name)
+        assert f"src/repro/kernels/{name}.py::{fn}_pallas" in src
         assert "What bounds it" in src and "What the design does" in src
         assert f'extern "C" int {name}_fwd(' in src
         assert "torch/extension.h" not in src  # plain C interface, fast nvcc
@@ -101,7 +104,10 @@ def test_every_source_is_built_and_the_training_slice_is_pinned():
               "optim.optimizer", "optim.schedules", "configs.paac_cnn",
               "models.convnet", "envs.base", "envs.gridworld", "envs.catch",
               "envs.atari_like", "envs.wrappers", "launch.paper_atari",
-              "utils.tree", "utils.bridge"):
+              "utils.tree", "utils.bridge", "kernels.vtrace",
+              "configs.base", "telemetry.hub", "telemetry.trace",
+              "pipeline.actor", "pipeline.ring", "pipeline.learner",
+              "pipeline.orchestrator"):
         assert f"repro_torch.{m}" in mods, m
 
 
