@@ -7,7 +7,7 @@ Run from the repository root on a machine with a CUDA device:
 
 It builds the port's kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
 into ``build/repro_torch/``) and drives the training path and the serving
-path:
+paths:
 
 1. card     — the card's name and power limit as nvidia-smi gives them,
               then the build of every kernel;
@@ -31,7 +31,14 @@ path:
               (|err| <= 2e-2 + 2e-2 |ref| against the plain version in
               fp32 on the same bf16 inputs), with CUDA-event times of the
               kernel, the plain version and scaled_dot_product_attention
-              (a yardstick only);
+              (a yardstick only); then K3 at MLA prefill's shape (B=1
+              S=512 H=40, q/k 96 wide, v 64), K5 at minicpm3-4b's decode
+              shape (W=4 S=544 H=40 R=256 Rr=32, per-row and scalar pos;
+              yardstick: SDPA on (q_lat || q_rope) against (c || kr) with
+              v = c) and K6 at mamba2-370m's prefill shape (B=1 S=512 H=32
+              P=64 N=128, chunk 128; y and the final state, fp32 within
+              1e-4 + 1e-4 |ref|; no single PyTorch call computes it), with
+              the same tolerances and times;
 4. rl_model — paac_nature at full size in fp32, one set of weights on the
               CPU and on the card: logits and values of 32 frames agree
               within 1e-4, and one PAAC update on the same replayed
@@ -67,23 +74,34 @@ path:
               busy at once) for (b), (c) and ParallelRL at n_e = 32; then
               ``paper_atari --arch paac_nature --n-envs 32 --iters 50
               --pipeline``;
-6. model    — reduced qwen2-7b in fp32, one set of weights on the CPU
+6. model    — reduced qwen2-7b, minicpm3-4b (absorbed and naive decode)
+              and mamba2-370m in fp32, one set of weights on the CPU
               (plain versions) and on the card (kernels): prefill and
-              decode logits must agree within 1e-4;
-7. serving  — qwen2-7b at full width and depth (28 layers, d_model 3584,
-              bf16, random weights from a seed): 8 requests over 4 slots,
-              prompts of 128 to 512 tokens, 16 to 32 new tokens each, burst
-              arrival, through the port's continuous-batching entry point;
-              every request must finish with tokens in [0, vocab), K3 must
-              launch 28 times per admitted request and K4 28 times per
-              decode step, and one request rerun alone on a fresh engine
-              must give bitwise the same tokens; a torch.profiler window
-              of 8 decode steps gives the device-busy share of a step;
-              then the lockstep demo, whose decode runs K4 with a scalar
-              position.
+              four decode steps (per-row and scalar pos) must agree within
+              1e-4 on the logits, and each kernel of the path must launch
+              once a layer a call, every other kernel never;
+7. serving  — three cells, each at full width and depth with random bf16
+              weights from a seed: qwen2-7b (28 layers, d_model 3584;
+              K3 prefill, K4 decode), minicpm3-4b with the absorbed decode
+              (62 layers, d_model 2560, MLA; K3 prefill with q/k 96 and v
+              64 wide, K5 decode) and mamba2-370m (48 layers, d_model
+              1024; K6 prefill, recurrent decode in plain PyTorch). Each:
+              8 requests over 4 slots, prompts of 128 to 512 tokens (whole
+              128-token chunks for mamba2), 16 to 32 new tokens each,
+              burst arrival, through the port's continuous-batching entry
+              point after a warm-up; every request must finish with tokens
+              in [0, vocab), the prefill kernel must launch once a layer
+              per admitted request, the decode kernel once a layer per
+              decode step and every other kernel never, and one request
+              rerun alone on a fresh engine must give bitwise the same
+              tokens; a torch.profiler window of 8 decode steps gives the
+              device-busy share of a step; then the lockstep demo, whose
+              decode runs with a scalar position.
 
 TF32 is off for matmuls and convolutions throughout. The line before the
-last is a JSON object with each kernel's numbers; the last line is
+last is a JSON object with each kernel's numbers and its launches on each
+main path (training, pipeline, and the three serving cells, each read
+with the counts set to 0 just before it); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
 phase fails, it exits non-zero and prints no result. ``--trace-dir DIR``
 also writes the pipeline runs' Chrome traces (actor, ring and learner
@@ -106,6 +124,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; fp32 off the tenso
 FP32_ATOL = 1e-4
 BF16_TOL = 2e-2
 MODEL_ATOL = 1e-4
+SSD_TOL = 1e-4  # K6 fp32, absolute and relative: C.B^T sums reach |y| ~ 100
 RETURNS_TOL = 1e-5
 RL_TOL = 1e-4
 
@@ -284,6 +303,143 @@ def phase_kernels(torch, np, F, ref, fa, da):
                     f"{b_ms:.4f} ms ({b_by})")
     del flush
     return rows
+
+
+def within_rel(torch, out, ref, atol: float, rtol: float, what: str) -> float:
+    """Max |out - ref|; fails unless every |out - ref| <= atol + rtol |ref|."""
+    err = (out.float() - ref).abs()
+    check(bool(torch.isfinite(out.float()).all()), f"{what}: non-finite output")
+    check(bool((err <= atol + rtol * ref.abs()).all()),
+          f"{what} disagrees with its plain version: max err "
+          f"{err.max().item():.3g}")
+    return err.max().item()
+
+
+def phase_latent_kernels(torch, np, F, ref, fa, mk, sk, rows, dev="cuda"):
+    """K3 at MLA prefill's shape, K5 at minicpm3-4b's decode shape and K6 at
+    mamba2-370m's prefill shape, against their plain versions on the card,
+    then timed as ``phase_kernels`` times K3 and K4. Adds to ``rows``."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
+
+    def randn(*shape, dtype="float32"):
+        return torch.randn(*shape, generator=g, device=dev).to(getattr(torch, dtype))
+
+    # K3 as MLA prefill runs it: q/k 96 wide (qk_nope 64 + qk_rope 32), v 64
+    B, S, H, D, Dv = 1, 512, 40, 96, 64
+    k3 = rows["flash_attention"]
+    for dtype in ("float32", "bfloat16"):
+        q, k = randn(B, S, H, D, dtype=dtype), randn(B, S, H, D, dtype=dtype)
+        v = randn(B, S, H, Dv, dtype=dtype)
+        out = fa.flash_attention_cuda(q, k, v, causal=True)
+        check(tuple(out.shape) == (B, S, H, Dv), f"K3 MLA out {tuple(out.shape)}")
+        plain = ref.flash_attention_ref(q.float(), k.float(), v.float())
+        err = within(torch, out, plain, dtype)
+        k3["max_abs_err"] = max(k3["max_abs_err"], err)
+        say("kernels", f"K3 flash_attention {dtype} MLA B={B} S={S} H={H} D={D} "
+            f"Dv={Dv} causal: max_abs_err {err:.3g} ({tolerance(dtype)})")
+    ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v), flush)
+    plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v), flush)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), flush)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
+    flops = 2 * (D + Dv) * flash_pairs(np, S, S, True, 0) * H * B
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    shape = f"bf16 B={B} S={S} H={H} D={D} Dv={Dv} causal (MLA prefill)"
+    k3.setdefault("other", []).append(
+        {"shape": shape, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+         "bound_ms": b_ms, "bound_by": b_by})
+    say("kernels", f"K3 timed ({shape}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    # K5 at minicpm3-4b's decode shape, scalar and per-row pos
+    W, S, H, R, Rr = 4, 544, 40, 256, 32
+    scale = 1.0 / math.sqrt(64 + 32)
+    row = {"max_abs_err": 0.0}
+    per_row = [127, 250, 399, 543]
+    for dtype in ("float32", "bfloat16"):
+        ql, qr = randn(W, H, R, dtype=dtype), randn(W, H, Rr, dtype=dtype)
+        c, kr = randn(W, S, R, dtype=dtype), randn(W, S, Rr, dtype=dtype)
+        for pos in (per_row, 300):
+            p = (torch.tensor(pos, dtype=torch.int32, device=dev)
+                 if isinstance(pos, list) else pos)
+            out = mk.mla_decode_attention_cuda(ql, qr, c, kr, p, scale)
+            plain = ref.mla_decode_attention_ref(ql.float(), qr.float(),
+                                                 c.float(), kr.float(), p, scale)
+            err = within(torch, out, plain, dtype)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            say("kernels", f"K5 mla_decode_attention {dtype} W={W} S={S} H={H} "
+                f"R={R} Rr={Rr} pos={pos}: max_abs_err {err:.3g} "
+                f"({tolerance(dtype)})")
+    p = torch.tensor(per_row, dtype=torch.int32, device=dev)
+    ms = time_ms(torch, lambda: mk.mla_decode_attention_cuda(ql, qr, c, kr, p,
+                                                             scale), flush)
+    plain_ms = time_ms(torch, lambda: ref.mla_decode_attention_ref(
+        ql, qr, c, kr, p, scale), flush)
+    # SDPA on (q_lat || q_rope) against (c || kr) with v = c: one KV head
+    # shared by the H query heads, the per-row bound as a mask; the
+    # concatenations are made once, outside the timed call
+    qcat = torch.cat([ql, qr], dim=-1)[:, :, None]
+    kcat = torch.cat([c, kr], dim=-1)[:, None]
+    mask = (torch.arange(S, device=dev)[None, :] <= p[:, None])[:, None, None, :]
+    lib = F.scaled_dot_product_attention(qcat, kcat, c[:, None], attn_mask=mask,
+                                         scale=scale, enable_gqa=True)
+    lib_err = (lib[:, :, 0].float() - ref.mla_decode_attention_ref(
+        ql.float(), qr.float(), c.float(), kr.float(), p, scale)).abs().max().item()
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qcat, kcat, c[:, None], attn_mask=mask, scale=scale, enable_gqa=True),
+        flush)
+    keys = sum(min(x + 1, S) for x in per_row)
+    nbytes = 2 * (ql.numel() + qr.numel() + out.numel() + keys * (R + Rr)) + 4 * W
+    flops = 2 * H * keys * (R + Rr) + 2 * H * keys * R
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by, shape=f"bf16 W={W} S={S} H={H} R={R} Rr={Rr} "
+               f"pos={per_row}")
+    rows["mla_decode_attention"] = row
+    say("kernels", f"K5 timed ({row['shape']}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (max |sdpa - plain| "
+        f"{lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
+
+    # K6 at mamba2-370m's prefill shape: y and the final state
+    B, S, H, P, N, Q = 1, 512, 32, 64, 128, 128
+    A = torch.log(torch.arange(1, H + 1, dtype=torch.float32, device=dev))
+    Dh = torch.ones(H, device=dev)
+    row = {"max_abs_err": 0.0, "library_ms": None}
+    for dtype in ("float32", "bfloat16"):
+        x = randn(B, S, H, P, dtype=dtype)
+        dts = F.softplus(randn(B, S, H) - 2.0)
+        Bm, Cm = randn(B, S, N, dtype=dtype), randn(B, S, N, dtype=dtype)
+        y, st = sk.ssd_scan_cuda(x, dts, A, Bm, Cm, Dh, chunk=Q)
+        y_ref, st_ref = ref.ssd_scan_ref(x.float(), dts, A, Bm.float(),
+                                         Cm.float(), Dh, chunk=Q)
+        tol = SSD_TOL if dtype == "float32" else BF16_TOL
+        err = max(within_rel(torch, y, y_ref, tol, tol, f"K6 y {dtype}"),
+                  within_rel(torch, st, st_ref, SSD_TOL, SSD_TOL,
+                             f"K6 state {dtype}"))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        say("kernels", f"K6 ssd_scan {dtype} B={B} S={S} H={H} P={P} N={N} "
+            f"chunk={Q}: max_abs_err {err:.3g} over y and the final state "
+            f"(y: atol {tol} + rtol {tol}; state: atol {SSD_TOL} + rtol "
+            f"{SSD_TOL}); max |y| {y_ref.abs().max().item():.3g}")
+    ms = time_ms(torch, lambda: sk.ssd_scan_cuda(x, dts, A, Bm, Cm, Dh, chunk=Q),
+                 flush)
+    plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(x, dts, A, Bm, Cm, Dh,
+                                                       chunk=Q), flush)
+    nc = S // Q
+    tri = Q * (Q + 1) // 2
+    flops = B * H * (nc * (2 * N * tri + 2 * P * tri + 2 * Q * P * N)
+                     + (nc - 1) * 2 * Q * N * P)  # C.state is 0 in chunk 0
+    nbytes = (2 * (2 * x.numel() + Bm.numel() + Cm.numel())
+              + 4 * (dts.numel() + 2 * H + st.numel()))
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               shape=f"bf16 B={B} S={S} H={H} P={P} N={N} chunk={Q}")
+    rows["ssd_scan"] = row
+    say("kernels", f"K6 timed ({row['shape']}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by}), library none")
+    del flush
 
 
 def device_window(prof, n: int):
@@ -882,56 +1038,113 @@ def phase_pipeline(torch, paper_atari, configs, ops, tree, card, dev="cuda",
     return counts["vtrace_returns"]
 
 
-def phase_model(torch, np, configs, models, tree):
-    """Reduced qwen2-7b, fp32: CPU (plain versions) against the card."""
-    cfg = configs.get_config("qwen2-7b").reduced()
-    cpu = models.init_policy(cfg, generator=torch.Generator().manual_seed(SEED),
-                             device="cpu")
-    gpu = tree.tree_map(lambda t: t.to("cuda"), cpu)
-    rng = np.random.default_rng(SEED)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 37)))
-    worst = 0.0
-    lc, _, cache_c = models.policy_prefill(cpu, cfg, toks, max_len=48)
-    lg, _, cache_g = models.policy_prefill(gpu, cfg, toks.cuda(), max_len=48)
-    worst = max(worst, (lc - lg.cpu()).abs().max().item())
-    steps = [torch.tensor([37, 40], dtype=torch.int32), 41, 42,
-             torch.tensor([43, 38], dtype=torch.int32)]
-    for pos in steps:
-        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)))
-        pos_g = pos.cuda() if isinstance(pos, torch.Tensor) else pos
-        lc, _, cache_c = models.policy_decode(cpu, cfg, cache_c, tok, pos)
-        lg, _, cache_g = models.policy_decode(gpu, cfg, cache_g, tok.cuda(), pos_g)
-        worst = max(worst, (lc - lg.cpu()).abs().max().item())
-    check(worst <= MODEL_ATOL, f"reduced qwen2 logits: card vs CPU {worst:.3g}")
-    say("model", f"reduced qwen2-7b fp32 (L={cfg.num_layers} d={cfg.d_model} "
-        f"H={cfg.num_heads} Hkv={cfg.num_kv_heads} D={cfg.head_dim}): prefill "
-        f"+ 4 decode steps (per-row and scalar pos), card vs CPU max |dlogit| "
-        f"{worst:.3g} <= {MODEL_ATOL}")
+MODEL_CASES = (  # (arch, config changes, prompt length, prefill, decode kernel)
+    ("qwen2-7b", {}, 37, "flash_attention", "decode_attention"),
+    ("minicpm3-4b", {"mla_absorb": True}, 37, "flash_attention",
+     "mla_decode_attention"),
+    ("minicpm3-4b", {"mla_absorb": False}, 37, "flash_attention", None),
+    ("mamba2-370m", {}, 64, "ssd_scan", None),  # two chunks of 32
+)
+
+
+def phase_model(torch, np, configs, models, ops, tree, dev="cuda"):
+    """Reduced qwen2-7b, minicpm3-4b (absorbed and naive decode) and
+    mamba2-370m, fp32: CPU (plain versions) against the card (kernels),
+    prefill and four decode steps with per-row and scalar positions."""
+    for arch, change, S, pre, dec in MODEL_CASES:
+        cfg = configs.get_config(arch).reduced().replace(**change)
+        cpu = models.init_policy(
+            cfg, generator=torch.Generator().manual_seed(SEED), device="cpu")
+        gpu = tree.tree_map(lambda t: t.to(dev), cpu)
+        rng = np.random.default_rng(SEED)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, S)))
+        ops.reset_launches()
+        lc, _, cache_c = models.policy_prefill(cpu, cfg, toks, max_len=S + 11)
+        lg, _, cache_g = models.policy_prefill(gpu, cfg, toks.to(dev),
+                                               max_len=S + 11)
+        worst = (lc - lg.cpu()).abs().max().item()
+        steps = [torch.tensor([S, S + 3], dtype=torch.int32), S + 4, S + 5,
+                 torch.tensor([S + 6, S + 1], dtype=torch.int32)]
+        for pos in steps:
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)))
+            pos_g = pos.to(dev) if isinstance(pos, torch.Tensor) else pos
+            lc, _, cache_c = models.policy_decode(cpu, cfg, cache_c, tok, pos)
+            lg, _, cache_g = models.policy_decode(gpu, cfg, cache_g,
+                                                  tok.to(dev), pos_g)
+            worst = max(worst, (lc - lg.cpu()).abs().max().item())
+        counts = dict(ops.launches)
+        L = cfg.num_layers
+        want = {name: 0 for name in counts}
+        want[pre] = L
+        if dec:
+            want[dec] = L * len(steps)
+        check(counts == want, f"reduced {arch} {change}: launches {counts}, "
+              f"expected {want}")
+        check(worst <= MODEL_ATOL, f"reduced {arch} {change} logits: card vs "
+              f"CPU {worst:.3g}")
+        say("model", f"reduced {arch} {change} fp32 (L={L} d={cfg.d_model}): "
+            f"prefill of {S} + 4 decode steps (per-row and scalar pos), card "
+            f"vs CPU max |dlogit| {worst:.3g} <= {MODEL_ATOL}; launches "
+            + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+
+
+SERVING_CELLS = (
+    {"arch": "qwen2-7b", "change": {},
+     "full": {"num_layers": 28, "d_model": 3584, "num_heads": 28,
+              "num_kv_heads": 4, "head_dim": 128, "param_dtype": "bfloat16"},
+     "prompt_lens": (128, 200, 333, 512), "prefill": "flash_attention",
+     "decode": "decode_attention"},
+    {"arch": "minicpm3-4b", "change": {"mla_absorb": True},
+     "full": {"num_layers": 62, "d_model": 2560, "num_heads": 40,
+              "q_lora_rank": 768, "kv_lora_rank": 256, "qk_nope_dim": 64,
+              "qk_rope_dim": 32, "v_head_dim": 64, "d_ff": 6400,
+              "param_dtype": "bfloat16"},
+     "prompt_lens": (128, 200, 333, 512), "prefill": "flash_attention",
+     "decode": "mla_decode_attention"},
+    {"arch": "mamba2-370m", "change": {},
+     "full": {"num_layers": 48, "d_model": 1024, "ssm_state": 128,
+              "ssm_head_dim": 64, "ssm_expand": 2, "ssm_chunk": 128,
+              "param_dtype": "bfloat16"},
+     # whole 128-token chunks: a longer prompt must be a multiple
+     "prompt_lens": (128, 256, 384, 512), "prefill": "ssd_scan",
+     "decode": None},
+)
 
 
 def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
-                  card):
+                  card, cell, dev="cuda"):
+    """One serving cell at full width and depth: the continuous entry point
+    on 8 requests over 4 slots, a solo rerun, a profiled decode step and the
+    lockstep demo. Returns the launch counts of the continuous run."""
     from repro_torch.pipeline.queue import TrajectoryQueue
 
-    cfg = configs.get_config("qwen2-7b")
-    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-           cfg.head_dim, cfg.param_dtype) == (28, 3584, 28, 4, 128, "bfloat16"),
-          f"not the full qwen2-7b config: {cfg}")
+    arch = cell["arch"]
+    cfg = configs.get_config(arch).replace(**cell["change"])
+    check(all(getattr(cfg, k) == v for k, v in cell["full"].items()),
+          f"not the full {arch} config: {cfg}")
     L = cfg.num_layers
+    pre, dec = cell["prefill"], cell["decode"]
     t0 = time.perf_counter()
     params = models.init_policy(
-        cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
-        device="cuda")
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree.tree_leaves(params))
-    say("serving", f"qwen2-7b full size: {n_params / 1e9:.2f} B parameters "
-        f"(bf16) initialised on the card from seed {SEED} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    say("serving", f"{arch} full size {cell['change'] or ''}: "
+        f"{n_params / 1e9:.2f} B parameters (bf16) initialised on the card "
+        f"from seed {SEED} in {time.perf_counter() - t0:.1f} s")
 
-    slots, prompt_lens, gen_range = 4, (128, 200, 333, 512), (16, 32)
+    def expected(n_prefill, n_steps):
+        want = {name: 0 for name in ops.launches}
+        want[pre] = L * n_prefill
+        if dec:
+            want[dec] = L * n_steps
+        return want
+
+    slots, prompt_lens, gen_range = 4, cell["prompt_lens"], (16, 32)
     max_len = max(prompt_lens) + gen_range[1]
     kw = dict(slots=slots, max_len=max_len, prompt_lens=prompt_lens,
-              gen_range=gen_range, rate_hz=0.0, device="cuda")
+              gen_range=gen_range, rate_hz=0.0, device=dev)
     serve.serve_continuous(cfg, params, requests=2, seed=SEED + 1, **kw)  # warm-up
 
     ops.reset_launches()
@@ -946,17 +1159,16 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
         check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()),
               f"request {r.rid}: token out of [0, {cfg.vocab_size})")
     check(res["admitted"] == 8, f"{res['admitted']} requests admitted")
-    check(counts["flash_attention"] == L * res["admitted"],
-          f"K3 launched {counts['flash_attention']} times for "
-          f"{res['admitted']} prefills of {L} layers")
-    check(counts["decode_attention"] == L * res["steps"],
-          f"K4 launched {counts['decode_attention']} times for "
-          f"{res['steps']} decode steps of {L} layers")
-    say("serving", f"continuous: 8/8 requests done, {res['tokens']} tokens, "
-        f"{res['steps']} decode steps, launches K3 {counts['flash_attention']}"
-        f" (= {L} x {res['admitted']} prefills) K4 {counts['decode_attention']}"
-        f" (= {L} x {res['steps']} steps)")
-    say("serving", f"qwen2-7b bf16, {slots} slots, burst of 8: "
+    check(counts == expected(res["admitted"], res["steps"]),
+          f"{arch}: launches {counts} for {res['admitted']} prefills and "
+          f"{res['steps']} decode steps of {L} layers; expected "
+          f"{expected(res['admitted'], res['steps'])}")
+    say("serving", f"{arch} continuous: 8/8 requests done, {res['tokens']} "
+        f"tokens, {res['steps']} decode steps, launches {pre} {counts[pre]} "
+        f"(= {L} x {res['admitted']} prefills)"
+        + (f" {dec} {counts[dec]} (= {L} x {res['steps']} steps)" if dec else
+           " (decode runs no kernel)") + ", every other kernel 0")
+    say("serving", f"{arch} bf16, {slots} slots, burst of 8: "
         f"{res['tok_s']:.1f} tok/s aggregate, latency p50 {res['p50_ms']:.1f} ms "
         f"p99 {res['p99_ms']:.1f} ms, wall {res['wall_s']:.3f} s ({card})")
 
@@ -967,49 +1179,53 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
     q.put(solo)
     q.producer_done()
     engine = serving.DecodeEngine(cfg, params, max_slots=slots,
-                                  max_len=max_len, device="cuda")
+                                  max_len=max_len, device=dev)
     serving.Scheduler(engine, q, continuous=False).run()
     check(solo.status == "done" and np.array_equal(solo.tokens, probe.tokens),
-          f"request {probe.rid}: continuous {probe.tokens.tolist()} != solo "
-          f"{None if solo.tokens is None else solo.tokens.tolist()}")
-    say("serving", f"request {probe.rid} (prompt {len(probe.prompt)}, "
+          f"{arch} request {probe.rid}: continuous {probe.tokens.tolist()} != "
+          f"solo {None if solo.tokens is None else solo.tokens.tolist()}")
+    say("serving", f"{arch} request {probe.rid} (prompt {len(probe.prompt)}, "
         f"{probe.max_new_tokens} tokens) rerun solo on a fresh {slots}-slot "
         "engine: bitwise equal")
     del engine
 
     wall_ms, busy_ms, summed_ms, top = profile_decode(
-        torch, np, serving, cfg, params, slots, max_len)
+        torch, np, serving, cfg, params, slots, max_len, dev=dev)
     busy = (f"device busy {busy_ms:.2f} ms a step ({100 * busy_ms / wall_ms:.0f}%"
             " of the unprofiled step; the sum of self device times over "
             f"key_averages, which counts a kernel under its op too, gives "
             f"{summed_ms:.2f} ms)" if busy_ms > 0 else
             "device time not measured (the profiler saw no device activity)")
-    say("serving", f"decode step, {slots} rows at pos 256-264, torch.profiler "
-        f"window of 8 steps: wall {wall_ms:.2f} ms a step without the "
-        f"profiler, {busy}; top kernels (ms a step, launches a step): "
-        + "; ".join(f"{k[:60]} {ms:.3f} x{n:.0f}" for k, (ms, n) in top))
+    say("serving", f"{arch} decode step, {slots} rows at pos 256-264, "
+        f"torch.profiler window of 8 steps: wall {wall_ms:.2f} ms a step "
+        f"without the profiler, {busy}; top kernels (ms a step, launches a "
+        "step): " + "; ".join(f"{k[:60]} {ms:.3f} x{n:.0f}"
+                              for k, (ms, n) in top))
 
-    _, prompt_gen, decode_gen = serve.demo_generators(SEED, "cuda")
+    _, prompt_gen, decode_gen = serve.demo_generators(SEED, dev)
     ops.reset_launches()
     lock = serve.run_lockstep(cfg, params, batch=4, prompt_len=128, gen=8,
                               prompt_gen=prompt_gen, decode_gen=decode_gen,
-                              device="cuda")
+                              device=dev)
     lock_counts = dict(ops.launches)
-    check(lock["logits_finite"], "lockstep prefill logits not finite")
-    check(lock["tokens"].shape == (4, 9), f"lockstep tokens {lock['tokens'].shape}")
+    check(lock["logits_finite"], f"{arch} lockstep prefill logits not finite")
+    check(lock["tokens"].shape == (4, 9),
+          f"{arch} lockstep tokens {lock['tokens'].shape}")
     check(bool(((lock["tokens"] >= 0) & (lock["tokens"] < cfg.vocab_size)).all()),
-          "lockstep token out of range")
-    check(lock_counts == {"nstep_returns": 0, "vtrace_returns": 0,
-                          "flash_attention": L, "decode_attention": 8 * L},
-          f"lockstep launches {lock_counts}")
-    say("serving", f"lockstep demo (scalar pos): batch 4, prompt 128, 8 steps, "
-        f"launches {lock_counts}; prefill {lock['prefill_s'] * 1e3:.1f} ms, "
-        f"decode {lock['decode_s'] * 1e3:.1f} ms")
+          f"{arch} lockstep token out of range")
+    check(lock_counts == expected(1, 8),
+          f"{arch} lockstep launches {lock_counts}, expected {expected(1, 8)}")
+    say("serving", f"{arch} lockstep demo (scalar pos): batch 4, prompt 128, 8 "
+        f"steps, launches {lock_counts}; prefill "
+        f"{lock['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{lock['decode_s'] * 1e3:.1f} ms")
+    del params
+    torch.cuda.empty_cache()
     return counts
 
 
 def profile_decode(torch, np, serving, cfg, params, slots, max_len,
-                   steps: int = 8):
+                   steps: int = 8, dev="cuda"):
     """Decode step time with and without torch.profiler, over a steady
     window of ``steps`` steps with every slot leased: (wall ms a step,
     device-busy ms a step, the sum of self device times over
@@ -1018,7 +1234,7 @@ def profile_decode(torch, np, serving, cfg, params, slots, max_len,
     from torch.profiler import ProfilerActivity, profile
 
     engine = serving.DecodeEngine(cfg, params, max_slots=slots,
-                                  max_len=max_len, device="cuda")
+                                  max_len=max_len, device=dev)
     rng = np.random.default_rng(SEED)
     for slot in range(slots):
         engine.admit(slot, rng.integers(0, cfg.vocab_size, 256), seed=slot)
@@ -1050,6 +1266,10 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:113"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:103"),
+    "mla_decode_attention": ("src/repro_torch/csrc/mla_decode.cu",
+                             "src/repro/kernels/mla_decode.py:113"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:86"),
 }
 
 
@@ -1073,7 +1293,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode as mk
     from repro_torch.kernels import nstep_returns as nr
+    from repro_torch.kernels import ssd_scan as sk
     from repro_torch.kernels import vtrace as vt
     from repro_torch.launch import paper_atari, serve
     from repro_torch.utils import tree
@@ -1085,26 +1307,31 @@ def main(argv=None) -> int:
     rows = {"nstep_returns": phase_returns(torch, ref, nr),
             "vtrace_returns": phase_vtrace(torch, ref, vt)}
     rows.update(phase_kernels(torch, np, F, ref, fa, da))
+    phase_latent_kernels(torch, np, F, ref, fa, mk, sk, rows)
     phase_rl_model(torch, configs, models, envs, paac, optim, tree)
-    counts = {"nstep_returns": phase_training(torch, paper_atari, ops, tree,
-                                              card)["nstep_returns"]}
+    # launches of each kernel on each main path, every path driven with the
+    # counts set to 0 just before it and read just after
+    by_path = {"training": phase_training(torch, paper_atari, ops, tree,
+                                          card)}
     if args.trace_dir:
         os.makedirs(args.trace_dir, exist_ok=True)
-    counts["vtrace_returns"] = phase_pipeline(
+    by_path["pipeline"] = {"vtrace_returns": phase_pipeline(
         torch, paper_atari, configs, ops, tree, card,
-        trace_dir=args.trace_dir or None)
-    phase_model(torch, np, configs, models, tree)
-    serving_counts = phase_serving(torch, np, configs, models, ops, serve,
-                                   serving, tree, card)
-    counts.update(flash_attention=serving_counts["flash_attention"],
-                  decode_attention=serving_counts["decode_attention"])
+        trace_dir=args.trace_dir or None)}
+    phase_model(torch, np, configs, models, ops, tree)
+    for cell in SERVING_CELLS:
+        by_path[f"{cell['arch']} serving"] = phase_serving(
+            torch, np, configs, models, ops, serve, serving, tree, card, cell)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         row = rows[name]
+        paths = {path: c[name] for path, c in by_path.items() if c.get(name)}
+        check(paths, f"{name} was launched on no main path")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces, "launches": sum(paths.values()),
+            "launches_by_path": paths,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

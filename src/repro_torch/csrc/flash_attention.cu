@@ -1,11 +1,14 @@
 // K3: prefill flash attention, forward, for Hopper (sm_90a).
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas
-// (pl.pallas_call at :113). Computes, for q (B, Sq, H, D) and k, v
-// (B, Sk, Hkv, D), out = softmax(q k^T * scale + mask) v with an online
+// (pl.pallas_call at :113). Computes, for q (B, Sq, H, D), k (B, Sk, Hkv, D)
+// and v (B, Sk, Hkv, Dv), out = softmax(q k^T * scale + mask) v, shaped
+// (B, Sq, H, Dv) as the TPU kernel writes it, with an online
 // softmax over KV tiles: fp32 running max, denominator and accumulator;
 // causal (k <= q) and sliding-window (k > q - window) masks; GQA reads KV
-// head h / (H / Hkv). Masked scores are -1e30 and the denominator is
+// head h / (H / Hkv). Dv may differ from D: MLA prefill has q/k 96 wide
+// (qk_nope 64 + qk_rope 32) and v 64 wide (minicpm3-4b), 48 and 32 at the
+// reduced config. Masked scores are -1e30 and the denominator is
 // clamped at 1e-30, as in the TPU kernel. The output has q's dtype. A
 // query row that sees no key at all (possible only with Sq > Sk and a
 // window) has no defined output: ref.py averages every value row, the TPU
@@ -42,23 +45,24 @@ constexpr int RPT = BQ / TY;  // query rows per thread
 constexpr int SPT = BK / TX;  // score columns per thread
 constexpr int LPR = THREADS / BQ;  // softmax lanes per row
 
-template <int D>
+template <int D, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (BQ * (D + PAD) + 2 * BK * (D + PAD) + BQ * (BK + PAD) + 3 * BQ);
+  return sizeof(float) * (BQ * (D + PAD) + BK * (D + PAD) + BK * (DV + PAD) +
+                          BQ * (BK + PAD) + 3 * BQ);
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
                  int H, int Hkv, int causal, int window, float scale) {
-  constexpr int OPT = D / TX;  // output columns per thread
+  constexpr int OPT = DV / TX;  // output columns per thread
+  static_assert(DV % TX == 0, "v width must be a multiple of the thread grid");
   extern __shared__ float smem[];
   float* sQ = smem;                  // BQ x (D + PAD), pre-scaled
   float* sK = sQ + BQ * (D + PAD);   // BK x (D + PAD)
-  float* sV = sK + BK * (D + PAD);   // BK x (D + PAD)
-  float* sP = sV + BK * (D + PAD);   // BQ x (BK + PAD): scores, then probs
+  float* sV = sK + BK * (D + PAD);   // BK x (DV + PAD)
+  float* sP = sV + BK * (DV + PAD);  // BQ x (BK + PAD): scores, then probs
   float* sM = sP + BQ * (BK + PAD);  // running max per row
   float* sL = sM + BQ;               // running denominator per row
   float* sC = sL + BQ;               // this tile's rescale factor per row
@@ -72,7 +76,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = tid % TX;
 
   const long q_stride = (long)H * D;
-  const long kv_stride = (long)Hkv * D;
+  const long k_stride = (long)Hkv * D;
+  const long v_stride = (long)Hkv * DV;
+  const long o_stride = (long)H * DV;
   stage_rows<T, D>(sQ, q + ((long)b * Sq + q0) * q_stride + (long)h * D,
                    q_stride, BQ, min(BQ, Sq - q0), scale);
   if (tid < BQ) {
@@ -90,14 +96,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // at the diagonal, a window starts at the oldest key the first row sees.
   const int k_hi = causal ? min(Sk, q0 + BQ) : Sk;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const T* kb = k + (long)b * Sk * kv_stride + (long)hk * D;
-  const T* vb = v + (long)b * Sk * kv_stride + (long)hk * D;
+  const T* kb = k + (long)b * Sk * k_stride + (long)hk * D;
+  const T* vb = v + (long)b * Sk * v_stride + (long)hk * DV;
 
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();  // the previous tile's reads of sK, sV, sP are done
     const int valid = min(BK, Sk - k0);
-    stage_rows<T, D>(sK, kb + k0 * kv_stride, kv_stride, BK, valid, 1.f);
-    stage_rows<T, D>(sV, vb + k0 * kv_stride, kv_stride, BK, valid, 1.f);
+    stage_rows<T, D>(sK, kb + k0 * k_stride, k_stride, BK, valid, 1.f);
+    stage_rows<T, DV>(sV, vb + k0 * v_stride, v_stride, BK, valid, 1.f);
     __syncthreads();
 
     // scores: rows ty*RPT + i, keys tx + TX*j
@@ -178,7 +184,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < RPT; ++i) pv[i] = sP[(ty * RPT + i) * (BK + PAD) + kk];
 #pragma unroll
-      for (int j = 0; j < OPT; ++j) vv[j] = sV[kk * (D + PAD) + tx + TX * j];
+      for (int j = 0; j < OPT; ++j) vv[j] = sV[kk * (DV + PAD) + tx + TX * j];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -193,41 +199,61 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + r;
     if (qp < Sq) {
       const float inv = 1.f / fmaxf(sL[r], 1e-30f);
-      T* out = o + ((long)b * Sq + qp) * q_stride + (long)h * D;
+      T* out = o + ((long)b * Sq + qp) * o_stride + (long)h * DV;
 #pragma unroll
       for (int j = 0; j < OPT; ++j) store(out + tx + TX * j, acc[i][j] * inv);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            int Sk, int H, int Hkv, int causal, int window, float scale,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<D, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, D, DV><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, Hkv, causal,
       window, scale);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int D>
+int dispatch_dv(int DV, const void* q, const void* k, const void* v, void* o,
+                int B, int Sq, int Sk, int H, int Hkv, int causal, int window,
+                float scale, cudaStream_t stream) {
+  switch (DV) {
+    case 32:
+      return launch<T, D, 32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+    case 64:
+      return launch<T, D, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+    case 128:
+      return launch<T, D, 128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               int B, int Sq, int Sk, int H, int Hkv, int causal, int window,
-               float scale, cudaStream_t stream) {
+int dispatch_d(int D, int DV, const void* q, const void* k, const void* v,
+               void* o, int B, int Sq, int Sk, int H, int Hkv, int causal,
+               int window, float scale, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<T, 32>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+    case 48:
+      return dispatch_dv<T, 48>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<T, 64>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+    case 96:
+      return dispatch_dv<T, 96>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<T, 128>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -240,14 +266,15 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
 // Returns the CUDA error code of the launch (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int Sq, int Sk, int H,
-                                   int Hkv, int D, int dtype, int causal,
-                                   int window, float scale, void* stream) {
+                                   int Hkv, int D, int Dv, int dtype,
+                                   int causal, int window, float scale,
+                                   void* stream) {
   using namespace repro_torch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, st);
+    return dispatch_d<float>(D, Dv, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, st);
+    return dispatch_d<__nv_bfloat16>(D, Dv, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

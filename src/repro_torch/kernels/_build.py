@@ -22,7 +22,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("nstep_returns", "vtrace", "flash_attention", "decode_attention")
+SOURCES = ("nstep_returns", "vtrace", "flash_attention", "decode_attention",
+           "mla_decode", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -15,8 +15,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+from repro_torch.kernels.flash_attention import DTYPES
 
+HEAD_DIMS = (32, 64, 128)  # head widths the kernel is instantiated for
 GMAX = 16  # most query heads per KV head the kernel's shared memory holds
 
 

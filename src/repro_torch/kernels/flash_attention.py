@@ -1,9 +1,11 @@
 """K3 on the card: prefill flash attention, ``csrc/flash_attention.cu``.
 
 The hand-written CUDA kernel that replaces
-``repro/kernels/flash_attention.py::flash_attention_pallas``. Its plain
-version is ``ref.flash_attention_ref``; ``ops.flash_attention`` picks
-between the two by the device of the tensors it is given.
+``repro/kernels/flash_attention.py::flash_attention_pallas``. As the TPU
+kernel does, it takes v narrower or wider than q and k (MLA prefill: q/k
+96 wide, v 64) and writes the output as wide as v. Its plain version is
+``ref.flash_attention_ref``; ``ops.flash_attention`` picks between the two
+by the device of the tensors it is given.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)  # head widths the kernel is instantiated for
+HEAD_DIMS = (32, 48, 64, 96, 128)  # q/k widths the kernel is instantiated for
+V_DIMS = (32, 64, 128)  # v widths, each with every q/k width
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -36,9 +39,9 @@ def check_inputs(q, k, v, *, window: int = 0) -> None:
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must be 16-byte aligned")
     B, Sq, H, D = q.shape
-    if tuple(k.shape) != tuple(v.shape):
+    if tuple(k.shape[:3]) != tuple(v.shape[:3]):
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} differ")
+                         f"{tuple(v.shape)} differ before the last dim")
     Bk, Sk, Hkv, Dk = k.shape
     if Bk != B or Dk != D:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not match "
@@ -48,6 +51,9 @@ def check_inputs(q, k, v, *, window: int = 0) -> None:
                          f"{Hkv} KV heads")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
+    if v.shape[3] not in V_DIMS:
+        raise ValueError(f"flash_attention: v width {v.shape[3]} not in "
+                         f"{V_DIMS}")
     if Sq < 1 or Sk < 1:
         raise ValueError("flash_attention: empty sequence")
     if window < 0:
@@ -57,31 +63,32 @@ def check_inputs(q, k, v, *, window: int = 0) -> None:
 def _kernel():
     fn = _build.library("flash_attention").flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          scale=None) -> torch.Tensor:
-    """Launch K3 on ``q``'s card: q (B, Sq, H, D), k/v (B, Sk, Hkv, D) ->
-    (B, Sq, H, D) in q's dtype. Raises on CPU tensors and on any input the
-    kernel does not take; a refused launch raises too."""
+    """Launch K3 on ``q``'s card: q (B, Sq, H, D), k (B, Sk, Hkv, D), v
+    (B, Sk, Hkv, Dv) -> (B, Sq, H, Dv) in q's dtype. Raises on CPU tensors
+    and on any input the kernel does not take; a refused launch raises
+    too."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda: tensors are on {q.device}, "
                          "not on a CUDA device")
     check_inputs(q, k, v, window=window)
     B, Sq, H, D = q.shape
     _, Sk, Hkv, _ = k.shape
+    Dv = v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    out = torch.empty_like(q)
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, Sq, Sk, H, Hkv, D, DTYPES[q.dtype], int(bool(causal)),
+                B, Sq, Sk, H, Hkv, D, Dv, DTYPES[q.dtype], int(bool(causal)),
                 int(window), float(scale), stream)
     if rc != 0:
         msg = _build.error_string("flash_attention", rc)

@@ -11,13 +11,15 @@ from __future__ import annotations
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.mla_decode import mla_decode_attention_cuda
 from repro_torch.kernels.nstep_returns import check_inputs as _check_nstep
 from repro_torch.kernels.nstep_returns import nstep_returns_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.vtrace import check_inputs as _check_vtrace
 from repro_torch.kernels.vtrace import vtrace_returns_cuda
 
 launches = {"nstep_returns": 0, "vtrace_returns": 0, "flash_attention": 0,
-            "decode_attention": 0}
+            "decode_attention": 0, "mla_decode_attention": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -54,7 +56,8 @@ def vtrace_returns(rewards, dones, values, bootstrap, rho, gamma: float,
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale=None):
-    """K3. q (B, Sq, H, D); k/v (B, Sk, Hkv, D) -> (B, Sq, H, D)."""
+    """K3. q (B, Sq, H, D); k (B, Sk, Hkv, D); v (B, Sk, Hkv, Dv) ->
+    (B, Sq, H, Dv)."""
     if q.device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                         scale=scale)
@@ -71,4 +74,29 @@ def decode_attention(q, k_cache, v_cache, pos, *, scale=None):
         return _ref.decode_attention_ref(q, k_cache, v_cache, pos, scale=scale)
     out = decode_attention_cuda(q, k_cache, v_cache, pos, scale=scale)
     launches["decode_attention"] += 1
+    return out
+
+
+def mla_decode_attention(q_lat, q_rope, c_cache, kr_cache, pos, scale: float):
+    """K5. Absorbed queries q_lat (B, H, R) and q_rope (B, H, Rr); latent
+    cache c (B, S, R) and roped keys kr (B, S, Rr); pos an int or a (B,)
+    int32 tensor -> the latent output (B, H, R)."""
+    if q_lat.device.type == "cpu":
+        return _ref.mla_decode_attention_ref(q_lat, q_rope, c_cache, kr_cache,
+                                             pos, scale)
+    out = mla_decode_attention_cuda(q_lat, q_rope, c_cache, kr_cache, pos,
+                                    scale)
+    launches["mla_decode_attention"] += 1
+    return out
+
+
+def ssd_scan(x, dt, A_log, B_mat, C_mat, D_vec, *, chunk: int):
+    """K6. x (B, S, H, P); dt (B, S, H) fp32; A_log, D_vec (H,) fp32;
+    B_mat/C_mat (B, S, N) -> ``(y (B, S, H, P), final state (B, H, P, N)
+    fp32)``. S must be a multiple of ``chunk`` on both routes."""
+    if x.device.type == "cpu":
+        return _ref.ssd_scan_ref(x, dt, A_log, B_mat, C_mat, D_vec,
+                                 chunk=chunk)
+    out = ssd_scan_cuda(x, dt, A_log, B_mat, C_mat, D_vec, chunk=chunk)
+    launches["ssd_scan"] += 1
     return out

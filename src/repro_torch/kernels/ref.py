@@ -99,3 +99,77 @@ def decode_attention_ref(q, k_cache, v_cache, pos, *, scale=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return o.reshape(B, H, Dv).to(q.dtype)
+
+
+def mla_decode_attention_ref(q_lat, q_rope, c_cache, kr_cache, pos, scale):
+    """Latent-space (absorbed) MLA decode. q_lat (B, H, R), q_rope (B, H, Rr),
+    c_cache (B, S, R), kr_cache (B, S, Rr); ``pos`` an int or a (B,) integer
+    tensor, as in ``decode_attention_ref``. Returns (B, H, R) in q_lat's
+    dtype:
+
+        s_k = (q_lat . c_k + q_rope . kr_k) * scale    for k <= pos
+        out = sum_k softmax(s)_k c_k
+    """
+    c = c_cache.float()
+    s = torch.einsum("bhr,bkr->bhk", q_lat.float(), c)
+    s = s + torch.einsum("bhr,bkr->bhk", q_rope.float(), kr_cache.float())
+    s = s * scale
+    slots = torch.arange(c_cache.shape[1], device=q_lat.device)
+    if isinstance(pos, torch.Tensor):
+        valid = slots[None, :] <= pos.to(q_lat.device)[:, None]  # (B, S)
+    else:
+        valid = (slots <= int(pos))[None, :]  # (1, S)
+    s = s.masked_fill(~valid[:, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhk,bkr->bhr", p, c).to(q_lat.dtype)
+
+
+def ssd_scan_ref(x, dt, A_log, B_mat, C_mat, D_vec, *, chunk: int):
+    """Chunked SSD (Mamba2) scan, fp32 inside: the algorithm of
+    ``repro/models/ssm.py::ssd_chunked``. x (B, S, H, P); dt (B, S, H)
+    post-softplus; A_log, D_vec (H,); B_mat, C_mat (B, S, N), shared across
+    heads. Returns ``(y, final_state)``: y (B, S, H, P) in x's dtype, the
+    state (B, H, P, N) float32. Per chunk of Q steps, with cum the inclusive
+    cumsum of a = -exp(A_log) dt inside the chunk:
+
+        y_i = sum_{j<=i} exp(cum_i - cum_j) (C_i . B_j) dt_j x_j
+              + exp(cum_i) C_i . state + D x_i
+        state <- exp(cum_Q) state + sum_j exp(cum_Q - cum_j) (dt_j x_j) B_j^T
+    """
+    Bsz, S, H, P = x.shape
+    N = B_mat.shape[-1]
+    if S % chunk:
+        raise ValueError(f"ssd_scan: seq {S} % chunk {chunk} != 0")
+    nc = S // chunk
+    xf = x.float()
+    dtf = dt.float()
+    a = -torch.exp(A_log.float())[None, None, :] * dtf  # (B, S, H)
+    xc = xf.reshape(Bsz, nc, chunk, H, P)
+    dtc = dtf.reshape(Bsz, nc, chunk, H)
+    Bc = B_mat.float().reshape(Bsz, nc, chunk, N)
+    Cc = C_mat.float().reshape(Bsz, nc, chunk, N)
+    cum = torch.cumsum(a.reshape(Bsz, nc, chunk, H), dim=2)  # inclusive
+    total = cum[:, :, -1, :]  # (B, nc, H)
+
+    scores = torch.einsum("bcis,bcjs->bcij", Cc, Bc)
+    dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, Q, Q, H)
+    tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                 device=x.device))
+    L = torch.where(tril[None, None, :, :, None], torch.exp(dec),
+                    torch.zeros((), device=x.device))
+    xdt = xc * dtc[..., None]  # (B, nc, Q, H, P)
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * L, xdt)
+
+    w_state = torch.exp(total[:, :, None, :] - cum)  # (B, nc, Q, H)
+    s_chunk = torch.einsum("bcjh,bcjs,bcjhp->bchps", w_state, Bc, xdt)
+    state = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    s_in = []
+    for c in range(nc):  # the inter-chunk carry
+        s_in.append(state)
+        state = state * torch.exp(total[:, c])[:, :, None, None] + s_chunk[:, c]
+    s_in = torch.stack(s_in, dim=1)  # (B, nc, H, P, N)
+    y_inter = torch.einsum("bcih,bcis,bchps->bcihp", torch.exp(cum), Cc, s_in)
+
+    y = (y_intra + y_inter).reshape(Bsz, S, H, P)
+    y = y + D_vec.float()[None, None, :, None] * xf
+    return y.to(x.dtype), state

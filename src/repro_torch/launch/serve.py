@@ -11,14 +11,22 @@ Two modes, as in ``repro.launch.serve``:
   requests join/leave the decode batch mid-flight, each row at its own
   position. Reports aggregate tokens/s and p50/p99 request latency.
 
-Runs on the card (``--device cuda``, the default) unless ``--device cpu``
-is given; without a CUDA device the default raises. The reference's
-``--trace`` and ``--metrics-jsonl`` wait for the port's telemetry slice.
+``--arch`` takes every registered token model: qwen2-7b (GQA: K3 prefill,
+K4 decode), minicpm3-4b (MLA: K3 prefill with q/k wider than v; the
+config's naive decode, or K5 when a caller serves
+``cfg.replace(mla_absorb=True)``, as ``chip_smoke.py`` does) and
+mamba2-370m (SSM: K6 prefill, recurrent decode; a prompt longer than one
+128-token chunk must be a whole number of chunks). Runs on the card
+(``--device cuda``, the default) unless ``--device cpu`` is given; without
+a CUDA device the default raises. The reference's ``--trace`` and
+``--metrics-jsonl`` wait for the port's telemetry slice.
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         --batch 8 --prompt-len 64 --gen 32
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+        --continuous --requests 8 --slots 4 --prompt-len 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \\
         --reduced --device cpu --continuous --requests 16 --slots 4 --gen 16
 """
 from __future__ import annotations

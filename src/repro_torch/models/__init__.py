@@ -1,7 +1,9 @@
 """Unified policy/value model API of the port.
 
 The same functional surface as ``repro.models``, for the families ported
-so far — the paper's CNNs and MLP (``family == "cnn"``) and dense GQA:
+so far — the paper's CNNs and MLP (``family == "cnn"``), the dense decoder
+with GQA or MLA attention (qwen2-7b, minicpm3-4b) and the Mamba2 SSM
+(``family == "ssm"``, mamba2-370m):
 
 * ``init_policy(cfg, *, generator, device)``           -> params
 * ``policy_apply(params, cfg, obs)``  -> (logits, values, {})  (CNN family)

@@ -1,14 +1,17 @@
-"""Grouped-query attention: prefill and single-token decode over a KV cache.
+"""Attention: grouped-query (GQA) and multi-head latent (MLA), prefill and
+single-token decode over a cache.
 
-The port's counterpart of ``repro/models/attention.py``, GQA only. Prefill
-attention runs in kernel K3 and decode attention in kernel K4, through
+The port's counterpart of ``repro/models/attention.py``, GQA and MLA
+without sliding windows. Prefill attention runs in kernel K3 (MLA's with q/k
+wider than v), GQA decode in K4 and MLA's absorbed decode in K5, through
 ``repro_torch.kernels.ops``: on CUDA tensors the hand-written kernels, on
-CPU tensors their plain versions.
+CPU tensors their plain versions. MLA's naive decode is plain PyTorch, as
+the reference computes it outside any Pallas kernel.
 
-Unlike the reference, whose arrays are immutable, ``gqa_decode`` writes the
-new token's K/V into the cache in place and returns the same cache: the
-serving cache is the largest thing on the card after the weights, and a
-copy per step would double its traffic.
+Unlike the reference, whose arrays are immutable, ``gqa_decode`` and
+``mla_decode`` write the new token's cache entries in place and return the
+same cache: the serving cache is the largest thing on the card after the
+weights, and a copy per step would double its traffic.
 """
 from __future__ import annotations
 
@@ -18,7 +21,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, init_linear, linear
+from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models.common import (apply_rope, init_linear, init_rmsnorm,
+                                       linear, rmsnorm)
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, item 11)"
 
@@ -105,4 +110,152 @@ def gqa_decode(p, cfg, x, cache, pos, *, window: int = 0):
         cv[:, pos % slots] = v[:, 0].to(cv.dtype)
     out = ops.decode_attention(q.reshape(B, H, D).to(ck.dtype), ck, cv, pos)
     out = out.reshape(B, 1, H * D).to(x.dtype)
+    return linear(p["wo"], out), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(generator, cfg, dtype):
+    """Weights for MLA: low-rank queries (when ``q_lora_rank``), the shared
+    latent projection to (c_kv || k_rope), and ``wukv`` from the latent to
+    each head's (k_nope || v)."""
+    _check_window(cfg, 0)
+    device = generator.device
+    H = cfg.num_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    p = {}
+    if cfg.q_lora_rank:
+        p["wdq"] = init_linear(generator, cfg.d_model, cfg.q_lora_rank, dtype)
+        p["q_norm"] = init_rmsnorm(cfg.q_lora_rank, dtype, device)
+        p["wuq"] = init_linear(generator, cfg.q_lora_rank, H * qk, dtype)
+    else:
+        p["wq"] = init_linear(generator, cfg.d_model, H * qk, dtype)
+    p["wdkv"] = init_linear(generator, cfg.d_model,
+                            cfg.kv_lora_rank + cfg.qk_rope_dim, dtype)
+    p["kv_norm"] = init_rmsnorm(cfg.kv_lora_rank, dtype, device)
+    p["wukv"] = init_linear(generator, cfg.kv_lora_rank,
+                            H * (cfg.qk_nope_dim + cfg.v_head_dim), dtype)
+    p["wo"] = init_linear(generator, H * cfg.v_head_dim, cfg.d_model, dtype,
+                          scale=1.0 / math.sqrt(2 * max(cfg.num_layers, 1)))
+    return p
+
+
+def _mla_queries(p, cfg, x):
+    """x (B, S, d_model) -> (q_nope (B, S, H, nope), q_rope (B, S, H, rope)),
+    q_rope not yet roped."""
+    B, S, _ = x.shape
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        q = linear(p["wuq"], rmsnorm(p["q_norm"], linear(p["wdq"], x),
+                                     cfg.norm_eps))
+    else:
+        q = linear(p["wq"], x)
+    q = q.reshape(B, S, cfg.num_heads, qk)
+    return q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+
+
+def _mla_latent(p, cfg, x):
+    """The compressed per-token latent: (c_kv normalised (B, S, rank),
+    k_rope not yet roped (B, S, rope))."""
+    ckv = linear(p["wdkv"], x)
+    c, k_rope = ckv[..., :cfg.kv_lora_rank], ckv[..., cfg.kv_lora_rank:]
+    return rmsnorm(p["kv_norm"], c, cfg.norm_eps), k_rope
+
+
+def mla_forward(p, cfg, x, *, window: int = 0):
+    """Causal MLA over x (B, S, d_model), through K3 with q/k of width
+    qk_nope + qk_rope and v of width v_head. Returns (out, (c, kr)): the
+    cache contents, the normalised latent (B, S, rank) and the roped shared
+    keys (B, S, rope)."""
+    _check_window(cfg, window)
+    B, S, _ = x.shape
+    H, nope, rope = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    pos = torch.arange(S, device=x.device)
+    q_nope, q_rope = _mla_queries(p, cfg, x)
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    c, k_rope = _mla_latent(p, cfg, x)
+    k_rope = apply_rope(k_rope, pos, cfg.rope_theta)  # (B, S, rope)
+    kv = linear(p["wukv"], c).reshape(B, S, H, nope + cfg.v_head_dim)
+    k = torch.cat([kv[..., :nope], k_rope[:, :, None, :].expand(B, S, H, rope)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    v = kv[..., nope:].contiguous()
+    out = ops.flash_attention(q, k, v, causal=True,
+                              scale=1.0 / math.sqrt(nope + rope))
+    y = linear(p["wo"], out.reshape(B, S, H * cfg.v_head_dim))
+    return y, (c, k_rope)
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, dtype, device):
+    _check_window(cfg, 0)
+    return {
+        "c": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                         device=device),
+        "kr": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                          device=device),
+    }
+
+
+def mla_decode(p, cfg, x, cache, pos, *, window: int = 0):
+    """Single-token MLA decode of x (B, 1, d_model) against ``cache`` (one
+    layer's {"c" (B, slots, rank), "kr" (B, slots, rope)}). Returns (out,
+    cache); ``pos`` as in ``gqa_decode``.
+
+    ``cfg.mla_absorb`` selects the latent-space path: W_uk folded into the
+    query (``q_lat``), attention over the latent cache in K5, W_uv applied to
+    its latent output. Otherwise the naive path rebuilds every head's K/V
+    from the whole latent cache each step, in plain PyTorch. The matmuls
+    keep the cache dtype with fp32 accumulation and fp32 softmax, as the
+    reference's do.
+    """
+    _check_window(cfg, window)
+    B = x.shape[0]
+    H = cfg.num_heads
+    nope, vdim, rank = cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    cc, ckr = cache["c"], cache["kr"]
+    slots = cc.shape[1]
+    q_nope, q_rope = _mla_queries(p, cfg, x)  # (B, 1, H, *)
+    c_new, kr_new = _mla_latent(p, cfg, x)  # (B, 1, rank), (B, 1, rope)
+    if isinstance(pos, torch.Tensor):
+        q_rope = apply_rope(q_rope, pos[:, None], cfg.rope_theta)
+        kr_new = apply_rope(kr_new, pos[:, None], cfg.rope_theta)
+        rows = torch.arange(B, device=x.device)
+        write = pos.long() % slots
+        cc[rows, write] = c_new[:, 0].to(cc.dtype)
+        ckr[rows, write] = kr_new[:, 0].to(ckr.dtype)
+    else:
+        pos = int(pos) if isinstance(pos, np.integer) else pos
+        at = torch.full((1,), pos, device=x.device)
+        q_rope = apply_rope(q_rope, at, cfg.rope_theta)
+        kr_new = apply_rope(kr_new, at, cfg.rope_theta)
+        cc[:, pos % slots] = c_new[:, 0].to(cc.dtype)
+        ckr[:, pos % slots] = kr_new[:, 0].to(ckr.dtype)
+
+    scale = 1.0 / math.sqrt(nope + cfg.qk_rope_dim)
+    wukv = p["wukv"]["w"].reshape(rank, H, nope + vdim)
+    w_uk, w_uv = wukv[..., :nope], wukv[..., nope:]  # (rank, H, nope/v)
+    qr = q_rope[:, 0].to(ckr.dtype).contiguous()  # (B, H, rope)
+    if cfg.mla_absorb:
+        q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)
+        o_lat = ops.mla_decode_attention(q_lat.to(cc.dtype).contiguous(), qr,
+                                         cc, ckr, pos, scale)  # (B, H, rank)
+        out = torch.einsum("bhr,rhv->bhv", o_lat.to(w_uv.dtype), w_uv)
+    else:
+        kv = torch.einsum("bkr,rhe->bkhe", cc, wukv.to(cc.dtype))
+        k_nope, v = kv[..., :nope], kv[..., nope:]
+        s = torch.einsum("bhn,bkhn->bhk", q_nope[:, 0].to(kv.dtype).float(),
+                         k_nope.float())
+        s = s + torch.einsum("bhr,bkr->bhk", qr.float(), ckr.float())
+        slot_idx = torch.arange(slots, device=x.device)
+        if isinstance(pos, torch.Tensor):
+            valid = slot_idx[None, :] <= pos[:, None]  # (B, slots)
+        else:
+            valid = (slot_idx <= pos)[None, :]  # (1, slots)
+        s = (s * scale).masked_fill(~valid[:, None, :], NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhk,bkhv->bhv", pr.to(v.dtype).float(), v.float())
+    out = out.reshape(B, 1, H * vdim).to(x.dtype)
     return linear(p["wo"], out), cache

@@ -7,18 +7,24 @@ whatever co-resides in the batch) rests on two properties:
   ``max_slots``: continuous with random join/leave traffic, lockstep, a
   solo single-request run all launch the same kernels on the same shapes.
 * **Row independence.** Every op in the step is per row: the per-row
-  position path of ``gqa_decode`` (index-scatter cache writes, per-row
-  bound in the decode kernel) and per-request sampling — token ``t`` of
-  the request with stream root ``seed`` is drawn from a generator seeded
-  by ``(seed, t)`` alone (``utils/sampling.py``), never from a
+  position paths of ``gqa_decode`` and ``mla_decode`` (index-scatter cache
+  writes, per-row bound in the decode kernels K4 and K5), the
+  position-free Mamba2 recurrence, and per-request sampling — token ``t``
+  of the request with stream root ``seed`` is drawn from a generator
+  seeded by ``(seed, t)`` alone (``utils/sampling.py``), never from a
   batch-shared one.
 
 Stale cache rows need no zeroing between leases: admission copies a freshly
-prefilled row over the slot, and attention never reads past the row's own
-``pos``.
+prefilled row over the slot, attention never reads past the row's own
+``pos``, and the Mamba2 leaves (fp32 state, conv buffers) are overwritten
+whole. Idle rows decode too, on whatever they hold; their results are never
+read.
 
-Prefill is exact-length and batch 1; the small cache is then copied into
-the leased row by explicit indexing (``cache[:, slot] = small[:, 0]``).
+Prefill is exact-length and batch 1, because right-padding would corrupt
+the SSM recurrence (and a Mamba2 prompt longer than one chunk must be a
+whole number of chunks); every leaf of the small cache, whatever its dtype,
+is then copied into the leased row by explicit indexing (``cache[:, slot]
+= small[:, 0]``).
 
 The step reads ``pos``/``seeds``/``tindex`` from host numpy, as the
 reference does, and never waits on device values: positions go up with a

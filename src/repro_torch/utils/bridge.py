@@ -9,7 +9,10 @@ packages keep ``x @ w`` with ``w`` shaped (in, out) and layers stacked on
 a leading axis, so those arrays copy over unchanged. The one exception is
 the CNN trunk's conv weights (``trunk.convs[i].w``): the reference keeps
 them HWIO, PyTorch's ``conv2d`` takes OIHW, and they are permuted on the
-way. This module imports no JAX.
+way. Everything else crosses as it is, dtype included: MLA's (in, out)
+linears, Mamba2's depthwise ``conv_x``/``conv_B``/``conv_C`` (K, C), which
+are not under ``convs``, and the fp32 leaves (``dt_bias``, ``A_log``,
+``D``) of a bf16 model. This module imports no JAX.
 """
 from __future__ import annotations
 

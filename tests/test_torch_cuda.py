@@ -1,8 +1,9 @@
 """The port on the card: hand-written kernels against their plain versions,
-the reduced qwen2 and the full-size ``paac_nature`` on the card against
-the same weights on the CPU, one training iteration through K1, and the
-pipeline: five async updates through K2, and lockstep with infinite clips
-bitwise equal to ``ParallelRL`` through K1.
+the reduced qwen2, minicpm3-4b and mamba2-370m and the full-size
+``paac_nature`` on the card against the same weights on the CPU, one
+training iteration through K1, and the pipeline: five async updates
+through K2, and lockstep with infinite clips bitwise equal to
+``ParallelRL`` through K1.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one. This file imports no JAX, so it also runs on a machine that has
@@ -22,7 +23,9 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.mla_decode import mla_decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.nstep_returns import nstep_returns_cuda  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda  # noqa: E402
 from repro_torch.kernels.vtrace import vtrace_returns_cuda  # noqa: E402
 from repro_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -85,6 +88,79 @@ def test_decode_kernel_matches_plain_version(cuda, dtype, B, S, H, Hkv, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,D,Dv", [
+    (1, 130, 40, 96, 64),  # minicpm3-4b's MLA prefill, ragged S
+    (2, 70, 4, 48, 32),    # reduced minicpm3-4b
+    (1, 64, 8, 32, 128),
+])
+def test_flash_kernel_with_v_unlike_qk_matches_plain_version(cuda, dtype, B, S,
+                                                              H, D, Dv):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(S + D)
+    q = torch.randn(B, S, H, D, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, S, H, D, generator=g, device=cuda).to(dt)
+    v = torch.randn(B, S, H, Dv, generator=g, device=cuda).to(dt)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float())
+    got = flash_attention_cuda(q, k, v)
+    assert got.shape == (B, S, H, Dv) and got.dtype == dt
+    torch.testing.assert_close(got.float(), want, rtol=_tol(dt), atol=_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("W,S,H,R,Rr,pos", [
+    (4, 544, 40, 256, 32, [127, 250, 399, 543]),  # minicpm3-4b, per-row pos
+    (4, 544, 40, 256, 32, 300),                   # scalar pos
+    (3, 70, 4, 32, 16, [0, 33, 69]),              # reduced minicpm3-4b
+    (2, 100, 128, 512, 64, 99),                   # deepseek-v2's widths
+])
+def test_mla_kernel_matches_plain_version(cuda, dtype, W, S, H, R, Rr, pos):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(S + H)
+    ql, qr = (torch.randn(W, H, d, generator=g, device=cuda).to(dt)
+              for d in (R, Rr))
+    c, kr = (torch.randn(W, S, d, generator=g, device=cuda).to(dt)
+             for d in (R, Rr))
+    p = (torch.tensor(pos, dtype=torch.int32, device=cuda)
+         if isinstance(pos, list) else pos)
+    scale = 1.0 / (96 ** 0.5)
+    want = ref.mla_decode_attention_ref(ql.float(), qr.float(), c.float(),
+                                        kr.float(), p, scale)
+    got = mla_decode_attention_cuda(ql, qr, c, kr, p, scale)
+    assert got.dtype == dt
+    torch.testing.assert_close(got.float(), want, rtol=_tol(dt), atol=_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,N,chunk", [
+    (1, 512, 32, 128, 128),  # mamba2-370m prefill
+    (2, 64, 8, 16, 32),      # reduced mamba2-370m
+    (1, 100, 4, 32, 100),    # one chunk shorter than 128
+])
+def test_ssd_kernel_matches_plain_version(cuda, dtype, B, S, H, N, chunk):
+    """y within 1e-4 + 1e-4 |y| (fp32; C.B^T sums of 128 terms reach |y| ~
+    100) or 2e-2 + 2e-2 |y| (bf16 output), the fp32 state within 1e-4 +
+    1e-4 |state|."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(S + N)
+    x = torch.randn(B, S, H, 64, generator=g, device=cuda).to(dt)
+    dts = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=g, device=cuda) - 2.0)
+    A = torch.log(torch.arange(1, H + 1, device=cuda, dtype=torch.float32))
+    Bm, Cm = (torch.randn(B, S, N, generator=g, device=cuda).to(dt)
+              for _ in range(2))
+    D = torch.ones(H, device=cuda)
+    y, state = ssd_scan_cuda(x, dts, A, Bm, Cm, D, chunk=chunk)
+    y_ref, s_ref = ref.ssd_scan_ref(x.float(), dts, A, Bm.float(), Cm.float(),
+                                    D, chunk=chunk)
+    assert y.dtype == dt and state.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref, rtol=_tol(dt), atol=_tol(dt))
+    torch.testing.assert_close(state, s_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_dispatch_counts_only_kernel_launches(cuda):
     q = torch.zeros(1, 8, 4, 32, device=cuda)
     k = torch.zeros(1, 8, 2, 32, device=cuda)
@@ -93,7 +169,8 @@ def test_dispatch_counts_only_kernel_launches(cuda):
     ops.decode_attention(q[:, 0].contiguous(), k, k, 3)
     ops.flash_attention(q.cpu(), k.cpu(), k.cpu())
     assert ops.launches == {"nstep_returns": 0, "vtrace_returns": 0,
-                            "flash_attention": 1, "decode_attention": 1}
+                            "flash_attention": 1, "decode_attention": 1,
+                            "mla_decode_attention": 0, "ssd_scan": 0}
     with pytest.raises(ValueError):  # no fallback: a bad input raises
         ops.flash_attention(q.half(), k.half(), k.half())
 
@@ -124,6 +201,36 @@ def test_reduced_qwen2_on_the_card_matches_the_cpu(cuda):
         lc, _, cc = policy_decode(cpu, cfg, cc, tok, pos)
         lg, _, cg = policy_decode(gpu, cfg, cg, tok.to(cuda), pg)
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,absorb,kernel", [
+    ("minicpm3-4b", True, "mla_decode_attention"),
+    ("minicpm3-4b", False, "flash_attention"),
+    ("mamba2-370m", False, "ssd_scan"),
+])
+def test_reduced_mla_and_ssm_on_the_card_match_the_cpu(cuda, arch, absorb,
+                                                       kernel):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_policy, policy_decode, policy_prefill
+
+    cfg = get_config(arch).reduced().replace(mla_absorb=absorb)
+    cpu = init_policy(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+    ops.reset_launches()
+    lc, _, cc = policy_prefill(cpu, cfg, toks, max_len=72)
+    lg, _, cg = policy_prefill(gpu, cfg, toks.to(cuda), max_len=72)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for pos in (torch.tensor([64, 60], dtype=torch.int32), 65):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)))
+        pg = pos.to(cuda) if isinstance(pos, torch.Tensor) else pos
+        lc, _, cc = policy_decode(cpu, cfg, cc, tok, pos)
+        lg, _, cg = policy_decode(gpu, cfg, cg, tok.to(cuda), pg)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    assert ops.launches[kernel] >= cfg.num_layers
 
 
 @pytest.mark.cuda

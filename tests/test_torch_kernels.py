@@ -131,7 +131,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     _close(ops.decode_attention(qd, k, v, pos),
            tref.decode_attention_ref(qd, k, v, pos))
     assert ops.launches == {"nstep_returns": 0, "vtrace_returns": 0,
-                            "flash_attention": 0, "decode_attention": 0}
+                            "flash_attention": 0, "decode_attention": 0,
+                            "mla_decode_attention": 0, "ssd_scan": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -156,8 +157,8 @@ def test_flash_wrapper_checks_its_inputs(bad):
     elif bad == "strided":
         q = torch.zeros(1, 4, 8, 32).transpose(1, 2)
     elif bad == "head_dim":
-        q, k, v = (torch.zeros(1, 8, 4, 48), torch.zeros(1, 8, 2, 48),
-                   torch.zeros(1, 8, 2, 48))
+        q, k, v = (torch.zeros(1, 8, 4, 40), torch.zeros(1, 8, 2, 40),
+                   torch.zeros(1, 8, 2, 40))
     elif bad == "groups":
         k, v = torch.zeros(1, 8, 3, 32), torch.zeros(1, 8, 3, 32)
     elif bad == "window":

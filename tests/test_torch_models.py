@@ -148,7 +148,7 @@ def test_unported_features_raise_and_name_the_roadmap(pair, change):
     cfg = pair[1]
     kw = {"sliding_window": {"sliding_window": 64},
           "moe": {"family": "moe", "num_experts": 4},
-          "mla": {"attention": "mla"}}[change]
+          "mla": {"attention": "mla", "sliding_window": 64}}[change]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_policy(cfg.replace(**kw), generator=torch.Generator(),
                     device="cpu")

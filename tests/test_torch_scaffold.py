@@ -7,8 +7,8 @@
 * every kernel source carries its note and C entry point, is built, the
   build goes to an ignored directory, and ``chip_smoke.py`` refuses to run
   without a CUDA device, printing no result;
-* the training and pipeline slices' modules are among those the pins
-  above cover.
+* the training, pipeline, MLA and SSM slices' modules are among those
+  the pins above cover.
 """
 import ast
 import os
@@ -80,7 +80,8 @@ def test_no_import_of_jax_or_repro(path):
 def test_every_kernel_source_is_annotated_and_built_into_an_ignored_dir():
     from repro_torch.kernels import _build
 
-    pallas = {"vtrace": "vtrace_returns"}  # source name -> Pallas function
+    pallas = {"vtrace": "vtrace_returns",  # source name -> Pallas function
+              "mla_decode": "mla_decode_attention"}
     for name in _build.SOURCES:
         src = (_build.CSRC / f"{name}.cu").read_text()
         fn = pallas.get(name, name)
@@ -107,7 +108,9 @@ def test_every_source_is_built_and_the_training_slice_is_pinned():
               "utils.tree", "utils.bridge", "kernels.vtrace",
               "configs.base", "telemetry.hub", "telemetry.trace",
               "pipeline.actor", "pipeline.ring", "pipeline.learner",
-              "pipeline.orchestrator"):
+              "pipeline.orchestrator", "kernels.mla_decode",
+              "kernels.ssd_scan", "models.ssm", "configs.minicpm3_4b",
+              "configs.mamba2_370m"):
         assert f"repro_torch.{m}" in mods, m
 
 
