@@ -10,7 +10,11 @@ into ``build/repro_torch/``) and drives the training path and the serving
 paths:
 
 1. card     — the card's name and power limit as nvidia-smi gives them,
-              then the build of every kernel;
+              then the build of every kernel (seconds, and the registers
+              and spills of K3's bf16 <128, 128> and <192, 128> and of
+              K4's split kernel <bf16, 128, 128>), and
+              the count of tensor-core instructions (HMMA, HGMMA) in K3's
+              bf16 library's SASS where cuobjdump is on the machine;
 2. returns  — K1 (n-step returns) against its plain PyTorch version on the
               card over E in {1, 32, 33, 256, 4096}, T in {1, 5, 64} and
               gamma in {0, 0.99, 1}, dones at a 10% rate plus an all-done
@@ -27,11 +31,17 @@ paths:
               give the same inf or nan), with CUDA-event times at
               (T=5, E=32), (T=5, E=8) and (T=64, E=4096);
 3. kernels  — K3 and K4 against their plain versions on the card, at the
-              serving path's shapes, in fp32 (atol 1e-4) and bf16
+              serving path's shapes and at the widths the TPU kernels
+              take (K3 q/k and v 112/112 and 192/128, causal, ragged S,
+              windowed; K4 at D = 112, v narrower and wider than k,
+              per-row pos from 0 to S - 1, S not a multiple of K4's split),
+              in fp32 (atol 1e-4) and bf16
               (|err| <= 2e-2 + 2e-2 |ref| against the plain version in
               fp32 on the same bf16 inputs), with CUDA-event times of the
               kernel, the plain version and scaled_dot_product_attention
-              (a yardstick only); then K3 at MLA prefill's shape (B=1
+              (a yardstick only) for K3 at qwen2-7b's prefill and K4 at
+              W=8 S=1024 and at the serving decode step (W=4 S=544, pos
+              256-264); then K3 at MLA prefill's shape (B=1
               S=512 H=40, q/k 96 wide, v 64), K5 at minicpm3-4b's decode
               shape (W=4 S=544 H=40 R=256 Rr=32, per-row and scalar pos;
               yardstick: SDPA on (q_lat || q_rope) against (c || kr) with
@@ -95,8 +105,10 @@ paths:
               decode step and every other kernel never, and one request
               rerun alone on a fresh engine must give bitwise the same
               tokens; a torch.profiler window of 8 decode steps gives the
-              device-busy share of a step; then the lockstep demo, whose
-              decode runs with a scalar position.
+              device-busy share of a step and the decode kernel's share
+              of it, one of 3 prefills of 512 tokens the prefill's device
+              time and the prefill kernel's share; then the lockstep
+              demo, whose decode runs with a scalar position.
 
 TF32 is off for matmuls and convolutions throughout. The line before the
 last is a JSON object with each kernel's numbers and its launches on each
@@ -222,12 +234,78 @@ def phase_card(torch, build):
         build.library(name)
         regs = [ln.strip() for ln in build.build_log(name).splitlines()
                 if "registers" in ln or "spill" in ln]
-        say("card", f"built {name}: " + " | ".join(regs[:4]))
+        took = build.build_seconds.get(name)
+        say("card", f"built {name}"
+            + (f" (nvcc done {took:.1f} s after the build began)" if took else
+               " (reused)") + ": " + " | ".join(regs[:4]))
     say("card", f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    for src, keys in (("flash_attention_bf16", ("ILi128ELi128E", "ILi192ELi128E")),
+                      ("decode_attention", ("I13__nv_bfloat16Li128ELi128E",))):
+        for key, line in ptxas_lines(build, src, keys):
+            say("card", f"{src} {key} {line}")
+    sass_counts(build, "flash_attention_bf16")
     return card
 
 
+def ptxas_lines(build, name: str, keys):
+    """(instantiation key, "registers | spills") of ``name``'s build log for
+    each mangled template key given, e.g. "ILi128ELi128E" for <128, 128>."""
+    lines = build.build_log(name).splitlines()
+    out = []
+    for key in keys:
+        for i, ln in enumerate(lines):
+            if "Compiling entry" in ln and key in ln:
+                info = [x.strip() for x in lines[i + 1:i + 4]
+                        if "registers" in x or "spill" in x]
+                out.append((f"<{key}>", " | ".join(info)))
+                break
+    return out
+
+
+def sass_counts(build, name: str) -> None:
+    """Tensor-core instructions in ``name``'s library, where cuobjdump is on
+    the machine: HMMA (mma.sync) and HGMMA (wgmma)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        say("card", f"{name}: cuobjdump not found; SASS not inspected")
+        return
+    sass = subprocess.run([tool, "-sass", str(build.target(name))],
+                          capture_output=True, text=True, check=True).stdout
+    hmma = sum(1 for ln in sass.splitlines() if "HMMA" in ln)
+    hgmma = sum(1 for ln in sass.splitlines() if "HGMMA" in ln)
+    check(hmma + hgmma > 0, f"{name}: no tensor-core instruction in its SASS")
+    say("card", f"{name} SASS: {hmma} HMMA, {hgmma} HGMMA instructions")
+
+
+FLASH_SWEEP = (  # (B, S, H, Hkv, D, Dv, window), causal
+    (1, 512, 28, 4, 128, 128, 0),  # qwen2-7b's prefill (timed in bf16)
+    (1, 77, 28, 4, 128, 128, 0),   # ragged S
+    (1, 512, 28, 4, 128, 128, 100),
+    (1, 333, 16, 4, 112, 112, 0),  # zamba2-7b's width, ragged S
+    (1, 200, 16, 4, 112, 112, 64),
+    (1, 130, 16, 16, 192, 128, 0),  # deepseek-v2's MLA prefill, ragged S
+    (1, 300, 16, 16, 192, 128, 90),
+)
+DECODE_SWEEP = (  # (W, S, H, Hkv, D, Dv, pos, timed in bf16)
+    (8, 1024, 28, 4, 128, 128, [0, 1, 63, 64, 300, 777, 1000, 1023], True),
+    (8, 1024, 28, 4, 128, 128, 600, False),
+    # qwen2-7b's serving decode step: 4 rows at pos 256-264 of a cache of
+    # max_len = 512 + 32 slots, as phase 7's engine allocates it
+    (4, 544, 28, 4, 128, 128, [256, 259, 262, 264], True),
+    (4, 544, 28, 4, 128, 128, [127, 250, 399, 543], False),
+    (4, 300, 16, 4, 112, 112, [0, 63, 64, 299], False),  # S % SPLIT != 0
+    (4, 300, 16, 4, 112, 64, [299, 0, 150, 65], False),  # v narrower than k
+    (3, 100, 16, 2, 64, 112, [99, 0, 40], False),  # v wider than k
+    (2, 40, 16, 4, 112, 128, 39, False),  # S below one split, scalar pos
+)
+
+
 def phase_kernels(torch, np, F, ref, fa, da):
+    """K3 and K4 against their plain versions on the card over their sweeps
+    (qwen2-7b's shapes and the widths of the TPU kernels), and timed at the
+    serving path's shapes."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
@@ -236,22 +314,22 @@ def phase_kernels(torch, np, F, ref, fa, da):
         return torch.randn(*shape, generator=g, device=dev).to(getattr(torch, dtype))
 
     rows = {}
-    B, H, Hkv, D = 1, 28, 4, 128
     for dtype in ("float32", "bfloat16"):
-        for S, window in ((512, 0), (77, 0), (512, 100)):
+        for B, S, H, Hkv, D, Dv, window in FLASH_SWEEP:
             q = randn(B, S, H, D, dtype=dtype)
             k = randn(B, S, Hkv, D, dtype=dtype)
-            v = randn(B, S, Hkv, D, dtype=dtype)
+            v = randn(B, S, Hkv, Dv, dtype=dtype)
             out = fa.flash_attention_cuda(q, k, v, causal=True, window=window)
+            check(tuple(out.shape) == (B, S, H, Dv), f"K3 out {tuple(out.shape)}")
             plain = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                             causal=True, window=window)
             err = within(torch, out, plain, dtype)
             say("kernels", f"K3 flash_attention {dtype} B={B} S={S} H={H} "
-                f"Hkv={Hkv} D={D} causal window={window}: max_abs_err {err:.3g} "
-                f"({tolerance(dtype)})")
+                f"Hkv={Hkv} D={D} Dv={Dv} causal window={window}: max_abs_err "
+                f"{err:.3g} ({tolerance(dtype)})")
             row = rows.setdefault("flash_attention", {"max_abs_err": 0.0})
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            if dtype == "bfloat16" and S == 512 and window == 0:
+            if dtype == "bfloat16" and (S, D, window) == (512, 128, 0):
                 ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v), flush)
                 plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v), flush)
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -267,38 +345,42 @@ def phase_kernels(torch, np, F, ref, fa, da):
                     f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                     f"{b_ms:.4f} ms ({b_by})")
 
-    S = 1024
     for dtype in ("float32", "bfloat16"):
-        for W, S_, pos in ((8, S, [0, 1, 63, 64, 300, 777, 1000, S - 1]),
-                           (8, S, 600), (4, 544, [127, 250, 399, 543])):
+        for W, S, H, Hkv, D, Dv, pos, timed in DECODE_SWEEP:
             q = randn(W, H, D, dtype=dtype)
-            kc = randn(W, S_, Hkv, D, dtype=dtype)
-            vc = randn(W, S_, Hkv, D, dtype=dtype)
+            kc = randn(W, S, Hkv, D, dtype=dtype)
+            vc = randn(W, S, Hkv, Dv, dtype=dtype)
             p = (torch.tensor(pos, dtype=torch.int32, device=dev)
                  if isinstance(pos, list) else pos)
             out = da.decode_attention_cuda(q, kc, vc, p)
+            check(tuple(out.shape) == (W, H, Dv), f"K4 out {tuple(out.shape)}")
             plain = ref.decode_attention_ref(q.float(), kc.float(), vc.float(), p)
             err = within(torch, out, plain, dtype)
-            say("kernels", f"K4 decode_attention {dtype} W={W} S={S_} H={H} "
-                f"Hkv={Hkv} D={D} pos={pos}: max_abs_err {err:.3g} "
+            say("kernels", f"K4 decode_attention {dtype} W={W} S={S} H={H} "
+                f"Hkv={Hkv} D={D} Dv={Dv} pos={pos}: max_abs_err {err:.3g} "
                 f"({tolerance(dtype)})")
             row = rows.setdefault("decode_attention", {"max_abs_err": 0.0})
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            if dtype == "bfloat16" and isinstance(pos, list) and S_ == S:
+            if dtype == "bfloat16" and timed:
                 ms = time_ms(torch, lambda: da.decode_attention_cuda(q, kc, vc, p), flush)
                 plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(q, kc, vc, p), flush)
-                mask = (torch.arange(S_, device=dev)[None, :] <= p[:, None])[:, None, None, :]
+                mask = (torch.arange(S, device=dev)[None, :] <= p[:, None])[:, None, None, :]
                 q4, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
                 lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                     q4, kt, vt, attn_mask=mask, enable_gqa=True), flush)
-                keys = sum(min(x + 1, S_) for x in pos)
-                nbytes = 2 * (q.numel() + out.numel() + 2 * keys * Hkv * D) + 4 * W
-                flops = 4 * H * D * keys
+                keys = sum(min(x + 1, S) for x in pos)
+                nbytes = 2 * (q.numel() + out.numel() + keys * Hkv * (D + Dv)) + 4 * W
+                flops = 2 * H * (D + Dv) * keys
                 b_ms, b_by = bound(nbytes, flops, dtype)
-                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=b_ms, bound_by=b_by,
-                           shape=f"bf16 W={W} S={S_} H={H} Hkv={Hkv} D={D} pos={pos}")
-                say("kernels", f"K4 timed ({row['shape']}): kernel {ms:.4f} ms, "
+                t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         shape=f"bf16 W={W} S={S} H={H} Hkv={Hkv} D={D} pos={pos}")
+                if "ms" in row:  # the serving step's shape, beside the first
+                    t["shape"] += " (the serving decode step)"
+                    row.setdefault("other", []).append(t)
+                else:
+                    row.update(t)
+                say("kernels", f"K4 timed ({t['shape']}): kernel {ms:.4f} ms, "
                     f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                     f"{b_ms:.4f} ms ({b_by})")
     del flush
@@ -1189,7 +1271,7 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
         "engine: bitwise equal")
     del engine
 
-    wall_ms, busy_ms, summed_ms, top = profile_decode(
+    wall_ms, busy_ms, summed_ms, top, by_name = profile_decode(
         torch, np, serving, cfg, params, slots, max_len, dev=dev)
     busy = (f"device busy {busy_ms:.2f} ms a step ({100 * busy_ms / wall_ms:.0f}%"
             " of the unprofiled step; the sum of self device times over "
@@ -1201,6 +1283,20 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
         f"without the profiler, {busy}; top kernels (ms a step, launches a "
         "step): " + "; ".join(f"{k[:60]} {ms:.3f} x{n:.0f}"
                               for k, (ms, n) in top))
+    if dec and busy_ms > 0:
+        k_ms, k_n = kernel_time(by_name, dec)
+        say("serving", f"{arch} decode step: {dec} {k_ms:.3f} ms a step "
+            f"x{k_n:.0f} ({100 * k_ms / busy_ms:.1f}% of the busy "
+            f"{busy_ms:.2f} ms)")
+    p_wall, p_busy, p_by = profile_prefill(
+        torch, np, serving, cfg, params, slots, max_len,
+        prompt_len=max(prompt_lens), dev=dev)
+    k_ms, k_n = kernel_time(p_by, pre)
+    say("serving", f"{arch} prefill of {max(prompt_lens)} tokens through "
+        f"DecodeEngine.admit, torch.profiler window of 3: wall "
+        f"{p_wall:.2f} ms without the profiler, device busy {p_busy:.2f} ms; "
+        f"{pre} {k_ms:.3f} ms x{k_n:.0f} "
+        f"({100 * k_ms / max(p_busy, 1e-9):.1f}% of the busy time)")
 
     _, prompt_gen, decode_gen = serve.demo_generators(SEED, dev)
     ops.reset_launches()
@@ -1254,7 +1350,55 @@ def profile_decode(torch, np, serving, cfg, params, slots, max_len,
                     for e in prof.key_averages()) / steps / 1e3
     busy_ms, by_name = device_window(prof, steps)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-    return wall_ms, busy_ms, summed_ms, top
+    return wall_ms, busy_ms, summed_ms, top, by_name
+
+
+def profile_prefill(torch, np, serving, cfg, params, slots, max_len,
+                    prompt_len: int = 512, reps: int = 3, dev="cuda"):
+    """One prompt of ``prompt_len`` tokens prefilled through
+    ``DecodeEngine.admit`` (the model's prefill, the first token, the cache
+    write), ``reps`` times after a warm-up: (wall ms a prefill without the
+    profiler, device-busy ms a prefill, {name: [ms, launches]} a prefill)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = serving.DecodeEngine(cfg, params, max_slots=slots,
+                                  max_len=max_len, device=dev)
+    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size, prompt_len)
+    engine.admit(0, prompt, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine.admit(0, prompt, seed=0)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            engine.admit(0, prompt, seed=0)
+        torch.cuda.synchronize()
+    busy_ms, by_name = device_window(prof, reps)
+    return wall_ms, busy_ms, by_name
+
+
+# Each kernel's CUDA kernels as a profile names them; decode_kernel is the
+# single kernel of K4's first, unsplit design, so a profile of that design
+# reads the same way.
+PROFILE_NAMES = {
+    "flash_attention": ("flash_fwd_kernel", "flash_fwd_bf16_kernel"),
+    "decode_attention": ("decode_split_kernel", "decode_combine_kernel",
+                         "decode_kernel"),
+    "mla_decode_attention": ("mla_decode_kernel",),
+    "ssd_scan": ("ssd_scan_kernel",),
+}
+
+
+def kernel_time(by_name, kernel: str):
+    """(ms, launches) of ``kernel``'s CUDA kernels in a ``device_window``
+    table (demangled template names: ``ns::name<...>(...)``)."""
+    import re
+
+    pat = re.compile(r"(?<![\w])(" + "|".join(PROFILE_NAMES[kernel]) + r")<")
+    hits = [row for name, row in by_name.items() if pat.search(name)]
+    return sum(r[0] for r in hits), sum(r[1] for r in hits)
 
 
 KERNELS = {
@@ -1262,7 +1406,9 @@ KERNELS = {
                       "src/repro/kernels/nstep_returns.py:54"),
     "vtrace_returns": ("src/repro_torch/csrc/vtrace.cu",
                        "src/repro/kernels/vtrace.py:92"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    # the bf16 source: the serving paths run K3 in bf16 (the fp32 path,
+    # csrc/flash_attention.cu, serves the card-vs-CPU parity checks)
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_bf16.cu",
                         "src/repro/kernels/flash_attention.py:113"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:103"),

@@ -1,190 +1,364 @@
-// K4: single-token (decode) GQA attention over a KV cache, for Hopper (sm_90a).
+// K4: single-token (decode) GQA attention over a KV cache, for Hopper (sm_90a),
+// as split-K flash-decoding.
 //
 // Replaces src/repro/kernels/decode_attention.py::decode_attention_pallas
-// (pl.pallas_call at :103). For q (B, H, D) and caches (B, S, Hkv, D), row b
-// attends to the cache slots 0..pos_b: out = softmax(q k^T * scale) v over
-// those slots, with an fp32 online softmax over KV tiles; output (B, H, D)
-// in q's dtype. The TPU kernel takes one scalar pos; this one also takes a
-// per-row (B,) int32 pos, which the serving engine decodes with.
+// (pl.pallas_call at :103). For q (B, H, D), a k cache (B, S, Hkv, D) and a
+// v cache (B, S, Hkv, Dv), row b attends to the cache slots 0..pos_b:
+// out = softmax(q k^T * scale) v over those slots, with fp32 running max,
+// denominator and accumulator; output (B, H, Dv) in q's dtype. The TPU
+// kernel takes one scalar pos; this one also takes a per-row (B,) int32 pos,
+// which the serving engine decodes with. pos >= S reads all S slots (the
+// ring cache).
 //
 // What bounds it on the H100: each cached K/V element is used by the G query
 // heads of its KV head, so the work is about G flops a byte in bf16 (7 at
 // G = 7), far under the card's ridge (~295): it is bound by bytes, and the
-// bytes are the filled part of the cache.
-// What the design does about it: one block per (KV head, row) stages each
-// K/V tile once into shared memory and serves all G query heads from it, so
-// the cache is read once, never once per query head and never expanded. The
-// block loads its own bound (pos[b], or the scalar) and stops its walk at
-// pos: tiles past it are never read, so the bytes follow the filled length,
-// not the capacity. Loads are 16 bytes a thread, neighbouring threads on
-// neighbouring addresses. With B*Hkv blocks (32 at 8 rows, 4 KV heads) the
-// card is far from full; splitting the walk across blocks (split-K) is
-// later work.
+// bytes are the filled part of the cache. One block per (KV head, row)
+// walking its cache alone, as the first version did, leaves most of the 132
+// SMs idle (32 blocks at 8 rows and 4 KV heads) and each block waiting on
+// its own loads.
+// What the design does about it:
+// - The walk is split across blocks: a grid of (Hkv, B, ceil(S / SPLIT))
+//   blocks, each over SPLIT = 64 slots. The grid is sized from the capacity
+//   S; a block whose split starts past pos_b exits at once, so the bytes
+//   read follow the filled length and pos never goes to the host.
+// - Within a split, K/V tiles of 32 slots stay in the cache's dtype in
+//   shared memory (rows padded by 16 bytes), filled by 16-byte cp.async into
+//   two stages, both issued at the start: the second tile loads while the
+//   first computes, and the block waits on device memory once. Each
+//   tile serves all G query heads of its KV head, so the cache is read once,
+//   never once per query head and never expanded.
+// - A warp serves heads w and w + 8 (eight warps, so that at G = 7 each
+//   warp carries one head's chain): lane j scores slot j, the online
+//   softmax runs in the warp's registers (max and sum by shuffles), and lane
+//   l accumulates value columns 2l, 2l + 1, 2l + 64, 2l + 65.
+// - Each split writes its (m, l, acc[Dv]) in fp32 to scratch the wrapper
+//   allocates; decode_combine_kernel, one block per (query head, row) and a
+//   thread a column, merges the splits 0 .. ceil((pos_b + 1) / SPLIT) - 1,
+//   summing in split order with loads that do not wait on each other. Split
+//   boundaries depend on SPLIT alone and no sum uses atomics, so row b's
+//   result depends only on its own q, cache and pos: the same bits whether
+//   it is decoded alone or beside other rows.
 
+#include "mma.cuh"
 #include "tile.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int BK = 64;         // cache slots per tile
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int SPLIT = 64;      // cache slots a block: the split boundaries
+constexpr int BK = 32;         // slots a tile: one a lane; a split is 2 tiles
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
 constexpr int GMAX = 16;       // most query heads per KV head
+constexpr int HPW = GMAX / WARPS;  // heads a warp serves at most
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (GMAX * (D + PAD) + 2 * BK * (D + PAD) + GMAX * BK + 3 * GMAX);
+template <typename T, int D, int DV>
+struct Tiles {
+  static constexpr int VEC = 16 / sizeof(T);  // elements a 16-byte chunk
+  static constexpr int KP = D + VEC;          // row pitches, in elements
+  static constexpr int VP = DV + VEC;
+  static constexpr int K = BK * KP;           // one stage, in elements
+  static constexpr int V = BK * VP;
+  static constexpr size_t bytes =
+      sizeof(float) * GMAX * D + sizeof(T) * 2 * (K + V);
+};
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-              const T* __restrict__ vc, T* __restrict__ o,
-              const int* __restrict__ pos_vec, int pos_scalar, int S, int H,
-              int Hkv, float scale) {
-  constexpr int GPP = THREADS / D;                  // heads per PV pass
-  constexpr int NACC = (GMAX + GPP - 1) / GPP;      // accumulators a thread
-  extern __shared__ float smem[];
-  float* sQ = smem;                   // G x (D + PAD), pre-scaled
-  float* sK = sQ + GMAX * (D + PAD);  // BK x (D + PAD)
-  float* sV = sK + BK * (D + PAD);    // BK x (D + PAD)
-  float* sP = sV + BK * (D + PAD);    // G x BK: scores, then probs
-  float* sM = sP + GMAX * BK;         // running max per head
-  float* sL = sM + GMAX;              // running denominator per head
-  float* sC = sL + GMAX;              // this tile's rescale factor per head
+// Issue the copy of a tile's BK rows of W elements, `stride` apart in device
+// memory, into shared memory rows `pitch` apart; rows at or past `valid` are
+// zero-filled without a read.
+template <typename T, int W>
+__device__ __forceinline__ void load_rows(T* dst, int pitch,
+                                          const T* __restrict__ src,
+                                          long stride, int valid) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CPR = W / VEC;
+  static_assert(W % VEC == 0, "row must be a whole number of 16-byte chunks");
+  for (int i = threadIdx.x; i < BK * CPR; i += THREADS) {
+    const int r = i / CPR;
+    const int c = (i % CPR) * VEC;
+    const bool ok = r < valid;
+    cp_async_16(dst + r * pitch + c, ok ? src + r * stride + c : src,
+                ok ? 16 : 0);
+  }
+}
 
+__device__ __forceinline__ int visible(const int* pos_vec, int pos_scalar,
+                                       int b, int S) {
+  const int pos = pos_vec != nullptr ? pos_vec[b] : pos_scalar;
+  return max(0, min(pos, S - 1) + 1);  // slots 0..pos, at most S
+}
+
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(THREADS)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                    const T* __restrict__ vc, const int* __restrict__ pos_vec,
+                    int pos_scalar, int S, int H, int Hkv, float scale_log2,
+                    float* __restrict__ part_acc, float* __restrict__ part_ml) {
+  using L = Tiles<T, D, DV>;
+  constexpr int NP = (DV + 63) / 64;  // column pairs a lane, per head
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
+  const int sp = blockIdx.z;
+  const int n = visible(pos_vec, pos_scalar, b, S);
+  const int s0 = sp * SPLIT;
+  if (s0 >= n) return;  // past pos: nothing to read, nothing to write
+  const int s1 = min(s0 + SPLIT, n);
   const int G = H / Hkv;
-  const int tid = threadIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
 
-  const int pos = pos_vec != nullptr ? pos_vec[b] : pos_scalar;
-  const int n = min(pos + 1, S);  // slots 0..pos are visible
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);  // G x D, fp32
+  T* sK = reinterpret_cast<T*>(sQ + GMAX * D);     // two stages
+  T* sV = sK + 2 * L::K;                           // two stages
 
-  stage_rows<T, D>(sQ, q + ((long)b * H + (long)hk * G) * D, D, G, G, scale);
-  if (tid < G) {
-    sM[tid] = NEG_INF;
-    sL[tid] = 0.f;
+  const long k_stride = (long)Hkv * D;
+  const long v_stride = (long)Hkv * DV;
+  const T* kb = kc + (long)b * S * k_stride + (long)hk * D;
+  const T* vb = vc + (long)b * S * v_stride + (long)hk * DV;
+  // both tiles of the split in flight at once, each into its own stage
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    const int t0 = s0 + st * BK;
+    if (t0 < s1) {
+      load_rows<T, D>(sK + st * L::K, L::KP, kb + t0 * k_stride, k_stride,
+                      min(BK, s1 - t0));
+      load_rows<T, DV>(sV + st * L::V, L::VP, vb + t0 * v_stride, v_stride,
+                       min(BK, s1 - t0));
+    }
+    cp_async_commit();
+  }
+  const T* qb = q + ((long)b * H + (long)hk * G) * D;  // G rows of D
+  for (int i = threadIdx.x; i < G * D / L::VEC; i += THREADS) {
+    const uint4 u = *reinterpret_cast<const uint4*>(qb + i * L::VEC);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int j = 0; j < L::VEC; ++j) sQ[i * L::VEC + j] = to_float(e[j]);
   }
 
-  const int d_own = tid % D;
-  const int g_own = tid / D;
-  float acc[NACC];
+  float m[HPW], l[HPW], acc[HPW][NP][2];
 #pragma unroll
-  for (int j = 0; j < NACC; ++j) acc[j] = 0.f;
-
-  const long stride = (long)Hkv * D;
-  const T* kb = kc + (long)b * S * stride + (long)hk * D;
-  const T* vb = vc + (long)b * S * stride + (long)hk * D;
-
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // the previous tile's reads of sK, sV, sP are done
-    const int valid = min(BK, n - k0);
-    stage_rows<T, D>(sK, kb + k0 * stride, stride, BK, valid, 1.f);
-    stage_rows<T, D>(sV, vb + k0 * stride, stride, BK, valid, 1.f);
-    __syncthreads();
-
-    // scores: thread owns slot kk of the tile, for heads g, g + THREADS/BK...
-    {
-      const int kk = tid % BK;
-      for (int g = tid / BK; g < G; g += THREADS / BK) {
-        const float* qr = sQ + g * (D + PAD);
-        const float* kr = sK + kk * (D + PAD);
-        float s = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-        sP[g * BK + kk] = kk < valid ? s : NEG_INF;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp a head, two slots a lane
-    {
-      const int w = tid / 32;
-      const int lane = tid % 32;
-      for (int g = w; g < G; g += WARPS) {
-        float* row = sP + g * BK;
-        float a = row[lane];
-        float c = row[lane + 32];
-        float mx = fmaxf(a, c);
+  for (int hh = 0; hh < HPW; ++hh) {
+    m[hh] = NEG_INF;
+    l[hh] = 0.f;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        const float m_prev = sM[g];
-        const float m_new = fmaxf(m_prev, mx);
-        a = expf(a - m_new);
-        c = expf(c - m_new);
-        row[lane] = a;
-        row[lane + 32] = c;
-        float sum = a + c;
+    for (int c = 0; c < NP; ++c) acc[hh][c][0] = acc[hh][c][1] = 0.f;
+  }
+
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        __syncwarp();
-        if (lane == 0) {
-          const float corr = expf(m_prev - m_new);
-          sC[g] = corr;
-          sL[g] = sL[g] * corr + sum;
-          sM[g] = m_new;
+  for (int st = 0; st < 2; ++st) {
+    const int t0 = s0 + st * BK;
+    if (t0 >= s1) break;
+    if (st == 0)
+      cp_async_wait<1>();  // the first tile landed; the second may be loading
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // tile st (and q) visible to every warp
+    const int valid = min(BK, s1 - t0);
+    const T* kr = sK + st * L::K + lane * L::KP;
+    const T* sv = sV + st * L::V;
+
+    // scores: lane j against slot t0 + j, for each head of the warp
+    float s[HPW];
+#pragma unroll
+    for (int hh = 0; hh < HPW; ++hh) s[hh] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; c += L::VEC) {
+      const uint4 u = *reinterpret_cast<const uint4*>(kr + c);
+      const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int hh = 0; hh < HPW; ++hh) {
+        const int gh = warp + WARPS * hh;
+        if (gh < G) {
+          const float* qr = sQ + gh * D + c;
+#pragma unroll
+          for (int j = 0; j < L::VEC; ++j) s[hh] = fmaf(qr[j], to_float(e[j]), s[hh]);
         }
       }
     }
-    __syncthreads();
 
-    // acc = acc * corr + P V: thread owns column d_own of heads g_own + GPP*j
 #pragma unroll
-    for (int j = 0; j < NACC; ++j) {
-      const int g = g_own + GPP * j;
-      if (g < G) {
-        const float* pr = sP + g * BK;
-        float a = acc[j] * sC[g];
-#pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk) a = fmaf(pr[kk], sV[kk * (D + PAD) + d_own], a);
-        acc[j] = a;
+    for (int hh = 0; hh < HPW; ++hh) {
+      const int gh = warp + WARPS * hh;
+      if (gh >= G) continue;
+      const float x = lane < valid ? s[hh] * scale_log2 : NEG_INF;
+      float mx = x;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[hh], mx);
+      const float p = exp2f(x - m_new);
+      float sum = p;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      const float corr = exp2f(m[hh] - m_new);
+      l[hh] = l[hh] * corr + sum;
+      m[hh] = m_new;
+#pragma unroll
+      for (int c = 0; c < NP; ++c) {
+        acc[hh][c][0] *= corr;
+        acc[hh][c][1] *= corr;
+      }
+      // slots past `valid` have p = 0 and zero-filled v rows
+#pragma unroll
+      for (int j = 0; j < BK; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, p, j);
+#pragma unroll
+        for (int c = 0; c < NP; ++c) {
+          const int col = 2 * lane + 64 * c;
+          if (col < DV) {
+            const float2 vv = load2(sv + j * L::VP + col);
+            acc[hh][c][0] = fmaf(pj, vv.x, acc[hh][c][0]);
+            acc[hh][c][1] = fmaf(pj, vv.y, acc[hh][c][1]);
+          }
+        }
       }
     }
   }
-  __syncthreads();
+  cp_async_wait<0>();
 
+  // this split's partial: (B, Hkv, nsplit, G) x [acc[DV]] and x [m, l]
+  const long base = (((long)b * Hkv + hk) * gridDim.z + sp) * G;
 #pragma unroll
-  for (int j = 0; j < NACC; ++j) {
-    const int g = g_own + GPP * j;
-    if (g < G) {
-      const float l = fmaxf(sL[g], 1e-30f);
-      store(o + ((long)b * H + (long)hk * G + g) * D + d_own, acc[j] / l);
+  for (int hh = 0; hh < HPW; ++hh) {
+    const int gh = warp + WARPS * hh;
+    if (gh >= G) continue;
+#pragma unroll
+    for (int c = 0; c < NP; ++c) {
+      const int col = 2 * lane + 64 * c;
+      if (col < DV)
+        *reinterpret_cast<float2*>(part_acc + (base + gh) * DV + col) =
+            make_float2(acc[hh][c][0], acc[hh][c][1]);
     }
+    if (lane == 0)
+      *reinterpret_cast<float2*>(part_ml + (base + gh) * 2) =
+          make_float2(m[hh], l[hh]);
   }
 }
 
-template <typename T, int D>
+// Merge row b's splits into out (B, H, Dv): one block per (query head, row),
+// a thread a column. The largest m is taken over the splits, then each
+// chunk of THREADS splits has its weights exp2(m_s - M) put in shared
+// memory, and each column sums l_s w_s and acc_s w_s in split order; no load
+// of a column's sum waits on another.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+decode_combine_kernel(const float* __restrict__ part_acc,
+                      const float* __restrict__ part_ml, T* __restrict__ o,
+                      const int* __restrict__ pos_vec, int pos_scalar, int S,
+                      int H, int Hkv, int DV, int nsplit) {
+  __shared__ float sw[THREADS];
+  __shared__ float sm[WARPS];
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int G = H / Hkv;
+  const int tid = threadIdx.x;
+  const int n = visible(pos_vec, pos_scalar, b, S);
+  const int ns = (n + SPLIT - 1) / SPLIT;
+  // split s of head h is row r0 + s * G of the partials
+  const long r0 = ((long)b * Hkv + h / G) * nsplit * G + h % G;
+
+  float mx = NEG_INF;
+  for (int s = tid; s < ns; s += THREADS)
+    mx = fmaxf(mx, part_ml[(r0 + (long)s * G) * 2]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if (tid % 32 == 0) sm[tid / 32] = mx;
+  __syncthreads();
+  float M = sm[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) M = fmaxf(M, sm[w]);
+
+  float den = 0.f, num = 0.f;
+  for (int c0 = 0; c0 < ns; c0 += THREADS) {
+    __syncthreads();  // the last chunk's weights are read
+    const int s = c0 + tid;
+    sw[tid] = s < ns ? exp2f(part_ml[(r0 + (long)s * G) * 2] - M) : 0.f;
+    __syncthreads();
+    if (tid < DV) {
+      const int cn = min(THREADS, ns - c0);
+#pragma unroll 8
+      for (int j = 0; j < cn; ++j) {
+        const long r = r0 + (long)(c0 + j) * G;
+        den = fmaf(part_ml[r * 2 + 1], sw[j], den);
+        num = fmaf(part_acc[r * DV + tid], sw[j], num);
+      }
+    }
+  }
+  if (tid < DV)
+    store(o + ((long)b * H + h) * DV + tid, num / fmaxf(den, 1e-30f));
+}
+
+template <typename T, int D, int DV>
 int launch(const void* q, const void* kc, const void* vc, void* o,
-           const int* pos_vec, int pos_scalar, int B, int S, int H, int Hkv,
-           float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+           const int* pos_vec, int pos_scalar, float* part, int B, int S,
+           int H, int Hkv, float scale, cudaStream_t stream) {
+  static_assert(DV <= THREADS, "the combine runs a thread a column");
+  static_assert(SPLIT == 2 * BK, "a split is the two stages' tiles");
+  constexpr size_t smem = Tiles<T, D, DV>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      decode_split_kernel<T, D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(Hkv, B);
-  decode_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  const int nsplit = (S + SPLIT - 1) / SPLIT;
+  const int G = H / Hkv;
+  float* part_acc = part;
+  float* part_ml = part + (long)B * Hkv * nsplit * G * DV;
+  decode_split_kernel<T, D, DV><<<dim3(Hkv, B, nsplit), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<T*>(o), pos_vec, pos_scalar, S,
-      H, Hkv, scale);
+      static_cast<const T*>(vc), pos_vec, pos_scalar, S, H, Hkv,
+      scale * LOG2E, part_acc, part_ml);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  decode_combine_kernel<T><<<dim3(H, B), THREADS, 0, stream>>>(
+      part_acc, part_ml, static_cast<T*>(o), pos_vec, pos_scalar, S, H, Hkv,
+      DV, nsplit);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int D>
+int dispatch_dv(int DV, const void* q, const void* kc, const void* vc, void* o,
+                const int* pos_vec, int pos_scalar, float* part, int B, int S,
+                int H, int Hkv, float scale, cudaStream_t stream) {
+  switch (DV) {
+    case 32:
+      return launch<T, D, 32>(q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
+    case 64:
+      return launch<T, D, 64>(q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
+    case 112:
+      return launch<T, D, 112>(q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
+    case 128:
+      return launch<T, D, 128>(q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
-int dispatch_d(int D, const void* q, const void* kc, const void* vc, void* o,
-               const int* pos_vec, int pos_scalar, int B, int S, int H,
-               int Hkv, float scale, cudaStream_t stream) {
+int dispatch_d(int D, int DV, const void* q, const void* kc, const void* vc,
+               void* o, const int* pos_vec, int pos_scalar, float* part,
+               int B, int S, int H, int Hkv, float scale,
+               cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, kc, vc, o, pos_vec, pos_scalar, B, S, H, Hkv, scale, stream);
+      return dispatch_dv<T, 32>(DV, q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
     case 64:
-      return launch<T, 64>(q, kc, vc, o, pos_vec, pos_scalar, B, S, H, Hkv, scale, stream);
+      return dispatch_dv<T, 64>(DV, q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
+    case 112:
+      return dispatch_dv<T, 112>(DV, q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
     case 128:
-      return launch<T, 128>(q, kc, vc, o, pos_vec, pos_scalar, B, S, H, Hkv, scale, stream);
+      return dispatch_dv<T, 128>(DV, q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -195,20 +369,26 @@ int dispatch_d(int D, const void* q, const void* kc, const void* vc, void* o,
 
 // C interface, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. pos_vec
 // is a device pointer to B int32 positions, or null to use pos_scalar.
-// Returns the CUDA error code of the launch (0 = launched).
+// part is fp32 scratch on the card of at least B * Hkv * nsplit * (H / Hkv)
+// * (Dv + 2) floats, nsplit = ceil(S / SPLIT); a caller whose nsplit differs
+// (another SPLIT) is refused. Returns the CUDA error code of the launches
+// (0 = launched).
 extern "C" int decode_attention_fwd(const void* q, const void* kc,
                                     const void* vc, void* o,
-                                    const void* pos_vec, int pos_scalar, int B,
-                                    int S, int H, int Hkv, int D, int dtype,
+                                    const void* pos_vec, int pos_scalar,
+                                    void* part, int nsplit, int B, int S,
+                                    int H, int Hkv, int D, int Dv, int dtype,
                                     float scale, void* stream) {
   using namespace repro_torch;
   if (Hkv < 1 || H % Hkv != 0 || H / Hkv > GMAX) return (int)cudaErrorInvalidValue;
+  if (S < 1 || nsplit != (S + SPLIT - 1) / SPLIT) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pv = static_cast<const int*>(pos_vec);
+  float* pt = static_cast<float*>(part);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, kc, vc, o, pv, pos_scalar, B, S, H, Hkv, scale, st);
+    return dispatch_d<float>(D, Dv, q, kc, vc, o, pv, pos_scalar, pt, B, S, H, Hkv, scale, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, kc, vc, o, pv, pos_scalar, B, S, H, Hkv, scale, st);
+    return dispatch_d<__nv_bfloat16>(D, Dv, q, kc, vc, o, pv, pos_scalar, pt, B, S, H, Hkv, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

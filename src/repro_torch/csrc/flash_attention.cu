@@ -1,4 +1,4 @@
-// K3: prefill flash attention, forward, for Hopper (sm_90a).
+// K3: prefill flash attention, forward, for Hopper (sm_90a): the fp32 path.
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (pl.pallas_call at :113). Computes, for q (B, Sq, H, D), k (B, Sk, Hkv, D)
@@ -7,29 +7,29 @@
 // softmax over KV tiles: fp32 running max, denominator and accumulator;
 // causal (k <= q) and sliding-window (k > q - window) masks; GQA reads KV
 // head h / (H / Hkv). Dv may differ from D: MLA prefill has q/k 96 wide
-// (qk_nope 64 + qk_rope 32) and v 64 wide (minicpm3-4b), 48 and 32 at the
-// reduced config. Masked scores are -1e30 and the denominator is
-// clamped at 1e-30, as in the TPU kernel. The output has q's dtype. A
+// and v 64 (minicpm3-4b), 192 and 128 (deepseek-v2), 48 and 32 at the
+// reduced config; zamba2-7b's attention is 112 wide. Masked scores are
+// -1e30 and the denominator is clamped at 1e-30, as in the TPU kernel. A
 // query row that sees no key at all (possible only with Sq > Sk and a
 // window) has no defined output: ref.py averages every value row, the TPU
 // kernel and this one average the rows of the tiles they ran.
 //
-// What bounds it on the H100: at the serving shapes (S = 512, D = 128,
-// G = 7, causal) the work is ~4*D*S^2/2 flops a head over ~0.3 MB a head,
-// about 220 flops a byte: under the card's bf16 ridge (~295), so the least
-// time is set by bytes. This first version does its products on the CUDA
-// cores in fp32 FMA (67 TFLOP/s peak, not the 989 of the tensor cores), so
-// in practice it is bound by operations.
+// This file is the float32 instantiation, the parity path: the card is held
+// against the CPU in fp32 with TF32 off (chip_smoke.py's model phase,
+// tests/test_torch_cuda.py), so its products stay in full fp32 FMA on the
+// CUDA cores (67 TFLOP/s, not the tensor cores' TF32). bf16, the serving
+// dtype, runs on the tensor cores in flash_attention_bf16.cu.
+// What bounds it on the H100: ~4*D*S^2/2 flops a head over ~0.3 MB a head at
+// S = 512, D = 128 in fp32: on the CUDA cores it is bound by operations.
 // What the design does about it: one block per (query tile of 64 rows,
-// head, batch) keeps the Q tile, one K tile and one V tile in shared memory
-// as fp32, so every K/V element read from device memory serves 64 query
-// rows; each thread keeps a 4 x (D/16) register tile of the accumulator and
-// a 4 x 4 tile of scores, so each shared-memory load feeds several FMAs.
-// K/V tiles of KV head h / G are staged from the un-expanded cache; the
-// causal mask skips every KV tile past the diagonal and a window skips the
-// tiles before it, so skipped tiles are never read. Ragged Sq and Sk are
-// masked in the kernel (zero-filled rows, masked scores), with no padded
-// copies. wgmma/TMA and a pipelined tile ring are later work.
+// head, batch) keeps the Q tile, one K tile and one V tile in shared memory,
+// so every K/V element read from device memory serves 64 query rows; each
+// thread keeps a 4 x (Dv/16) register tile of the accumulator and a 4 x 4
+// tile of scores, so each shared-memory load feeds several FMAs. K/V tiles
+// of KV head h / G are staged from the un-expanded cache; the causal mask
+// skips every KV tile past the diagonal and a window skips the tiles before
+// it, so skipped tiles are never read. Ragged Sq and Sk are masked in the
+// kernel (zero-filled rows, masked scores), with no padded copies.
 
 #include "tile.cuh"
 
@@ -232,6 +232,8 @@ int dispatch_dv(int DV, const void* q, const void* k, const void* v, void* o,
       return launch<T, D, 32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 64:
       return launch<T, D, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+    case 112:
+      return launch<T, D, 112>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 128:
       return launch<T, D, 128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     default:
@@ -252,8 +254,12 @@ int dispatch_d(int D, int DV, const void* q, const void* k, const void* v,
       return dispatch_dv<T, 64>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 96:
       return dispatch_dv<T, 96>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+    case 112:
+      return dispatch_dv<T, 112>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 128:
       return dispatch_dv<T, 128>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+    case 192:
+      return dispatch_dv<T, 192>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -262,20 +268,15 @@ int dispatch_d(int D, int DV, const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace repro_torch
 
-// C interface, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// Returns the CUDA error code of the launch (0 = launched).
+// C interface, bound with ctypes; float32 tensors only. Returns the CUDA
+// error code of the launch (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int Sq, int Sk, int H,
-                                   int Hkv, int D, int Dv, int dtype,
-                                   int causal, int window, float scale,
-                                   void* stream) {
+                                   int Hkv, int D, int Dv, int causal,
+                                   int window, float scale, void* stream) {
   using namespace repro_torch;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(D, Dv, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, Dv, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_d<float>(D, Dv, q, k, v, o, B, Sq, Sk, H, Hkv, causal,
+                           window, scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

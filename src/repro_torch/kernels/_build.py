@@ -17,13 +17,15 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("nstep_returns", "vtrace", "flash_attention", "decode_attention",
-           "mla_decode", "ssd_scan")
+SOURCES = ("nstep_returns", "vtrace", "flash_attention",
+           "flash_attention_bf16", "decode_attention", "mla_decode",
+           "ssd_scan")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -35,6 +37,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}  # wall seconds of each nvcc this process ran
 
 
 def nvcc_path() -> str:
@@ -71,6 +74,7 @@ def build_all() -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: target(name) for name in SOURCES}
     procs = {}
+    t0 = time.perf_counter()
     for name, out in paths.items():
         if out.is_file():
             continue
@@ -82,6 +86,7 @@ def build_all() -> Dict[str, Path]:
     failed = []
     for name, (proc, tmp, out) in procs.items():
         text, _ = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
         out.with_suffix(".log").write_text(text)
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu (exit {proc.returncode})\n{text}")

@@ -2,9 +2,13 @@
 
 The hand-written CUDA kernel that replaces
 ``repro/kernels/decode_attention.py::decode_attention_pallas``, extended
-to a per-row ``(B,)`` position besides the scalar one. Its plain version
-is ``ref.decode_attention_ref``; ``ops.decode_attention`` picks between
-the two by the device of the tensors it is given.
+to a per-row ``(B,)`` position besides the scalar one. As the TPU kernel
+does, it takes a v cache of its own width Dv and writes (B, H, Dv). It
+splits each row's cache walk into blocks of ``SPLIT`` slots and merges the
+splits in a second kernel; one call of ``decode_attention_cuda`` is one
+launch of K4. Its plain version is ``ref.decode_attention_ref``;
+``ops.decode_attention`` picks between the two by the device of the
+tensors it is given.
 """
 from __future__ import annotations
 
@@ -17,8 +21,17 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES
 
-HEAD_DIMS = (32, 64, 128)  # head widths the kernel is instantiated for
+HEAD_DIMS = (32, 64, 112, 128)  # q/k widths the kernel is instantiated for
+V_DIMS = (32, 64, 112, 128)  # v widths, each with every q/k width
 GMAX = 16  # most query heads per KV head the kernel's shared memory holds
+SPLIT = 64  # cache slots a block of the split kernel (csrc's SPLIT)
+
+
+def num_splits(S: int) -> int:
+    """Blocks a row's cache of capacity ``S`` is split into: the grid is
+    sized from the capacity, never from ``pos``, so ``pos`` stays on the
+    card."""
+    return -(-S // SPLIT)
 
 
 def check_inputs(q, k_cache, v_cache, pos) -> None:
@@ -42,9 +55,10 @@ def check_inputs(q, k_cache, v_cache, pos) -> None:
         raise ValueError(f"decode_attention: q must be (B, H, D) and the "
                          f"caches (B, S, Hkv, D); got {tuple(q.shape)}, "
                          f"{tuple(k_cache.shape)}")
-    if tuple(k_cache.shape) != tuple(v_cache.shape):
-        raise ValueError("decode_attention: k_cache and v_cache differ in "
-                         "shape")
+    if tuple(k_cache.shape[:-1]) != tuple(v_cache.shape[:-1]):
+        raise ValueError(f"decode_attention: k_cache {tuple(k_cache.shape)} "
+                         f"and v_cache {tuple(v_cache.shape)} differ before "
+                         "the last dim")
     B, H, D = q.shape
     Bc, S, Hkv, Dc = k_cache.shape
     if Bc != B or Dc != D:
@@ -55,6 +69,9 @@ def check_inputs(q, k_cache, v_cache, pos) -> None:
                          f"heads (at most {GMAX} a KV head)")
     if D not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head_dim {D} not in {HEAD_DIMS}")
+    if v_cache.shape[3] not in V_DIMS:
+        raise ValueError(f"decode_attention: v width {v_cache.shape[3]} not "
+                         f"in {V_DIMS}")
     if S < 1:
         raise ValueError("decode_attention: empty cache")
     if isinstance(pos, torch.Tensor):
@@ -76,37 +93,40 @@ def check_inputs(q, k_cache, v_cache, pos) -> None:
 def _kernel():
     fn = _build.library("decode_attention").decode_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] \
+            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-
 def decode_attention_cuda(q, k_cache, v_cache, pos, *, scale=None
                           ) -> torch.Tensor:
-    """Launch K4 on ``q``'s card: q (B, H, D), caches (B, S, Hkv, D), pos an
-    int or a (B,) int32 tensor -> (B, H, D) in q's dtype. Raises on CPU
-    tensors and on any input the kernel does not take; a refused launch
-    raises too."""
+    """Launch K4 on ``q``'s card: q (B, H, D), k_cache (B, S, Hkv, D),
+    v_cache (B, S, Hkv, Dv), pos an int or a (B,) int32 tensor -> (B, H, Dv)
+    in q's dtype. Raises on CPU tensors and on any input the kernel does
+    not take; a refused launch raises too."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_cuda: tensors are on {q.device}, "
                          "not on a CUDA device")
     check_inputs(q, k_cache, v_cache, pos)
     B, H, D = q.shape
-    _, S, Hkv, _ = k_cache.shape
+    _, S, Hkv, Dv = v_cache.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if isinstance(pos, torch.Tensor):
         pos_ptr, pos_scalar = pos.data_ptr(), 0
     else:
         pos_ptr, pos_scalar = None, int(pos)
-    out = torch.empty_like(q)
-    fn = _kernel()
+    nsplit = num_splits(S)
+    out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
+        # each split's (acc[Dv], m, l), fp32, on the current stream
+        part = torch.empty(B * H * nsplit * (Dv + 2), dtype=torch.float32,
+                           device=q.device)
+        fn = _kernel()
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                out.data_ptr(), pos_ptr, pos_scalar, B, S, H, Hkv, D,
-                DTYPES[q.dtype], float(scale), stream)
+                out.data_ptr(), pos_ptr, pos_scalar, part.data_ptr(), nsplit,
+                B, S, H, Hkv, D, Dv, DTYPES[q.dtype], float(scale), stream)
     if rc != 0:
         msg = _build.error_string("decode_attention", rc)
         raise RuntimeError(f"decode_attention kernel launch failed: {msg} "

@@ -1,11 +1,14 @@
-"""K3 on the card: prefill flash attention, ``csrc/flash_attention.cu``.
+"""K3 on the card: prefill flash attention, ``csrc/flash_attention_bf16.cu``
+(bf16, on the tensor cores) and ``csrc/flash_attention.cu`` (fp32, the
+parity path).
 
-The hand-written CUDA kernel that replaces
+The hand-written CUDA kernels that replace
 ``repro/kernels/flash_attention.py::flash_attention_pallas``. As the TPU
-kernel does, it takes v narrower or wider than q and k (MLA prefill: q/k
-96 wide, v 64) and writes the output as wide as v. Its plain version is
-``ref.flash_attention_ref``; ``ops.flash_attention`` picks between the two
-by the device of the tensors it is given.
+kernel does, they take v narrower or wider than q and k (MLA prefill: q/k
+96 wide and v 64 for minicpm3-4b, 192 and 128 for deepseek-v2) and write
+the output as wide as v. Its plain version is ``ref.flash_attention_ref``;
+``ops.flash_attention`` picks between the two by the device of the tensors
+it is given.
 """
 from __future__ import annotations
 
@@ -16,9 +19,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 48, 64, 96, 128)  # q/k widths the kernel is instantiated for
-V_DIMS = (32, 64, 128)  # v widths, each with every q/k width
+HEAD_DIMS = (32, 48, 64, 96, 112, 128, 192)  # q/k widths instantiated
+V_DIMS = (32, 64, 112, 128)  # v widths, each with every q/k width
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+LIBRARIES = {torch.float32: "flash_attention",
+             torch.bfloat16: "flash_attention_bf16"}  # csrc/<name>.cu
 
 
 def check_inputs(q, k, v, *, window: int = 0) -> None:
@@ -60,10 +65,10 @@ def check_inputs(q, k, v, *, window: int = 0) -> None:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
 
 
-def _kernel():
-    fn = _build.library("flash_attention").flash_attention_fwd
+def _kernel(name: str):
+    fn = getattr(_build.library(name), f"{name}_fwd")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -84,14 +89,15 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     Dv = v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
-    fn = _kernel()
+    name = LIBRARIES[q.dtype]
+    fn = _kernel(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, Sq, Sk, H, Hkv, D, Dv, DTYPES[q.dtype], int(bool(causal)),
-                int(window), float(scale), stream)
+                B, Sq, Sk, H, Hkv, D, Dv, int(bool(causal)), int(window),
+                float(scale), stream)
     if rc != 0:
-        msg = _build.error_string("flash_attention", rc)
+        msg = _build.error_string(name, rc)
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} "
                            f"(CUDA error {rc})")
     return out

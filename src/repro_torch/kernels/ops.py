@@ -68,8 +68,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, scale=None):
-    """K4. q (B, H, D); caches (B, S, Hkv, D); pos an int or a (B,) int32
-    tensor -> (B, H, D)."""
+    """K4. q (B, H, D); k_cache (B, S, Hkv, D); v_cache (B, S, Hkv, Dv);
+    pos an int or a (B,) int32 tensor -> (B, H, Dv)."""
     if q.device.type == "cpu":
         return _ref.decode_attention_ref(q, k_cache, v_cache, pos, scale=scale)
     out = decode_attention_cuda(q, k_cache, v_cache, pos, scale=scale)

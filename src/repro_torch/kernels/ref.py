@@ -60,7 +60,8 @@ def vtrace_returns_ref(rewards, dones, values, bootstrap, rho, gamma: float,
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
-    """q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D). Returns (B, Sq, H, Dv)."""
+    """q: (B, Sq, H, D); k: (B, Sk, Hkv, D); v: (B, Sk, Hkv, Dv). Returns
+    (B, Sq, H, Dv)."""
     B, Sq, H, D = q.shape
     _, Sk, Hkv, Dv = v.shape
     G = H // Hkv
@@ -81,9 +82,9 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
 
 
 def decode_attention_ref(q, k_cache, v_cache, pos, *, scale=None):
-    """q: (B, H, D); caches: (B, S, Hkv, D). ``pos`` is an int (every row
-    attends to slots <= pos) or a (B,) integer tensor (row b attends to
-    slots <= pos[b]). Returns (B, H, Dv)."""
+    """q: (B, H, D); k_cache: (B, S, Hkv, D); v_cache: (B, S, Hkv, Dv).
+    ``pos`` is an int (every row attends to slots <= pos) or a (B,) integer
+    tensor (row b attends to slots <= pos[b]). Returns (B, H, Dv)."""
     B, H, D = q.shape
     _, S, Hkv, Dv = v_cache.shape
     G = H // Hkv

@@ -109,6 +109,89 @@ def test_flash_kernel_with_v_unlike_qk_matches_plain_version(cuda, dtype, B, S,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,Dv,causal,window", [
+    (1, 150, 150, 8, 2, 112, 112, True, 0),    # zamba2-7b's width, ragged
+    (2, 100, 100, 8, 2, 112, 112, True, 37),   # windowed
+    (1, 77, 77, 4, 4, 192, 128, True, 0),      # deepseek-v2's MLA prefill
+    (1, 130, 130, 4, 4, 192, 128, True, 50),
+    (1, 96, 96, 4, 2, 192, 128, False, 0),     # non-causal
+    (1, 60, 150, 8, 4, 112, 64, True, 20),     # Sq < Sk
+    (1, 200, 200, 6, 3, 48, 112, True, 0),     # v wider than q/k
+    (1, 1, 1, 4, 2, 112, 112, True, 0),        # one query, one key
+    (2, 3, 70, 4, 4, 192, 128, False, 0),      # a few queries, one tile
+])
+def test_flash_kernel_at_the_tpu_kernels_widths_matches_plain_version(
+        cuda, dtype, B, Sq, Sk, H, Hkv, D, Dv, causal, window):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(Sq + D + Dv)
+    q = torch.randn(B, Sq, H, D, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, Sk, Hkv, D, generator=g, device=cuda).to(dt)
+    v = torch.randn(B, Sk, Hkv, Dv, generator=g, device=cuda).to(dt)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert got.shape == (B, Sq, H, Dv) and got.dtype == dt
+    torch.testing.assert_close(got.float(), want, rtol=_tol(dt), atol=_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,Hkv,D,Dv,pos", [
+    (4, 200, 8, 2, 112, 112, [0, 63, 64, 199]),  # S above one split
+    (3, 64, 8, 2, 112, 64, [0, 31, 63]),         # S at one split, Dv < D
+    (3, 40, 4, 4, 64, 128, [39, 0, 17]),         # S below one split, Dv > D
+    (2, 150, 28, 4, 128, 112, [149, 77]),
+    (2, 150, 16, 1, 32, 32, 90),                 # scalar pos, MQA
+    (2, 100, 8, 2, 112, 128, 500),               # pos past S: every slot
+    (3, 1, 8, 2, 112, 64, [0, 0, 7]),            # a cache of one slot
+])
+def test_decode_kernel_at_the_tpu_kernels_widths_matches_plain_version(
+        cuda, dtype, B, S, H, Hkv, D, Dv, pos):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(S + D + Dv)
+    q = torch.randn(B, H, D, generator=g, device=cuda).to(dt)
+    kc = torch.randn(B, S, Hkv, D, generator=g, device=cuda).to(dt)
+    vc = torch.randn(B, S, Hkv, Dv, generator=g, device=cuda).to(dt)
+    p = (torch.tensor(pos, dtype=torch.int32, device=cuda)
+         if isinstance(pos, list) else pos)
+    want = ref.decode_attention_ref(q.float(), kc.float(), vc.float(), p)
+    got = decode_attention_cuda(q, kc, vc, p)
+    assert got.shape == (B, H, Dv) and got.dtype == dt
+    torch.testing.assert_close(got.float(), want, rtol=_tol(dt), atol=_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_row_is_bitwise_the_same_alone_or_beside_others(
+        cuda, dtype):
+    """Split boundaries depend on nothing but the split length, so a row's
+    output does not move with the batch, the other rows' positions or the
+    cache's capacity: the serving pin continuous == solo rests on it."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(7)
+    B, S, H, Hkv, D = 4, 544, 28, 4, 128
+    q = torch.randn(B, H, D, generator=g, device=cuda).to(dt)
+    kc = torch.randn(B, S, Hkv, D, generator=g, device=cuda).to(dt)
+    vc = torch.randn(B, S, Hkv, D, generator=g, device=cuda).to(dt)
+    pos = [256, 300, 64, 543]
+    both = decode_attention_cuda(q, kc, vc,
+                                 torch.tensor(pos, dtype=torch.int32,
+                                              device=cuda))
+    for b, p in enumerate(pos):
+        alone = decode_attention_cuda(
+            q[b:b + 1].contiguous(), kc[b:b + 1].contiguous(),
+            vc[b:b + 1].contiguous(),
+            torch.tensor([p], dtype=torch.int32, device=cuda))
+        assert torch.equal(alone, both[b:b + 1])
+        # a shorter cache holding the same filled slots
+        cut = decode_attention_cuda(
+            q[b:b + 1].contiguous(), kc[b:b + 1, :p + 1].contiguous(),
+            vc[b:b + 1, :p + 1].contiguous(), p)
+        assert torch.equal(cut, both[b:b + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("W,S,H,R,Rr,pos", [
     (4, 544, 40, 256, 32, [127, 250, 399, 543]),  # minicpm3-4b, per-row pos
     (4, 544, 40, 256, 32, 300),                   # scalar pos

@@ -145,7 +145,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.parametrize("bad", ["float16", "shape", "strided", "head_dim",
-                                 "groups", "window"])
+                                 "groups", "window", "v_width", "v_rows"])
 def test_flash_wrapper_checks_its_inputs(bad):
     q, k, v = torch.zeros(1, 8, 4, 32), torch.zeros(1, 8, 2, 32), \
         torch.zeros(1, 8, 2, 32)
@@ -163,12 +163,17 @@ def test_flash_wrapper_checks_its_inputs(bad):
         k, v = torch.zeros(1, 8, 3, 32), torch.zeros(1, 8, 3, 32)
     elif bad == "window":
         window = -1
+    elif bad == "v_width":  # 48 is a q/k width, not a v width
+        v = torch.zeros(1, 8, 2, 48)
+    elif bad == "v_rows":
+        v = torch.zeros(1, 9, 2, 32)
     with pytest.raises(ValueError):
         check_flash(q, k, v, window=window)
 
 
 @pytest.mark.parametrize("bad", ["pos_dtype", "pos_shape", "pos_float",
-                                 "pos_bool", "bfloat_mix", "too_many_heads"])
+                                 "pos_bool", "bfloat_mix", "too_many_heads",
+                                 "v_slots", "v_width", "head_dim"])
 def test_decode_wrapper_checks_its_inputs(bad):
     q, kc = torch.zeros(2, 4, 32), torch.zeros(2, 16, 2, 32)
     vc = kc.clone()
@@ -186,6 +191,13 @@ def test_decode_wrapper_checks_its_inputs(bad):
     elif bad == "too_many_heads":
         q, kc, vc = (torch.zeros(2, 34, 32), torch.zeros(2, 16, 2, 32),
                      torch.zeros(2, 16, 2, 32))
+    elif bad == "v_slots":  # v may differ from k in its last dim only
+        vc = torch.zeros(2, 17, 2, 32)
+    elif bad == "v_width":
+        vc = torch.zeros(2, 16, 2, 48)
+    elif bad == "head_dim":
+        q, kc, vc = (torch.zeros(2, 4, 48), torch.zeros(2, 16, 2, 48),
+                     torch.zeros(2, 16, 2, 48))
     with pytest.raises(ValueError):
         check_decode(q, kc, vc, pos)
 

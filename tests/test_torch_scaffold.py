@@ -80,12 +80,13 @@ def test_no_import_of_jax_or_repro(path):
 def test_every_kernel_source_is_annotated_and_built_into_an_ignored_dir():
     from repro_torch.kernels import _build
 
-    pallas = {"vtrace": "vtrace_returns",  # source name -> Pallas function
-              "mla_decode": "mla_decode_attention"}
+    pallas = {"vtrace": "vtrace.py::vtrace_returns",  # source -> Pallas
+              "mla_decode": "mla_decode.py::mla_decode_attention",
+              "flash_attention_bf16": "flash_attention.py::flash_attention"}
     for name in _build.SOURCES:
         src = (_build.CSRC / f"{name}.cu").read_text()
-        fn = pallas.get(name, name)
-        assert f"src/repro/kernels/{name}.py::{fn}_pallas" in src
+        fn = pallas.get(name, f"{name}.py::{name}")
+        assert f"src/repro/kernels/{fn}_pallas" in src
         assert "What bounds it" in src and "What the design does" in src
         assert f'extern "C" int {name}_fwd(' in src
         assert "torch/extension.h" not in src  # plain C interface, fast nvcc
