@@ -11,10 +11,12 @@ paths:
 
 1. card     — the card's name and power limit as nvidia-smi gives them,
               then the build of every kernel (seconds, and the registers
-              and spills of K3's bf16 <128, 128> and <192, 128> and of
-              K4's split kernel <bf16, 128, 128>), and
-              the count of tensor-core instructions (HMMA, HGMMA) in K3's
-              bf16 library's SASS where cuobjdump is on the machine;
+              and spills of K3's bf16 <128, 128> and <192, 128>, of K4's
+              split kernel <bf16, 128, 128>, of K5's bf16 split kernel
+              <256, 32> and <512, 64> and of K6's bf16 chunk and output
+              kernels at N = 128), and the count of tensor-core
+              instructions (HMMA, HGMMA) in the SASS of K3's, K5's and
+              K6's bf16 libraries where cuobjdump is on the machine;
 2. returns  — K1 (n-step returns) against its plain PyTorch version on the
               card over E in {1, 32, 33, 256, 4096}, T in {1, 5, 64} and
               gamma in {0, 0.99, 1}, dones at a 10% rate plus an all-done
@@ -45,10 +47,14 @@ paths:
               S=512 H=40, q/k 96 wide, v 64), K5 at minicpm3-4b's decode
               shape (W=4 S=544 H=40 R=256 Rr=32, per-row and scalar pos;
               yardstick: SDPA on (q_lat || q_rope) against (c || kr) with
-              v = c) and K6 at mamba2-370m's prefill shape (B=1 S=512 H=32
-              P=64 N=128, chunk 128; y and the final state, fp32 within
-              1e-4 + 1e-4 |ref|; no single PyTorch call computes it), with
-              the same tolerances and times;
+              v = c) and at the split design's edges (K5_EDGES: R = 512
+              with H = 128, H = 1 and 17, S = 1, 63, 65, pos past the
+              capacity, negative pos giving zeros), and K6 at mamba2-370m's
+              prefill shape (B=1 S=512 H=32 P=64 N=128, chunk 128; y and
+              the final state, fp32 within 1e-4 + 1e-4 |ref|; no single
+              PyTorch call computes it) and at K6_EDGES (every N, chunks
+              7, 32, 100, 128, two rows), with the same tolerances and
+              times;
 4. rl_model — paac_nature at full size in fp32, one set of weights on the
               CPU and on the card: logits and values of 32 frames agree
               within 1e-4, and one PAAC update on the same replayed
@@ -159,14 +165,22 @@ def say(phase: str, msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+SPIN_CYCLES = 1_000_000  # ~0.5 ms of the card's clock
+
+
 def time_ms(torch, fn, flush, iters: int = 30) -> float:
     """Median CUDA-event time of ``fn`` over ``iters`` launches, each after
-    an L2 flush (the serving path meets each layer's cache cold)."""
+    an L2 flush (the serving path meets each layer's cache cold) and a spin
+    of the card (``torch.cuda._sleep``) that lasts longer than the host
+    takes to enqueue ``fn``: the start event then fires when ``fn``'s
+    launches already wait in the stream, so a wrapper's host time is not
+    counted as the kernel's."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -240,10 +254,14 @@ def phase_card(torch, build):
                " (reused)") + ": " + " | ".join(regs[:4]))
     say("card", f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     for src, keys in (("flash_attention_bf16", ("ILi128ELi128E", "ILi192ELi128E")),
-                      ("decode_attention", ("I13__nv_bfloat16Li128ELi128E",))):
+                      ("decode_attention", ("I13__nv_bfloat16Li128ELi128E",)),
+                      ("mla_decode_bf16", ("ILi256ELi32E", "ILi512ELi64E")),
+                      ("ssd_scan_bf16", ("chunk_kernelILi128E",
+                                         "out_kernelILi128E"))):
         for key, line in ptxas_lines(build, src, keys):
             say("card", f"{src} {key} {line}")
-    sass_counts(build, "flash_attention_bf16")
+    for src in ("flash_attention_bf16", "mla_decode_bf16", "ssd_scan_bf16"):
+        sass_counts(build, src)
     return card
 
 
@@ -397,6 +415,21 @@ def within_rel(torch, out, ref, atol: float, rtol: float, what: str) -> float:
     return err.max().item()
 
 
+K5_EDGES = (  # (W, S, H, R, Rr, per-row pos)
+    (2, 544, 128, 512, 64, [543, 100]),  # deepseek-v2's widths
+    (3, 65, 17, 128, 16, [64, -1, 31]),  # H % 16 != 0, S just past a split
+    (2, 63, 40, 32, 32, [62, 0]),        # S below one split, R = 32
+    (1, 1, 1, 64, 64, [0]),              # one slot, one head
+    (2, 100, 40, 256, 32, [5000, -3]),   # pos past the capacity: all slots
+)
+K6_EDGES = (  # (B, S, H, N, chunk)
+    (2, 200, 6, 16, 100),
+    (2, 96, 8, 32, 32),
+    (2, 21, 4, 64, 7),
+    (2, 256, 4, 128, 128),
+)
+
+
 def phase_latent_kernels(torch, np, F, ref, fa, mk, sk, rows, dev="cuda"):
     """K3 at MLA prefill's shape, K5 at minicpm3-4b's decode shape and K6 at
     mamba2-370m's prefill shape, against their plain versions on the card,
@@ -454,6 +487,26 @@ def phase_latent_kernels(torch, np, F, ref, fa, mk, sk, rows, dev="cuda"):
             say("kernels", f"K5 mla_decode_attention {dtype} W={W} S={S} H={H} "
                 f"R={R} Rr={Rr} pos={pos}: max_abs_err {err:.3g} "
                 f"({tolerance(dtype)})")
+    # the split design's edges: deepseek-v2's widths, H % 16 != 0, S below
+    # and just past one split, one slot, pos past the capacity, and a row
+    # with a negative pos (no slot: zeros)
+    for dtype in ("float32", "bfloat16"):
+        for W2, S2, H2, R2, Rr2, pos in K5_EDGES:
+            a, a_r = randn(W2, H2, R2, dtype=dtype), randn(W2, H2, Rr2, dtype=dtype)
+            c2, kr2 = randn(W2, S2, R2, dtype=dtype), randn(W2, S2, Rr2, dtype=dtype)
+            p2 = torch.tensor(pos, dtype=torch.int32, device=dev)
+            out2 = mk.mla_decode_attention_cuda(a, a_r, c2, kr2, p2, scale)
+            live = p2 >= 0
+            check(bool((out2[~live] == 0).all()), "K5: a row with a negative "
+                  "pos is not zeros")
+            plain = ref.mla_decode_attention_ref(a.float(), a_r.float(),
+                                                 c2.float(), kr2.float(), p2,
+                                                 scale)
+            err = within(torch, out2[live], plain[live], dtype)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            say("kernels", f"K5 mla_decode_attention {dtype} W={W2} S={S2} "
+                f"H={H2} R={R2} Rr={Rr2} pos={pos}: max_abs_err {err:.3g} "
+                f"({tolerance(dtype)}; negative pos: zeros)")
     p = torch.tensor(per_row, dtype=torch.int32, device=dev)
     ms = time_ms(torch, lambda: mk.mla_decode_attention_cuda(ql, qr, c, kr, p,
                                                              scale), flush)
@@ -505,6 +558,25 @@ def phase_latent_kernels(torch, np, F, ref, fa, mk, sk, rows, dev="cuda"):
             f"chunk={Q}: max_abs_err {err:.3g} over y and the final state "
             f"(y: atol {tol} + rtol {tol}; state: atol {SSD_TOL} + rtol "
             f"{SSD_TOL}); max |y| {y_ref.abs().max().item():.3g}")
+    # every state width, chunks that are not multiples of 16, two rows
+    for dtype in ("float32", "bfloat16"):
+        for B2, S2, H2, N2, Q2 in K6_EDGES:
+            A2 = torch.log(torch.arange(1, H2 + 1, dtype=torch.float32,
+                                        device=dev))
+            D2 = torch.ones(H2, device=dev)
+            x2 = randn(B2, S2, H2, P, dtype=dtype)
+            dt2 = F.softplus(randn(B2, S2, H2) - 2.0)
+            B2m, C2m = randn(B2, S2, N2, dtype=dtype), randn(B2, S2, N2, dtype=dtype)
+            y2, st2 = sk.ssd_scan_cuda(x2, dt2, A2, B2m, C2m, D2, chunk=Q2)
+            y2_ref, st2_ref = ref.ssd_scan_ref(x2.float(), dt2, A2, B2m.float(),
+                                               C2m.float(), D2, chunk=Q2)
+            tol = SSD_TOL if dtype == "float32" else BF16_TOL
+            err = max(within_rel(torch, y2, y2_ref, tol, tol, f"K6 y {dtype}"),
+                      within_rel(torch, st2, st2_ref, SSD_TOL, SSD_TOL,
+                                 f"K6 state {dtype}"))
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            say("kernels", f"K6 ssd_scan {dtype} B={B2} S={S2} H={H2} P={P} "
+                f"N={N2} chunk={Q2}: max_abs_err {err:.3g} (as above)")
     ms = time_ms(torch, lambda: sk.ssd_scan_cuda(x, dts, A, Bm, Cm, Dh, chunk=Q),
                  flush)
     plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(x, dts, A, Bm, Cm, Dh,
@@ -1379,24 +1451,29 @@ def profile_prefill(torch, np, serving, cfg, params, slots, max_len,
     return wall_ms, busy_ms, by_name
 
 
-# Each kernel's CUDA kernels as a profile names them; decode_kernel is the
-# single kernel of K4's first, unsplit design, so a profile of that design
-# reads the same way.
+# Each kernel's CUDA kernels as a profile names them. K4 and K5 share the
+# combine (split_combine_kernel); no serving cell runs both. decode_kernel,
+# decode_combine_kernel, mla_decode_kernel and ssd_scan_kernel (bf16) are
+# the earlier designs' kernels, so a profile of those designs reads the
+# same way.
 PROFILE_NAMES = {
     "flash_attention": ("flash_fwd_kernel", "flash_fwd_bf16_kernel"),
-    "decode_attention": ("decode_split_kernel", "decode_combine_kernel",
-                         "decode_kernel"),
-    "mla_decode_attention": ("mla_decode_kernel",),
-    "ssd_scan": ("ssd_scan_kernel",),
+    "decode_attention": ("decode_split_kernel", "split_combine_kernel",
+                         "decode_combine_kernel", "decode_kernel"),
+    "mla_decode_attention": ("mla_split_bf16_kernel", "mla_split_kernel",
+                             "split_combine_kernel", "mla_decode_kernel"),
+    "ssd_scan": ("ssd_chunk_kernel", "ssd_state_kernel", "ssd_out_kernel",
+                 "ssd_scan_kernel"),
 }
 
 
 def kernel_time(by_name, kernel: str):
     """(ms, launches) of ``kernel``'s CUDA kernels in a ``device_window``
-    table (demangled template names: ``ns::name<...>(...)``)."""
+    table (demangled names: ``ns::name<...>(...)`` or ``ns::name(...)``)."""
     import re
 
-    pat = re.compile(r"(?<![\w])(" + "|".join(PROFILE_NAMES[kernel]) + r")<")
+    pat = re.compile(r"(?<![\w])(" + "|".join(PROFILE_NAMES[kernel])
+                     + r")[<(]")
     hits = [row for name, row in by_name.items() if pat.search(name)]
     return sum(r[0] for r in hits), sum(r[1] for r in hits)
 
@@ -1412,9 +1489,10 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:113"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:103"),
-    "mla_decode_attention": ("src/repro_torch/csrc/mla_decode.cu",
+    # K5 and K6 too: the bf16 sources, which the serving paths run
+    "mla_decode_attention": ("src/repro_torch/csrc/mla_decode_bf16.cu",
                              "src/repro/kernels/mla_decode.py:113"),
-    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan_bf16.cu",
                  "src/repro/kernels/ssd_scan.py:86"),
 }
 

@@ -33,14 +33,16 @@
 //   softmax runs in the warp's registers (max and sum by shuffles), and lane
 //   l accumulates value columns 2l, 2l + 1, 2l + 64, 2l + 65.
 // - Each split writes its (m, l, acc[Dv]) in fp32 to scratch the wrapper
-//   allocates; decode_combine_kernel, one block per (query head, row) and a
-//   thread a column, merges the splits 0 .. ceil((pos_b + 1) / SPLIT) - 1,
-//   summing in split order with loads that do not wait on each other. Split
+//   allocates; split_combine_kernel (split_combine.cuh, shared with K5), one
+//   block per (query head, row) and a thread a column, merges the splits
+//   0 .. ceil((pos_b + 1) / SPLIT) - 1, summing in split order with loads
+//   that do not wait on each other. Split
 //   boundaries depend on SPLIT alone and no sum uses atomics, so row b's
 //   result depends only on its own q, cache and pos: the same bits whether
 //   it is decoded alone or beside other rows.
 
 #include "mma.cuh"
+#include "split_combine.cuh"
 #include "tile.cuh"
 
 namespace repro_torch {
@@ -91,12 +93,6 @@ __device__ __forceinline__ void load_rows(T* dst, int pitch,
   }
 }
 
-__device__ __forceinline__ int visible(const int* pos_vec, int pos_scalar,
-                                       int b, int S) {
-  const int pos = pos_vec != nullptr ? pos_vec[b] : pos_scalar;
-  return max(0, min(pos, S - 1) + 1);  // slots 0..pos, at most S
-}
-
 template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
@@ -108,7 +104,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
   const int sp = blockIdx.z;
-  const int n = visible(pos_vec, pos_scalar, b, S);
+  const int n = visible_slots(pos_vec, pos_scalar, b, S);
   const int s0 = sp * SPLIT;
   if (s0 >= n) return;  // past pos: nothing to read, nothing to write
   const int s1 = min(s0 + SPLIT, n);
@@ -246,65 +242,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-// Merge row b's splits into out (B, H, Dv): one block per (query head, row),
-// a thread a column. The largest m is taken over the splits, then each
-// chunk of THREADS splits has its weights exp2(m_s - M) put in shared
-// memory, and each column sums l_s w_s and acc_s w_s in split order; no load
-// of a column's sum waits on another.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-decode_combine_kernel(const float* __restrict__ part_acc,
-                      const float* __restrict__ part_ml, T* __restrict__ o,
-                      const int* __restrict__ pos_vec, int pos_scalar, int S,
-                      int H, int Hkv, int DV, int nsplit) {
-  __shared__ float sw[THREADS];
-  __shared__ float sm[WARPS];
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = H / Hkv;
-  const int tid = threadIdx.x;
-  const int n = visible(pos_vec, pos_scalar, b, S);
-  const int ns = (n + SPLIT - 1) / SPLIT;
-  // split s of head h is row r0 + s * G of the partials
-  const long r0 = ((long)b * Hkv + h / G) * nsplit * G + h % G;
-
-  float mx = NEG_INF;
-  for (int s = tid; s < ns; s += THREADS)
-    mx = fmaxf(mx, part_ml[(r0 + (long)s * G) * 2]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  if (tid % 32 == 0) sm[tid / 32] = mx;
-  __syncthreads();
-  float M = sm[0];
-#pragma unroll
-  for (int w = 1; w < WARPS; ++w) M = fmaxf(M, sm[w]);
-
-  float den = 0.f, num = 0.f;
-  for (int c0 = 0; c0 < ns; c0 += THREADS) {
-    __syncthreads();  // the last chunk's weights are read
-    const int s = c0 + tid;
-    sw[tid] = s < ns ? exp2f(part_ml[(r0 + (long)s * G) * 2] - M) : 0.f;
-    __syncthreads();
-    if (tid < DV) {
-      const int cn = min(THREADS, ns - c0);
-#pragma unroll 8
-      for (int j = 0; j < cn; ++j) {
-        const long r = r0 + (long)(c0 + j) * G;
-        den = fmaf(part_ml[r * 2 + 1], sw[j], den);
-        num = fmaf(part_acc[r * DV + tid], sw[j], num);
-      }
-    }
-  }
-  if (tid < DV)
-    store(o + ((long)b * H + h) * DV + tid, num / fmaxf(den, 1e-30f));
-}
-
 template <typename T, int D, int DV>
 int launch(const void* q, const void* kc, const void* vc, void* o,
            const int* pos_vec, int pos_scalar, float* part, int B, int S,
            int H, int Hkv, float scale, cudaStream_t stream) {
-  static_assert(DV <= THREADS, "the combine runs a thread a column");
   static_assert(SPLIT == 2 * BK, "a split is the two stages' tiles");
   constexpr size_t smem = Tiles<T, D, DV>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -321,10 +262,10 @@ int launch(const void* q, const void* kc, const void* vc, void* o,
       scale * LOG2E, part_acc, part_ml);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  decode_combine_kernel<T><<<dim3(H, B), THREADS, 0, stream>>>(
-      part_acc, part_ml, static_cast<T*>(o), pos_vec, pos_scalar, S, H, Hkv,
-      DV, nsplit);
-  return (int)cudaGetLastError();
+  return (int)launch_split_combine<T, SPLIT>(part_acc, part_ml,
+                                             static_cast<T*>(o), pos_vec,
+                                             pos_scalar, B, S, H, Hkv, DV,
+                                             nsplit, stream);
 }
 
 template <typename T, int D>

@@ -76,24 +76,6 @@ struct Tiles {
   static constexpr size_t bytes = sizeof(bf16) * (Q + STAGES * (K + V));
 };
 
-// Issue the copy of `rows` rows of W elements (`stride` apart in device
-// memory) into shared memory rows `pitch` apart; rows at or past `valid`
-// are zero-filled without a read.
-template <int W>
-__device__ __forceinline__ void load_rows(bf16* dst, int pitch,
-                                          const bf16* __restrict__ src,
-                                          long stride, int rows, int valid) {
-  constexpr int CPR = W / 8;  // 16-byte chunks a row
-  static_assert(W % 16 == 0, "row must be a whole number of k-steps");
-  for (int i = threadIdx.x; i < rows * CPR; i += THREADS) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * 8;
-    const bool ok = r < valid;
-    cp_async_16(dst + r * pitch + c, ok ? src + r * stride + c : src,
-                ok ? 16 : 0);
-  }
-}
-
 template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -136,14 +118,15 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // Q and the first STAGES - 1 tiles in flight, one commit group each tile
   auto load_tile = [&](int it, int st) {
     const int k0 = it * BK;
-    load_rows<D>(sK + st * L::K, L::KP, kb + k0 * k_stride, k_stride, BK,
-                 min(BK, Sk - k0));
-    load_rows<DV>(sV + st * L::V, L::VP, vb + k0 * v_stride, v_stride, BK,
-                  min(BK, Sk - k0));
+    cp_async_rows<D, THREADS>(sK + st * L::K, L::KP, kb + k0 * k_stride,
+                              k_stride, BK, min(BK, Sk - k0));
+    cp_async_rows<DV, THREADS>(sV + st * L::V, L::VP, vb + k0 * v_stride,
+                               v_stride, BK, min(BK, Sk - k0));
   };
   if (t_lo < t_hi)
-    load_rows<D>(sQ, L::QP, q + ((long)b * Sq + q0) * q_stride + (long)h * D,
-                 q_stride, BQ, min(BQ, Sq - q0));
+    cp_async_rows<D, THREADS>(
+        sQ, L::QP, q + ((long)b * Sq + q0) * q_stride + (long)h * D, q_stride,
+        BQ, min(BQ, Sq - q0));
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (t_lo + i < t_hi) load_tile(t_lo + i, i);

@@ -36,6 +36,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Issue the copy of `rows` rows of W bf16 elements (`stride` apart in
+// device memory) into shared memory rows `pitch` apart, NTHREADS threads
+// together, 16 bytes a copy; rows at or past `valid` are zero-filled without
+// a read. Rows and pitch must be 16-byte aligned.
+template <int W, int NTHREADS>
+__device__ __forceinline__ void cp_async_rows(
+    __nv_bfloat16* dst, int pitch, const __nv_bfloat16* __restrict__ src,
+    long stride, int rows, int valid) {
+  constexpr int CPR = W / 8;  // 16-byte chunks a row
+  static_assert(W % 16 == 0, "row must be a whole number of k-steps");
+  for (int i = threadIdx.x; i < rows * CPR; i += NTHREADS) {
+    const int r = i / CPR;
+    const int c = (i % CPR) * 8;
+    const bool ok = r < valid;
+    cp_async_16(dst + r * pitch + c, ok ? src + r * stride + c : src,
+                ok ? 16 : 0);
+  }
+}
+
 // Four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
@@ -54,6 +73,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(smem_u32(p)));
 }
 
+// Two 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+// (lanes 16..31 are not read but must hold a valid address).
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
 // d += a b on the tensor cores: a 16 x 16 and b 16 x 8 in bf16, d in fp32.
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
                                                const uint32_t (&a)[4],
@@ -69,6 +98,19 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two floats (x0 in the low half, as pack_bf16x2) split into bf16 pairs hi
+// and lo with hi + lo equal to them within 2^-17 relative: an fp32 operand
+// of an mma that must keep more than bf16's 8 bits is issued twice, once
+// with each half.
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 }  // namespace repro_torch

@@ -1,4 +1,6 @@
-// K6: chunked Mamba2 SSD scan, forward, for Hopper (sm_90a).
+// K6: chunked Mamba2 SSD scan, forward, for Hopper (sm_90a): the fp32 path,
+// which serves the card-vs-CPU parity checks; the serving paths run K6 in
+// bf16, chunk-parallel on the tensor cores (ssd_scan_bf16.cu).
 //
 // Replaces src/repro/kernels/ssd_scan.py::ssd_scan_pallas (pl.pallas_call
 // at :86). For x (B, S, H, P), dt (B, S, H) fp32 post-softplus, A_log and
@@ -8,14 +10,14 @@
 //     y_i = sum_{j<=i} exp(cum_i - cum_j) (C_i . B_j) dt_j x_j
 //           + exp(cum_i) C_i . state + D x_i
 //     state <- exp(cum_Q) state + sum_j exp(cum_Q - cum_j) (dt_j x_j) B_j^T
-// y is (B, S, H, P) in x's dtype. Unlike the TPU kernel, which leaves the
+// y is (B, S, H, P) fp32. Unlike the TPU kernel, which leaves the
 // final state in scratch, it also writes the final state (B, H, P, N) fp32:
 // that is what prefill puts in the decode cache. S must be a multiple of Q.
 //
 // What bounds it on the H100: per chunk and head the work is three
 // Q x Q x N / Q x P x N products (~4 M FMA at Q = N = 128, P = 64) over
 // ~50 KB of inputs, far above the card's ridge: the least time is set by
-// operations. This first version multiplies on the CUDA cores in fp32 FMA
+// operations. This path multiplies on the CUDA cores in fp32 FMA
 // (67 TFLOP/s, not the tensor cores' 989).
 // What the design does about it: one block per (row, head) loops over the
 // chunks in order, as the TPU grid's innermost axis did, and keeps the
@@ -27,8 +29,9 @@
 // the diagonal, so shared memory holds one 32 x Q tile of C.B^T (216 KB in
 // all at Q = N = 128, under the 227 KB a block may use). Each thread keeps
 // an 8 x 4 register tile of y across the chunk. B*H blocks (32 at B = 1 and
-// mamba2-370m's 32 heads) leave most of the card idle; wgmma and sharing
-// C.B^T across the heads are later work.
+// mamba2-370m's 32 heads) leave most of the card idle; ssd_scan_bf16.cu
+// runs the chunks in parallel on the tensor cores and computes C.B^T once
+// for all heads.
 
 #include "tile.cuh"
 
@@ -261,15 +264,14 @@ int launch(const void* x, const float* dt, const float* a_log, const void* bm,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch_n(int N, const void* x, const float* dt, const float* a_log,
                const void* bm, const void* cm, const float* d_vec, void* y,
                float* state, int B, int S, int H, int Q, cudaStream_t st) {
   switch (N) {
-    case 16: return launch<T, 16>(x, dt, a_log, bm, cm, d_vec, y, state, B, S, H, Q, st);
-    case 32: return launch<T, 32>(x, dt, a_log, bm, cm, d_vec, y, state, B, S, H, Q, st);
-    case 64: return launch<T, 64>(x, dt, a_log, bm, cm, d_vec, y, state, B, S, H, Q, st);
-    case 128: return launch<T, 128>(x, dt, a_log, bm, cm, d_vec, y, state, B, S, H, Q, st);
+    case 16: return launch<float, 16>(x, dt, a_log, bm, cm, d_vec, y, state, B, S, H, Q, st);
+    case 32: return launch<float, 32>(x, dt, a_log, bm, cm, d_vec, y, state, B, S, H, Q, st);
+    case 64: return launch<float, 64>(x, dt, a_log, bm, cm, d_vec, y, state, B, S, H, Q, st);
+    case 128: return launch<float, 128>(x, dt, a_log, bm, cm, d_vec, y, state, B, S, H, Q, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -277,23 +279,18 @@ int dispatch_n(int N, const void* x, const float* dt, const float* a_log,
 }  // namespace
 }  // namespace repro_torch
 
-// C interface, bound with ctypes. dtype (of x, B, C and y): 0 = float32,
-// 1 = bfloat16; dt, A_log, D and the state are float32. P must be 64,
+// C interface, bound with ctypes; float32 tensors only. P must be 64,
 // 1 <= Q <= 128 and S % Q == 0 (the wrapper checks). Returns the CUDA error
 // code of the launch (0 = launched).
 extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* a_log,
                             const void* bm, const void* cm, const float* d_vec,
                             void* y, float* state, int B, int S, int H, int P_,
-                            int N, int Q, int dtype, void* stream) {
+                            int N, int Q, void* stream) {
   using namespace repro_torch;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (P_ != P || Q < 1 || Q > QMAX || S % Q != 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return dispatch_n<float>(N, x, dt, a_log, bm, cm, d_vec, y, state, B, S, H, Q, st);
-  if (dtype == 1)
-    return dispatch_n<__nv_bfloat16>(N, x, dt, a_log, bm, cm, d_vec, y, state, B, S, H, Q, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_n(N, x, dt, a_log, bm, cm, d_vec, y, state, B, S, H, Q,
+                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* ssd_scan_error_string(int code) {

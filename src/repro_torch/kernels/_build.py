@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("nstep_returns", "vtrace", "flash_attention",
            "flash_attention_bf16", "decode_attention", "mla_decode",
-           "ssd_scan")
+           "mla_decode_bf16", "ssd_scan", "ssd_scan_bf16")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -1,10 +1,15 @@
-"""K5 on the card: absorbed MLA decode attention, ``csrc/mla_decode.cu``.
+"""K5 on the card: absorbed MLA decode attention, ``csrc/mla_decode_bf16.cu``
+(bf16, split-K on the tensor cores) and ``csrc/mla_decode.cu`` (fp32, the
+parity path, split-K on the CUDA cores).
 
-The hand-written CUDA kernel that replaces
+The hand-written CUDA kernels that replace
 ``repro/kernels/mla_decode.py::mla_decode_attention_pallas``, extended to a
-per-row ``(B,)`` position besides the scalar one, as K4 is. Its plain
-version is ``ref.mla_decode_attention_ref``; ``ops.mla_decode_attention``
-picks between the two by the device of the tensors it is given.
+per-row ``(B,)`` position besides the scalar one, as K4 is. Both split each
+row's cache walk into blocks of ``SPLIT`` slots and merge the splits in a
+second kernel (K4's); one call of ``mla_decode_attention_cuda`` is one
+launch of K5. Its plain version is ``ref.mla_decode_attention_ref``;
+``ops.mla_decode_attention`` picks between the two by the device of the
+tensors it is given.
 """
 from __future__ import annotations
 
@@ -18,6 +23,22 @@ from repro_torch.kernels.flash_attention import DTYPES
 
 LATENT_DIMS = (32, 64, 128, 256, 512)  # R the kernel is instantiated for
 ROPE_DIMS = (16, 32, 64)  # Rr, each with every R
+SPLIT = 64  # cache slots a block of the split kernels (csrc's SPLIT)
+LIBRARIES = {torch.float32: "mla_decode",
+             torch.bfloat16: "mla_decode_bf16"}  # csrc/<name>.cu
+
+
+def num_splits(S: int) -> int:
+    """Blocks a row's cache of capacity ``S`` is split into: the grid is
+    sized from the capacity, never from ``pos``, so ``pos`` stays on the
+    card."""
+    return -(-S // SPLIT)
+
+
+def scratch_floats(B: int, S: int, H: int, R: int) -> int:
+    """fp32 scratch of one call: each split's (acc[R], m, l) per row and
+    head."""
+    return B * num_splits(S) * H * (R + 2)
 
 
 def check_inputs(q_lat, q_rope, c_cache, kr_cache, pos) -> None:
@@ -77,11 +98,11 @@ def check_inputs(q_lat, q_rope, c_cache, kr_cache, pos) -> None:
                          "range")
 
 
-def _kernel():
-    fn = _build.library("mla_decode").mla_decode_fwd
+def _kernel(name: str):
+    fn = getattr(_build.library(name), f"{name}_fwd")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] \
+            + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -102,15 +123,20 @@ def mla_decode_attention_cuda(q_lat, q_rope, c_cache, kr_cache, pos,
         pos_ptr, pos_scalar = pos.data_ptr(), 0
     else:
         pos_ptr, pos_scalar = None, int(pos)
+    name = LIBRARIES[q_lat.dtype]
     out = torch.empty_like(q_lat)
-    fn = _kernel()
     with torch.cuda.device(q_lat.device):
+        # each split's (acc[R], m, l), fp32, on the current stream
+        part = torch.empty(scratch_floats(B, S, H, R), dtype=torch.float32,
+                           device=q_lat.device)
+        fn = _kernel(name)
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q_lat.data_ptr(), q_rope.data_ptr(), c_cache.data_ptr(),
-                kr_cache.data_ptr(), out.data_ptr(), pos_ptr, pos_scalar, B, S,
-                H, R, Rr, DTYPES[q_lat.dtype], float(scale), stream)
+                kr_cache.data_ptr(), out.data_ptr(), pos_ptr, pos_scalar,
+                part.data_ptr(), num_splits(S), B, S, H, R, Rr, float(scale),
+                stream)
     if rc != 0:
-        msg = _build.error_string("mla_decode", rc)
+        msg = _build.error_string(name, rc)
         raise RuntimeError(f"mla_decode_attention kernel launch failed: {msg} "
                            f"(CUDA error {rc})")
     return out

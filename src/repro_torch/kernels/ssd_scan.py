@@ -1,9 +1,13 @@
-"""K6 on the card: the chunked Mamba2 SSD scan, ``csrc/ssd_scan.cu``.
+"""K6 on the card: the chunked Mamba2 SSD scan, ``csrc/ssd_scan_bf16.cu``
+(bf16, chunk-parallel on the tensor cores) and ``csrc/ssd_scan.cu`` (fp32,
+the parity path, a block a (row, head) on the CUDA cores).
 
-The hand-written CUDA kernel that replaces
-``repro/kernels/ssd_scan.py::ssd_scan_pallas``. Unlike the TPU kernel it
-also returns the final state, which prefill puts in the decode cache. Its
-plain version is ``ref.ssd_scan_ref`` (the algorithm of
+The hand-written CUDA kernels that replace
+``repro/kernels/ssd_scan.py::ssd_scan_pallas``. Unlike the TPU kernel they
+also return the final state, which prefill puts in the decode cache. The
+bf16 kernel runs in three launches (chunk-local states and C.B^T, the carry
+over the chunks, the outputs); one call of ``ssd_scan_cuda`` is one launch
+of K6. Its plain version is ``ref.ssd_scan_ref`` (the algorithm of
 ``repro/models/ssm.py::ssd_chunked``); ``ops.ssd_scan`` picks between the
 two by the device of the tensors it is given.
 """
@@ -19,6 +23,16 @@ from repro_torch.kernels.flash_attention import DTYPES
 HEAD_DIM = 64  # P, the head width of every Mamba2 config
 STATE_DIMS = (16, 32, 64, 128)  # N the kernel is instantiated for
 MAX_CHUNK = 128
+LIBRARIES = {torch.float32: "ssd_scan",
+             torch.bfloat16: "ssd_scan_bf16"}  # csrc/<name>.cu
+
+
+def scratch_floats(B: int, S: int, H: int, N: int, chunk: int) -> int:
+    """fp32 scratch of one bf16 call: the chunk states (B, nc, H, 64, N),
+    C.B^T (B, nc, 128, 128) and the chunk totals (B, nc, H), nc = S /
+    chunk. The fp32 kernel takes none."""
+    nc = S // chunk
+    return B * nc * (H * HEAD_DIM * N + MAX_CHUNK * MAX_CHUNK + H)
 
 
 def check_inputs(x, dt, A_log, B_mat, C_mat, D_vec, *, chunk: int) -> None:
@@ -75,10 +89,11 @@ def check_inputs(x, dt, A_log, B_mat, C_mat, D_vec, *, chunk: int) -> None:
                          "exceeds int32 indexing")
 
 
-def _kernel():
-    fn = _build.library("ssd_scan").ssd_scan_fwd
+def _kernel(name: str):
+    fn = getattr(_build.library(name), f"{name}_fwd")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        n_ptr = 9 if name == "ssd_scan_bf16" else 8  # + the scratch
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -98,15 +113,20 @@ def ssd_scan_cuda(x, dt, A_log, B_mat, C_mat, D_vec, *, chunk: int):
     N = B_mat.shape[-1]
     y = torch.empty_like(x)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    fn = _kernel()
+    name = LIBRARIES[x.dtype]
+    fn = _kernel(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), dt.data_ptr(), A_log.data_ptr(),
+        ptrs = [x.data_ptr(), dt.data_ptr(), A_log.data_ptr(),
                 B_mat.data_ptr(), C_mat.data_ptr(), D_vec.data_ptr(),
-                y.data_ptr(), state.data_ptr(), Bsz, S, H, P, N, int(chunk),
-                DTYPES[x.dtype], stream)
+                y.data_ptr(), state.data_ptr()]
+        if name == "ssd_scan_bf16":
+            work = torch.empty(scratch_floats(Bsz, S, H, N, int(chunk)),
+                               dtype=torch.float32, device=x.device)
+            ptrs.append(work.data_ptr())
+        rc = fn(*ptrs, Bsz, S, H, P, N, int(chunk), stream)
     if rc != 0:
-        msg = _build.error_string("ssd_scan", rc)
+        msg = _build.error_string(name, rc)
         raise RuntimeError(f"ssd_scan kernel launch failed: {msg} "
                            f"(CUDA error {rc})")
     return y, state

@@ -197,7 +197,16 @@ def test_decode_kernel_row_is_bitwise_the_same_alone_or_beside_others(
     (4, 544, 40, 256, 32, 300),                   # scalar pos
     (3, 70, 4, 32, 16, [0, 33, 69]),              # reduced minicpm3-4b
     (2, 100, 128, 512, 64, 99),                   # deepseek-v2's widths
-])
+    # the split design's edges
+    (2, 544, 128, 512, 64, [543, 100]),   # R split over warps, many splits
+    (1, 1, 1, 64, 16, 0),                 # one slot, one head
+    (3, 63, 17, 128, 32, [62, 0, 31]),    # S below one split, H % 16 != 0
+    (2, 65, 40, 256, 32, [64, 63]),       # one slot into the second split
+    (2, 65, 17, 32, 16, 64),              # scalar pos, R = 32 (8 columns a warp)
+    (4, 544, 1, 256, 64, [543, 0, 64, 300]),
+    (2, 100, 40, 256, 32, 5000),          # pos past the capacity: all slots
+] + [(2, 130, 20, R, Rr, [129, 70])      # every latent and rope width
+     for R in (32, 64, 128, 256, 512) for Rr in (16, 32, 64)])
 def test_mla_kernel_matches_plain_version(cuda, dtype, W, S, H, R, Rr, pos):
     dt = getattr(torch, dtype)
     g = torch.Generator(cuda).manual_seed(S + H)
@@ -221,11 +230,12 @@ def test_mla_kernel_matches_plain_version(cuda, dtype, W, S, H, R, Rr, pos):
     (1, 512, 32, 128, 128),  # mamba2-370m prefill
     (2, 64, 8, 16, 32),      # reduced mamba2-370m
     (1, 100, 4, 32, 100),    # one chunk shorter than 128
-])
+] + [(2, 3 * Q if Q < 100 else 2 * Q, 6, N, Q)  # every N, chunks of any length
+     for N in (16, 32, 64, 128) for Q in (7, 32, 100, 128)])
 def test_ssd_kernel_matches_plain_version(cuda, dtype, B, S, H, N, chunk):
     """y within 1e-4 + 1e-4 |y| (fp32; C.B^T sums of 128 terms reach |y| ~
     100) or 2e-2 + 2e-2 |y| (bf16 output), the fp32 state within 1e-4 +
-    1e-4 |state|."""
+    1e-4 |state| (SSD_TOL) in both dtypes."""
     dt = getattr(torch, dtype)
     g = torch.Generator(cuda).manual_seed(S + N)
     x = torch.randn(B, S, H, 64, generator=g, device=cuda).to(dt)
@@ -241,6 +251,63 @@ def test_ssd_kernel_matches_plain_version(cuda, dtype, B, S, H, N, chunk):
     assert y.dtype == dt and state.dtype == torch.float32
     torch.testing.assert_close(y.float(), y_ref, rtol=_tol(dt), atol=_tol(dt))
     torch.testing.assert_close(state, s_ref, rtol=1e-4, atol=1e-4)
+
+
+def _mla_inputs(cuda, dt, W, S, H, R, Rr, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+    ql, qr = (torch.randn(W, H, d, generator=g, device=cuda).to(dt)
+              for d in (R, Rr))
+    c, kr = (torch.randn(W, S, d, generator=g, device=cuda).to(dt)
+             for d in (R, Rr))
+    return ql, qr, c, kr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_kernel_gives_zeros_for_a_negative_pos(cuda, dtype):
+    """A row whose pos is negative sees no slot: every split exits and the
+    combine writes zeros (the plain version would average a fully masked
+    row); the other rows are unaffected."""
+    dt = getattr(torch, dtype)
+    W, S, H, R, Rr = 3, 100, 40, 256, 32
+    ql, qr, c, kr = _mla_inputs(cuda, dt, W, S, H, R, Rr, 3)
+    got = mla_decode_attention_cuda(ql, qr, c, kr, -1, 0.1)
+    assert torch.equal(got, torch.zeros_like(got))
+    p = torch.tensor([-5, 40, 99], dtype=torch.int32, device=cuda)
+    got = mla_decode_attention_cuda(ql, qr, c, kr, p, 0.1)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    want = ref.mla_decode_attention_ref(ql.float(), qr.float(), c.float(),
+                                        kr.float(), p, 0.1)
+    torch.testing.assert_close(got[1:].float(), want[1:], rtol=_tol(dt),
+                               atol=_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_kernel_row_is_bitwise_the_same_alone_or_beside_others(
+        cuda, dtype):
+    """K4's pin for K5: split boundaries depend on nothing but the split
+    length, so a row's output does not move with the batch, the other rows'
+    positions or the cache's capacity."""
+    dt = getattr(torch, dtype)
+    W, S, H, R, Rr = 4, 544, 40, 256, 32
+    ql, qr, c, kr = _mla_inputs(cuda, dt, W, S, H, R, Rr, 7)
+    pos = [256, 300, 64, 543]
+    both = mla_decode_attention_cuda(
+        ql, qr, c, kr, torch.tensor(pos, dtype=torch.int32, device=cuda), 0.1)
+    for b, p in enumerate(pos):
+        one = (slice(b, b + 1),)
+        alone = mla_decode_attention_cuda(
+            ql[one].contiguous(), qr[one].contiguous(), c[one].contiguous(),
+            kr[one].contiguous(),
+            torch.tensor([p], dtype=torch.int32, device=cuda), 0.1)
+        assert torch.equal(alone, both[b:b + 1])
+        # a shorter cache holding the same filled slots
+        cut = mla_decode_attention_cuda(
+            ql[one].contiguous(), qr[one].contiguous(),
+            c[b:b + 1, :p + 1].contiguous(), kr[b:b + 1, :p + 1].contiguous(),
+            p, 0.1)
+        assert torch.equal(cut, both[b:b + 1])
 
 
 @pytest.mark.cuda

@@ -82,6 +82,8 @@ def test_every_kernel_source_is_annotated_and_built_into_an_ignored_dir():
 
     pallas = {"vtrace": "vtrace.py::vtrace_returns",  # source -> Pallas
               "mla_decode": "mla_decode.py::mla_decode_attention",
+              "mla_decode_bf16": "mla_decode.py::mla_decode_attention",
+              "ssd_scan_bf16": "ssd_scan.py::ssd_scan",
               "flash_attention_bf16": "flash_attention.py::flash_attention"}
     for name in _build.SOURCES:
         src = (_build.CSRC / f"{name}.cu").read_text()
