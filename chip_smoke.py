@@ -16,22 +16,33 @@ paths:
               <256, 32> and <512, 64> and of K6's bf16 chunk and output
               kernels at N = 128), and the count of tensor-core
               instructions (HMMA, HGMMA) in the SASS of K3's, K5's and
-              K6's bf16 libraries where cuobjdump is on the machine;
+              K6's bf16 libraries where cuobjdump is on the machine; K1's
+              and K2's registers and their loads in SASS (LDG, LDGSTS,
+              UBLKCP/UTMALDG, the cp.async waits, and the first reader of
+              each LDG);
 2. returns  — K1 (n-step returns) against its plain PyTorch version on the
-              card over E in {1, 32, 33, 256, 4096}, T in {1, 5, 64} and
-              gamma in {0, 0.99, 1}, dones at a 10% rate plus an all-done
-              and a never-done row (|err| <= 1e-5 + 1e-5 |ref|), with
-              CUDA-event times (median of 30, L2 flushed) at the paper's
-              E=32, T=5 and at E=4096, T=64;
-   vtrace   — K2 (V-trace targets) against its plain version on the card
-              over E in {1, 8, 32, 33, 256, 4096}, T in {1, 5, 64},
-              (rho_bar, c_bar) in {(1, 1), (2, 1), (1e9, 1e9), (inf, inf)}
-              and gamma in {0, 0.99, 1}; rho = exp(N(0, 0.5)) with a row of
-              rho = 50, dones at 10% with an all-done and a never-done row
-              (|err| <= 1e-5 + 1e-5 |ref|; where unclipped c on the rho = 50
-              row overflows float32 in the plain version, the kernel must
-              give the same inf or nan), with CUDA-event times at
-              (T=5, E=32), (T=5, E=8) and (T=64, E=4096);
+              card over E in {1, 8, 31, 32, 33, 256, 4096, 4097}, T in {1,
+              5, 64}, on both sides of the short kernel's last T (16, 17)
+              and around the longest chunk TC (TC - 1, TC, TC + 1, 2 TC +
+              3), T=4096 at E=256 and misaligned views (one element past an
+              aligned address) at E=256, gamma in {0, 0.99, 1}, dones at a
+              10% rate plus an all-done and a never-done row (|err| <= 1e-5
+              + 1e-5 |ref|, and bitwise: any nonzero error fails), with
+              CUDA-event times (median of 30, L2 flushed) of the kernel,
+              the plain version and the launch floor (an empty kernel of
+              the same library at the same grid, launched the same way) at
+              (T, E) = (5, 32), the training path's, (5, 256), (64, 4096)
+              and (4096, 256), and the wrapper's host microseconds a call
+              (1,000 calls on a busy card) at (5, 32);
+   vtrace   — K2 (V-trace targets) the same way, over the same E and T
+              around its own chunk, (rho_bar, c_bar) in {(1, 1), (2, 1),
+              (1e9, 1e9), (inf, inf)} and gamma in {0, 0.99, 1}; rho =
+              exp(N(0, 0.5)) with a row of rho = 50, dones at 10% with an
+              all-done and a never-done row (bitwise; where unclipped c on
+              the rho = 50 row overflows float32 in the plain version, the
+              kernel must give the same inf or nan), timed at (5, 32), the
+              one-actor pipeline's, (5, 8), (5, 256), (64, 4096) and
+              (4096, 256);
 3. kernels  — K3 and K4 against their plain versions on the card, at the
               serving path's shapes and at the widths the TPU kernels
               take (K3 q/k and v 112/112 and 192/128, causal, ragged S,
@@ -192,6 +203,42 @@ def time_ms(torch, fn, flush, iters: int = 30) -> float:
     return times[len(times) // 2]
 
 
+def host_us(torch, fn, calls: int = 1000, batch: int = 100) -> float:
+    """Host microseconds a call of ``fn``: ``calls`` calls in batches of
+    ``batch``, each batch enqueued while the card spins (~10 ms, longer
+    than a batch takes to enqueue), so no call waits on the card, and no
+    synchronize between the calls of a batch."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls // batch):
+        torch.cuda._sleep(20 * SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / calls * 1e6
+
+
+def floor_launch(torch, build, lib: str, shape, T: int, E: int):
+    """A function that launches ``lib``'s empty kernel (``<lib>_floor``) at
+    the grid, block and shared memory of its real launch at (T, E), through
+    ctypes on the current stream, as the wrapper launches the real one: the
+    launch floor of a K1 or K2 time."""
+    import ctypes
+
+    fn = getattr(build.library(lib), f"{lib}_floor")
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    tile, chunk, _, _ = shape(T, E)
+
+    def launch():
+        rc = fn(T, E, tile, chunk, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"{lib}_floor launch failed: CUDA error {rc}")
+    return launch
+
+
 def bound(nbytes: float, flops: float, dtype: str):
     """(least time in ms, "bytes" or "operations")."""
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -262,6 +309,14 @@ def phase_card(torch, build):
             say("card", f"{src} {key} {line}")
     for src in ("flash_attention_bf16", "mla_decode_bf16", "ssd_scan_bf16"):
         sass_counts(build, src)
+    for src, kernels in (("nstep_returns", ("nstep_kernel",
+                                            "nstep_short_kernel")),
+                         ("vtrace", ("vtrace_kernel", "vtrace_short_kernel"))):
+        for key, line in ptxas_lines(build, src, kernels):
+            say("card", f"{src} {key} {line} (dynamic shared memory: "
+                "launch_shape's smem_bytes, printed with each time)")
+        for kernel in kernels:
+            sass_loads(build, src, kernel)
     return card
 
 
@@ -295,6 +350,58 @@ def sass_counts(build, name: str) -> None:
     hgmma = sum(1 for ln in sass.splitlines() if "HGMMA" in ln)
     check(hmma + hgmma > 0, f"{name}: no tensor-core instruction in its SASS")
     say("card", f"{name} SASS: {hmma} HMMA, {hgmma} HGMMA instructions")
+
+
+SASS_LOADS = ("LDG", "LDGSTS", "LDGDEPBAR", "DEPBAR", "UBLKCP", "UTMALDG",
+              "LDS", "STS", "STG", "BAR")
+
+
+def sass_loads(build, name: str, kernel: str) -> None:
+    """The loads of ``kernel`` in ``name``'s SASS, where cuobjdump is on the
+    machine: the counts of LDG (a load into registers), LDGSTS (cp.async),
+    UBLKCP/UTMALDG (bulk and TMA copies) and the rest of SASS_LOADS, each
+    DEPBAR (a wait on the cp.async groups) as written, and for each LDG the
+    first later instruction that reads its register: what that load's
+    latency stalls."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        say("card", f"{name}: cuobjdump not found; SASS not inspected")
+        return
+    sass = subprocess.run([tool, "-sass", str(build.target(name))],
+                          capture_output=True, text=True, check=True).stdout
+    body, inside = [], False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inside = f"{len(kernel)}{kernel}E" in ln  # the mangled name
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?)\s*;", ln)
+        if inside and m:
+            body.append(m.group(1))
+
+    def opcode(ins):
+        words = ins.split()
+        return words[1] if words[0].startswith("@") else words[0]
+
+    counts = {op: sum(1 for ins in body if opcode(ins).split(".")[0] == op)
+              for op in SASS_LOADS}
+    check(body, f"{name}: {kernel} not found in its SASS")
+    waits = sorted({ins for ins in body if opcode(ins).startswith("DEPBAR")})
+    consumers = []
+    for i, ins in enumerate(body):
+        if opcode(ins).split(".")[0] != "LDG":
+            continue
+        operands = ins.split(None, 2 if ins.startswith("@") else 1)[-1]
+        reg = re.search(r"\bR\d+\b", operands).group(0)
+        use = next((f"{opcode(nxt)} (+{j})" for j, nxt in
+                    enumerate(body[i + 1:], 1)
+                    if re.search(rf"\b{reg}\b", nxt)), "none")
+        consumers.append(f"{opcode(ins)} {reg} -> {use}")
+    say("card", f"{name} SASS {kernel}: " + ", ".join(
+        f"{n} {op}" for op, n in counts.items()) + f"; waits: {waits}")
+    say("card", f"{name} SASS {kernel} LDG -> first reader: " + "; ".join(consumers))
 
 
 FLASH_SWEEP = (  # (B, S, H, Hkv, D, Dv, window), causal
@@ -632,119 +739,189 @@ def kernel_class(name: str) -> str:
     return "elementwise/reduction (env, losses, optimizer)"
 
 
-def phase_returns(torch, ref, nr, dev="cuda"):
-    """K1 against its plain version over the sweep, then timed."""
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    worst, cases = 0.0, 0
-    data = {}
-    for E in (1, 32, 33, 256, 4096):
-        for T in (1, 5, 64):
-            r = torch.randn(T, E, generator=g, device=dev)
-            d = torch.rand(T, E, generator=g, device=dev) < 0.1
-            if E >= 2:
-                d[:, 0], d[:, 1] = True, False  # all done, never done
-            b = torch.randn(E, generator=g, device=dev)
-            data[(E, T)] = (r, d, b)
-            for gamma in (0.0, 0.99, 1.0):
-                out = nr.nstep_returns_cuda(r, d, b, gamma)
-                plain = ref.nstep_returns_ref(r, d, b, gamma)
-                err = (out - plain).abs()
-                check(bool(torch.isfinite(out).all()), "K1: non-finite output")
-                check(bool((err <= RETURNS_TOL + RETURNS_TOL * plain.abs()).all()),
-                      f"K1 disagrees with its plain version at E={E} T={T} "
-                      f"gamma={gamma}: max err {err.max().item():.3g}")
-                worst = max(worst, err.max().item())
-                cases += 1
-    say("returns", f"K1 nstep_returns fp32, {cases} cases (E in 1/32/33/256/"
-        f"4096, T in 1/5/64, gamma 0/0.99/1): max_abs_err {worst:.3g} "
-        f"(atol {RETURNS_TOL} + rtol {RETURNS_TOL})")
-    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
-    row = {"max_abs_err": worst, "library_ms": None}
-    for E, T in ((32, 5), (4096, 64)):
-        r, d, b = data[(E, T)]
-        ms = time_ms(torch, lambda: nr.nstep_returns_cuda(r, d, b, 0.99), flush)
-        plain_ms = time_ms(torch, lambda: ref.nstep_returns_ref(r, d, b, 0.99),
-                           flush)
-        b_ms, b_by = bound(T * E * (4 + 1 + 4) + 4 * E, 3 * T * E, "float32")
-        say("returns", f"K1 timed (fp32 T={T} E={E}): kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {b_ms:.3g} ms ({b_by}), "
-            "library none")
-        if (E, T) == (32, 5):  # the training path's shape
-            row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       shape=f"fp32 T={T} E={E}")
+RETURNS_E = (1, 8, 31, 32, 33, 256, 4096, 4097)
+VTRACE_E = (1, 8, 31, 32, 33, 256, 4096, 4097)
+# (T, E) timed, the main path's shape first: K1 at the training path's
+# n_e = 32 and 256, K2 at the one-actor and four-actor pipelines and at
+# n_e = 256; both at T=64 E=4096 and at the TPU kernel's design point
+# T=4096 E=256 (src/repro/kernels/nstep_returns.py:9)
+K1_TIMED = ((5, 32), (5, 256), (64, 4096), (4096, 256))
+K2_TIMED = ((5, 32), (5, 8), (5, 256), (64, 4096), (4096, 256))
+
+
+def chunk_edges(mod) -> tuple:
+    """T in {1, 5, 64}, both sides of the short kernel's last T (SHORT_T,
+    SHORT_T + 1), and around the longest chunk TC: TC - 1, TC, TC + 1 and
+    2 TC + 3."""
+    tc, st = mod.launch_shape(10**6, 32)[1], mod.column_scan.SHORT_T
+    return tuple(sorted({1, 5, 64, st, st + 1, tc - 1, tc, tc + 1,
+                         2 * tc + 3}))
+
+
+def unaligned(torch, x):
+    """``x`` copied into a view that starts one element past an aligned
+    allocation: contiguous, but not 16-byte (floats) or 4-byte (bytes)
+    aligned, so the kernels take their cp.async and byte-load routes."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def timed_rows(torch, phase, name, timed, data, kernel, plain, floor, nbytes,
+               flops, shape, flush):
+    """CUDA-event times of ``kernel``, its plain version and the launch
+    floor at each (T, E) of ``timed``; the first is the main path's shape
+    and also gets the wrapper's host microseconds a call."""
+    row = {"other": []}
+    for i, (T, E) in enumerate(timed):
+        args = data[(E, T)]
+        ms = time_ms(torch, lambda: kernel(*args), flush)
+        # the plain version walks T in Python: fewer repeats at T = 4096
+        plain_ms = time_ms(torch, lambda: plain(*args), flush,
+                           iters=30 if T < 1000 else 5)
+        floor_ms = time_ms(torch, floor(T, E), flush)
+        b_ms, b_by = bound(nbytes(T, E), flops(T, E), "float32")
+        tile, chunk, blocks, smem = shape(T, E)
+        entry = {"shape": f"fp32 T={T} E={E}", "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "launch_floor_ms": floor_ms}
+        msg = (f"{name} timed (fp32 T={T} E={E}; tile {tile}, chunk {chunk}, "
+               f"{blocks} blocks, {smem} B shared): kernel {ms:.5f} ms, launch "
+               f"floor {floor_ms:.5f} ms, plain {plain_ms:.4f} ms, bound "
+               f"{b_ms:.3g} ms ({b_by}), library none")
+        if i == 0:
+            entry["host_us"] = host_us(torch, lambda: kernel(*args))
+            msg += f", host {entry['host_us']:.2f} us a call"
+            row.update(entry, bound_by=b_by)
         else:
-            row.update(large={"shape": f"fp32 T={T} E={E}", "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": b_ms})
+            row["other"].append(entry)
+        say(phase, msg)
+    return row
+
+
+def phase_returns(torch, ref, nr, dev="cuda"):
+    """K1 against its plain version over the sweep (bitwise), then timed."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    worst, n_cases = 0.0, 0
+    data = {}
+    T_SWEEP = chunk_edges(nr)
+    shapes = [(E, T) for E in RETURNS_E for T in T_SWEEP]
+    shapes += [(E, T) for T, E in K1_TIMED if (E, T) not in shapes]
+    cases = [(E, T, False) for E, T in shapes] + [
+        (256, 5, True), (256, 259, True)]  # misaligned views, E % 16 == 0
+    for E, T, view in cases:
+        r = torch.randn(T, E, generator=g, device=dev)
+        d = torch.rand(T, E, generator=g, device=dev) < 0.1
+        if E >= 2:
+            d[:, 0], d[:, 1] = True, False  # all done, never done
+        b = torch.randn(E, generator=g, device=dev)
+        if view:
+            r, d = unaligned(torch, r), unaligned(torch, d)
+        else:
+            data[(E, T)] = (r, d, b, 0.99)
+        for gamma in (0.0, 0.99, 1.0):
+            out = nr.nstep_returns_cuda(r, d, b, gamma)
+            plain = ref.nstep_returns_ref(r, d, b, gamma)
+            err = (out - plain).abs()
+            check(bool(torch.isfinite(out).all()), "K1: non-finite output")
+            check(bool((err <= RETURNS_TOL + RETURNS_TOL * plain.abs()).all()),
+                  f"K1 disagrees with its plain version at E={E} T={T} "
+                  f"gamma={gamma}: max err {err.max().item():.3g}")
+            check(err.max().item() == 0.0,
+                  f"K1 is not bitwise its plain version at E={E} T={T} "
+                  f"gamma={gamma}: max err {err.max().item():.3g}")
+            worst = max(worst, err.max().item())
+            n_cases += 1
+    say("returns", f"K1 nstep_returns fp32, {n_cases} cases (E in "
+        f"{'/'.join(map(str, RETURNS_E))}, T in {'/'.join(map(str, T_SWEEP))}"
+        f", T=4096 at E=256, misaligned views at E=256 T=5/259, gamma "
+        f"0/0.99/1): max_abs_err {worst:.3g} (atol {RETURNS_TOL} + rtol "
+        f"{RETURNS_TOL}; bitwise required)")
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
+    row = timed_rows(
+        torch, "returns", "K1", K1_TIMED, data, nr.nstep_returns_cuda,
+        ref.nstep_returns_ref,
+        lambda T, E: floor_launch(torch, nr._build, "nstep_returns",
+                                  nr.launch_shape, T, E),
+        lambda T, E: T * E * (4 + 1 + 4) + 4 * E, lambda T, E: 3 * T * E,
+        nr.launch_shape, flush)
+    row.update(max_abs_err=worst, library_ms=None)
     del flush
     return row
 
 
 def phase_vtrace(torch, ref, vt, dev="cuda"):
-    """K2 against its plain version over the sweep, then timed."""
+    """K2 against its plain version over the sweep (bitwise), then timed."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     inf = float("inf")
-    worst, cases, overflow = 0.0, 0, 0
+    worst, n_cases, overflow = 0.0, 0, 0
     data = {}
-    for E in (1, 8, 32, 33, 256, 4096):
-        for T in (1, 5, 64):
-            r = torch.randn(T, E, generator=g, device=dev)
-            d = torch.rand(T, E, generator=g, device=dev) < 0.1
-            v = torch.randn(T, E, generator=g, device=dev)
-            rho = torch.exp(0.5 * torch.randn(T, E, generator=g, device=dev))
-            if E >= 3:  # all done, never done, rho far above every clip
-                d[:, 0], d[:, 1], rho[:, 2] = True, False, 50.0
-            b = torch.randn(E, generator=g, device=dev)
-            data[(E, T)] = (r, d, v, b, rho)
-            for rho_bar, c_bar in ((1.0, 1.0), (2.0, 1.0), (1e9, 1e9),
-                                   (inf, inf)):
-                for gamma in (0.0, 0.99, 1.0):
-                    args = (r, d, v, b, rho, gamma, rho_bar, c_bar)
-                    for out, plain in zip(vt.vtrace_returns_cuda(*args),
-                                          ref.vtrace_returns_ref(*args)):
-                        # unclipped c over the rho = 50 row overflows
-                        # float32 in both versions (50^T): there the kernel
-                        # must give exactly the plain version's inf or nan
-                        fin = torch.isfinite(plain)
-                        check(bool((torch.isfinite(out) == fin).all())
-                              and bool((out[~fin].nan_to_num(0.0, 1.0, -1.0)
-                                        == plain[~fin].nan_to_num(
-                                            0.0, 1.0, -1.0)).all()),
-                              f"K2 non-finite where its plain version is not "
-                              f"(or the other way) at E={E} T={T} clips="
-                              f"({rho_bar}, {c_bar}) gamma={gamma}")
-                        overflow += int((~fin).sum())
-                        err = (out[fin] - plain[fin]).abs()
-                        check(bool((err <= RETURNS_TOL
-                                    + RETURNS_TOL * plain[fin].abs()).all()),
-                              f"K2 disagrees with its plain version at E={E} "
+    T_SWEEP = chunk_edges(vt)
+    shapes = [(E, T) for E in VTRACE_E for T in T_SWEEP]
+    shapes += [(E, T) for T, E in K2_TIMED if (E, T) not in shapes]
+    cases = [(E, T, False) for E, T in shapes] + [
+        (256, 5, True), (256, 131, True)]  # misaligned views, E % 16 == 0
+    for E, T, view in cases:
+        r = torch.randn(T, E, generator=g, device=dev)
+        d = torch.rand(T, E, generator=g, device=dev) < 0.1
+        v = torch.randn(T, E, generator=g, device=dev)
+        rho = torch.exp(0.5 * torch.randn(T, E, generator=g, device=dev))
+        if E >= 3:  # all done, never done, rho far above every clip
+            d[:, 0], d[:, 1], rho[:, 2] = True, False, 50.0
+        b = torch.randn(E, generator=g, device=dev)
+        if view:
+            r, d, v, rho = (unaligned(torch, x) for x in (r, d, v, rho))
+        else:
+            data[(E, T)] = (r, d, v, b, rho, 0.99, 1.0, 1.0)
+        for rho_bar, c_bar in ((1.0, 1.0), (2.0, 1.0), (1e9, 1e9),
+                               (inf, inf)):
+            for gamma in (0.0, 0.99, 1.0):
+                args = (r, d, v, b, rho, gamma, rho_bar, c_bar)
+                for out, plain in zip(vt.vtrace_returns_cuda(*args),
+                                      ref.vtrace_returns_ref(*args)):
+                    # unclipped c over the rho = 50 row overflows float32 in
+                    # both versions (50^T): there the kernel must give
+                    # exactly the plain version's inf or nan
+                    fin = torch.isfinite(plain)
+                    check(bool((torch.isfinite(out) == fin).all())
+                          and bool((out[~fin].nan_to_num(0.0, 1.0, -1.0)
+                                    == plain[~fin].nan_to_num(
+                                        0.0, 1.0, -1.0)).all()),
+                          f"K2 non-finite where its plain version is not "
+                          f"(or the other way) at E={E} T={T} clips="
+                          f"({rho_bar}, {c_bar}) gamma={gamma}")
+                    overflow += int((~fin).sum())
+                    err = (out[fin] - plain[fin]).abs()
+                    check(bool((err <= RETURNS_TOL
+                                + RETURNS_TOL * plain[fin].abs()).all()),
+                          f"K2 disagrees with its plain version at E={E} "
+                          f"T={T} clips=({rho_bar}, {c_bar}) gamma="
+                          f"{gamma}: max err {err.max().item():.3g}")
+                    if err.numel():
+                        check(err.max().item() == 0.0,
+                              f"K2 is not bitwise its plain version at E={E} "
                               f"T={T} clips=({rho_bar}, {c_bar}) gamma="
                               f"{gamma}: max err {err.max().item():.3g}")
-                        if err.numel():
-                            worst = max(worst, err.max().item())
-                    cases += 1
-    say("vtrace", f"K2 vtrace_returns fp32, {cases} cases (E in 1/8/32/33/"
-        "256/4096, T in 1/5/64, clips (1,1)/(2,1)/(1e9,1e9)/(inf,inf), gamma "
-        f"0/0.99/1, a row of rho=50): max_abs_err {worst:.3g} over vs and "
-        f"pg_adv (atol {RETURNS_TOL} + rtol {RETURNS_TOL}); {overflow} "
-        "entries overflow float32 in both versions (unclipped c on the "
-        "rho=50 row) and match exactly")
+                        worst = max(worst, err.max().item())
+                n_cases += 1
+    say("vtrace", f"K2 vtrace_returns fp32, {n_cases} cases (E in "
+        f"{'/'.join(map(str, VTRACE_E))}, T in "
+        f"{'/'.join(map(str, T_SWEEP))}, T=4096 at E=256, misaligned views "
+        "at E=256 T=5/131, clips (1,1)/(2,1)/(1e9,1e9)/(inf,inf), gamma "
+        "0/0.99/1, a row of rho=50): "
+        f"max_abs_err {worst:.3g} over vs and pg_adv (atol {RETURNS_TOL} + "
+        f"rtol {RETURNS_TOL}; bitwise required); {overflow} entries overflow "
+        "float32 in both versions (unclipped c on the rho=50 row) and match "
+        "exactly")
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
-    row = {"max_abs_err": worst, "library_ms": None, "other": []}
-    for E, T in ((32, 5), (8, 5), (4096, 64)):
-        args = data[(E, T)] + (0.99, 1.0, 1.0)
-        ms = time_ms(torch, lambda: vt.vtrace_returns_cuda(*args), flush)
-        plain_ms = time_ms(torch, lambda: ref.vtrace_returns_ref(*args), flush)
-        b_ms, b_by = bound(T * E * (4 + 1 + 4 + 4) + 2 * T * E * 4 + 4 * E,
-                           15 * T * E, "float32")
-        say("vtrace", f"K2 timed (fp32 T={T} E={E}): kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {b_ms:.3g} ms ({b_by}), "
-            "library none")
-        if (E, T) == (32, 5):  # the one-actor pipeline's shape
-            row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       shape=f"fp32 T={T} E={E}")
-        else:
-            row["other"].append({"shape": f"fp32 T={T} E={E}", "ms": ms,
-                                 "plain_ms": plain_ms, "bound_ms": b_ms})
+    row = timed_rows(
+        torch, "vtrace", "K2", K2_TIMED, data, vt.vtrace_returns_cuda,
+        ref.vtrace_returns_ref,
+        lambda T, E: floor_launch(torch, vt._build, "vtrace", vt.launch_shape,
+                                  T, E),
+        lambda T, E: T * E * (4 + 1 + 4 + 4) + 2 * T * E * 4 + 4 * E,
+        lambda T, E: 15 * T * E, vt.launch_shape, flush)
+    row.update(max_abs_err=worst, library_ms=None)
     del flush
     return row
 
@@ -1559,7 +1736,8 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            **{k: row[k] for k in ("shape", "large", "other") if k in row}})
+            **{k: row[k] for k in ("shape", "host_us", "launch_floor_ms",
+                                   "other") if k in row}})
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -106,6 +106,19 @@ def error_string(name: str, code: int) -> str:
     return fn(code).decode()
 
 
+def call_on(device, fn, *args):
+    """``fn(*args, stream)`` with ``stream`` the current CUDA stream of
+    ``device``, a torch device of a tensor; enters ``device`` only when it
+    is not the thread's current one, since a launch goes to the current
+    device."""
+    import torch
+
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fn(*args, torch.cuda.current_stream().cuda_stream)
+    return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``; builds all sources first
     if they are not loaded yet."""

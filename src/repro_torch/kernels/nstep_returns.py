@@ -6,7 +6,8 @@ trajectory time-major, as the rollout stores it: rewards (T, E) float32,
 dones (T, E) bool, bootstrap (E,) float32 -> returns (T, E) float32. Its
 plain version is ``ref.nstep_returns_ref``, with the same signature;
 ``ops.nstep_returns`` picks between the two by the device of the tensors
-it is given.
+it is given. The launch shape (``launch_shape``: tile of columns, chunk of
+steps) is chosen here and checked again by the C entry point.
 """
 from __future__ import annotations
 
@@ -14,7 +15,9 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, column_scan
+
+MAX_CHUNK = 128  # steps a chunk at most, csrc/nstep_returns.cu: CHUNK
 
 
 def check_inputs(rewards, dones, bootstrap) -> None:
@@ -51,11 +54,18 @@ def check_inputs(rewards, dones, bootstrap) -> None:
         raise ValueError(f"nstep_returns: {T} x {E} elements exceed int32")
 
 
+def launch_shape(T: int, E: int):
+    """``(tile, chunk, blocks, smem_bytes)`` of K1 at (T, E): one float
+    input beside the dones, chunks of at most 128 steps (at most 217,472
+    bytes of shared memory)."""
+    return column_scan.launch_shape(T, E, 1, 1, MAX_CHUNK)
+
+
 def _kernel():
     fn = _build.library("nstep_returns").nstep_returns_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-            ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -71,12 +81,11 @@ def nstep_returns_cuda(rewards, dones, bootstrap, gamma: float
         raise ValueError(f"nstep_returns_cuda: tensors are on "
                          f"{rewards.device}, not on a CUDA device")
     T, E = rewards.shape
+    tile, chunk, _, _ = launch_shape(T, E)
     out = torch.empty_like(rewards)
-    fn = _kernel()
-    with torch.cuda.device(rewards.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(rewards.data_ptr(), dones.data_ptr(), bootstrap.data_ptr(),
-                out.data_ptr(), T, E, float(gamma), stream)
+    rc = _build.call_on(rewards.device, _kernel(), rewards.data_ptr(),
+                        dones.data_ptr(), bootstrap.data_ptr(),
+                        out.data_ptr(), T, E, float(gamma), tile, chunk)
     if rc != 0:
         msg = _build.error_string("nstep_returns", rc)
         raise RuntimeError(f"nstep_returns kernel launch failed: {msg} "

@@ -7,7 +7,9 @@ float32, dones (T, E) bool, bootstrap (E,) float32 -> ``(vs, pg_adv)``,
 each (T, E) float32. Its plain version is ``ref.vtrace_returns_ref``, with
 the same signature; ``ops.vtrace_returns`` picks between the two by the
 device of the tensors it is given. The clips ``rho_bar`` and ``c_bar`` may
-be ``inf`` (no clip) or any finite value such as 1e9.
+be ``inf`` (no clip) or any finite value such as 1e9. The launch shape
+(``launch_shape``: tile of columns, chunk of steps) is chosen here and
+checked again by the C entry point.
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, column_scan
+
+MAX_CHUNK = 64  # steps a chunk at most, csrc/vtrace.cu: CHUNK
 
 
 def check_inputs(rewards, dones, values, bootstrap, rho) -> None:
@@ -57,11 +61,18 @@ def check_inputs(rewards, dones, values, bootstrap, rho) -> None:
         raise ValueError(f"vtrace_returns: {T} x {E} elements exceed int32")
 
 
+def launch_shape(T: int, E: int):
+    """``(tile, chunk, blocks, smem_bytes)`` of K2 at (T, E): three float
+    inputs beside the dones, chunks of at most 64 steps (at most 199,040
+    bytes of shared memory)."""
+    return column_scan.launch_shape(T, E, 3, 2, MAX_CHUNK)
+
+
 def _kernel():
     fn = _build.library("vtrace").vtrace_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [
-            ctypes.c_float] * 3 + [ctypes.c_void_p]
+            ctypes.c_float] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -77,15 +88,14 @@ def vtrace_returns_cuda(rewards, dones, values, bootstrap, rho, gamma: float,
         raise ValueError(f"vtrace_returns_cuda: tensors are on "
                          f"{rewards.device}, not on a CUDA device")
     T, E = rewards.shape
+    tile, chunk, _, _ = launch_shape(T, E)
     vs = torch.empty_like(rewards)
     pg_adv = torch.empty_like(rewards)
-    fn = _kernel()
-    with torch.cuda.device(rewards.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(rewards.data_ptr(), dones.data_ptr(), values.data_ptr(),
-                rho.data_ptr(), bootstrap.data_ptr(), vs.data_ptr(),
-                pg_adv.data_ptr(), T, E, float(gamma), float(rho_bar),
-                float(c_bar), stream)
+    rc = _build.call_on(rewards.device, _kernel(), rewards.data_ptr(),
+                        dones.data_ptr(), values.data_ptr(), rho.data_ptr(),
+                        bootstrap.data_ptr(), vs.data_ptr(),
+                        pg_adv.data_ptr(), T, E, float(gamma),
+                        float(rho_bar), float(c_bar), tile, chunk)
     if rc != 0:
         msg = _build.error_string("vtrace", rc)
         raise RuntimeError(f"vtrace kernel launch failed: {msg} "

@@ -11,8 +11,8 @@ none: from the repository root,
 ``PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py``.
 Tolerances: fp32 1e-4; bf16 2e-2 (absolute and relative) against the
 plain version in fp32 on the same bf16 inputs; logits 1e-4; n-step
-returns and V-trace targets 1e-5 (absolute and relative). TF32 is off for
-matmuls and convolutions.
+returns and V-trace targets bitwise (the kernels round each operation as
+the plain versions do). TF32 is off for matmuls and convolutions.
 """
 import numpy as np
 import pytest
@@ -383,9 +383,22 @@ def test_reduced_mla_and_ssm_on_the_card_match_the_cpu(cuda, arch, absorb,
     assert ops.launches[kernel] >= cfg.num_layers
 
 
+def _bitwise(got, want):
+    """Equal bit for bit where a number, NaN in the same places."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+# (E, T): the training path's n_e = 32 and 256 at t_max = 5, the TPU
+# kernel's design point T = 4096 at E = 256, the first T past the short
+# kernel's (16) and ragged tiles across a chunk edge (K1's chunk is 128
+# steps, K2's 64)
 @pytest.mark.cuda
 @pytest.mark.parametrize("gamma", [0.0, 0.99, 1.0])
-@pytest.mark.parametrize("E,T", [(1, 1), (33, 5), (256, 64), (4096, 5)])
+@pytest.mark.parametrize("E,T", [(1, 1), (33, 5), (256, 64), (4096, 5),
+                                 (32, 5), (256, 5), (256, 4096), (31, 17),
+                                 (33, 129), (4097, 259)])
 def test_nstep_kernel_matches_plain_version(cuda, E, T, gamma):
     g = torch.Generator(cuda).manual_seed(E + T)
     r = torch.randn(T, E, generator=g, device=cuda)
@@ -395,9 +408,38 @@ def test_nstep_kernel_matches_plain_version(cuda, E, T, gamma):
     b = torch.randn(E, generator=g, device=cuda)
     got = nstep_returns_cuda(r, d, b, gamma)
     want = ref.nstep_returns_ref(r, d, b, gamma)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    _bitwise(got, want)
     with pytest.raises(ValueError):  # no fallback: a bad input raises
         nstep_returns_cuda(r, d, b.requires_grad_(True), gamma)
+
+
+def _unaligned(x):
+    """``x`` in a contiguous view one element past an aligned allocation."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [5, 65, 259])
+def test_returns_kernels_take_misaligned_views_bitwise(cuda, T):
+    """Inputs that start one element past an aligned address (E = 256, so
+    only the pointer is off) take the kernels' cp.async and byte-load
+    routes; the outputs are the plain versions' bit for bit."""
+    g = torch.Generator(cuda).manual_seed(T)
+    E = 256
+    r, v = (torch.randn(T, E, generator=g, device=cuda) for _ in range(2))
+    d = torch.rand(T, E, generator=g, device=cuda) < 0.1
+    rho = torch.exp(0.5 * torch.randn(T, E, generator=g, device=cuda))
+    b = torch.randn(E, generator=g, device=cuda)
+    ur, ud, uv, urho = (_unaligned(x) for x in (r, d, v, rho))
+    assert ur.data_ptr() % 16 and ud.data_ptr() % 4
+    _bitwise(nstep_returns_cuda(ur, ud, b, 0.99),
+             ref.nstep_returns_ref(r, d, b, 0.99))
+    for x, y in zip(vtrace_returns_cuda(ur, ud, uv, b, urho, 0.99),
+                    ref.vtrace_returns_ref(r, d, v, b, rho, 0.99)):
+        _bitwise(x, y)
 
 
 def _paac_nature(device, n_envs):
@@ -448,7 +490,9 @@ def test_paac_nature_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.parametrize("rho_bar,c_bar", [(1.0, 1.0), (2.0, 1.0),
                                            (1e9, 1e9),
                                            (float("inf"), float("inf"))])
-@pytest.mark.parametrize("E,T", [(1, 1), (33, 5), (256, 64), (4096, 5)])
+@pytest.mark.parametrize("E,T", [(1, 1), (33, 5), (256, 64), (4096, 5),
+                                 (32, 5), (256, 5), (256, 4096), (31, 17),
+                                 (33, 65), (4097, 131)])
 def test_vtrace_kernel_matches_plain_version(cuda, E, T, rho_bar, c_bar,
                                              gamma):
     g = torch.Generator(cuda).manual_seed(E + T)
@@ -464,8 +508,7 @@ def test_vtrace_kernel_matches_plain_version(cuda, E, T, rho_bar, c_bar,
     for x, y in zip(got, want):
         # unclipped c on the rho = 50 row overflows float32 in both
         # versions over long T: the same inf and nan in the same places
-        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5,
-                                   equal_nan=True)
+        _bitwise(x, y)
     with pytest.raises(ValueError):  # no fallback: a bad input raises
         vtrace_returns_cuda(r, d, v.requires_grad_(True), b, rho, gamma)
 
