@@ -101,6 +101,28 @@ paths:
               busy at once) for (b), (c) and ParallelRL at n_e = 32; then
               ``paper_atari --arch paac_nature --n-envs 32 --iters 50
               --pipeline``;
+   agents   — the framework's other agents in the paper's setting
+              (paac_nature, FrameStack(AtariLike(32)), fp32, RMSProp, lr
+              0.0224, seed 0): (a) one update of DQN (a replayed batch of
+              128, a target network unlike the params), lagged PAAC in
+              "grad" and "act" mode (a replayed 5x32 trajectory, a stale
+              copy unlike the params) and PPO (16x32, 4 epochs) on the CPU
+              and on the card: the loss, the global grad norm (relative)
+              and every new parameter within 1e-4; (b) each through
+              ParallelRL: two same-seed runs of 10 iterations agree
+              bitwise (cuDNN deterministic), then 10 warm-up and 50 timed
+              iterations with every loss finite, the parameters changed,
+              K1 launched once an iteration for lagged PAAC and never for
+              DQN and PPO, K2 never; timesteps/s, DQN's replay bytes
+              (50,000 transitions) and a profiler window of 10 iterations;
+              (c) ``evaluate`` (3 seeds x 30 runs, greedy, max_steps 1,000)
+              on the training phase's parameters: best_of_k, mean,
+              per_seed and its wall time; (d) ``launch/train.py`` with
+              ``--arch paac_vector --n-envs 32 --t-max 5 --iterations 50``,
+              then with ``--pipeline`` and with ``--algo dqn``: K1 50
+              times, K2 50 times and neither, each with its timesteps/s;
+              (e) ``examples/compare_baselines_torch.py`` at 100
+              iterations, its four scores in their order;
 6. model    — reduced qwen2-7b, minicpm3-4b (absorbed and naive decode)
               and mamba2-370m in fp32, one set of weights on the CPU
               (plain versions) and on the card (kernels): prefill and
@@ -129,8 +151,8 @@ paths:
 
 TF32 is off for matmuls and convolutions throughout. The line before the
 last is a JSON object with each kernel's numbers and its launches on each
-main path (training, pipeline, and the three serving cells, each read
-with the counts set to 0 just before it); the last line is
+main path (training, pipeline, agents, train cli and the three serving
+cells, each read with the counts set to 0 just before it); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
 phase fails, it exits non-zero and prints no result. ``--trace-dir DIR``
 also writes the pipeline runs' Chrome traces (actor, ring and learner
@@ -139,6 +161,7 @@ spans) there.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import math
 import os
@@ -1043,7 +1066,8 @@ def layer_costs(torch, rl, n: int):
 def phase_training(torch, paper_atari, ops, tree, card, dev="cuda",
                    n_envs=32, warmup=10, iters=200, window=10, wide=256,
                    wide_iters=50):
-    """The paper's setting, timed; returns the launch counts of the run."""
+    """The paper's setting, timed; returns the launch counts of the run and
+    the trained ``(agent, params)``."""
     from torch.profiler import ProfilerActivity, profile
 
     rl = paper_atari.build("paac_nature", n_envs, SEED, dev)
@@ -1105,6 +1129,7 @@ def phase_training(torch, paper_atari, ops, tree, card, dev="cuda",
         "call): " + "; ".join(f"{k} {h:.3f} / {b:.3f} / {n:.0f}" for k, (h, b, n)
                               in layers.items()))
 
+    trained = (rl.agent, rl.params)
     del rl
     argv = ["--arch", "paac_nature", "--n-envs", str(n_envs), "--iters", "50",
             "--seed", str(SEED), "--device", str(dev)]
@@ -1125,7 +1150,7 @@ def phase_training(torch, paper_atari, ops, tree, card, dev="cuda",
         f"iterations after {warmup} warm-up, {wres.timesteps_per_sec:.1f} "
         f"timesteps/s, {1e3 * wide * 5 / wres.timesteps_per_sec:.2f} ms an "
         "iteration")
-    return counts
+    return counts, trained
 
 
 def _merge(intervals):
@@ -1367,6 +1392,280 @@ def phase_pipeline(torch, paper_atari, configs, ops, tree, card, dev="cuda",
         f"{cli[-1].timesteps_per_sec:.1f} timesteps/s in the second, "
         f"staleness {cli[-1].mean_metrics['staleness']:.2f}")
     return counts["vtrace_returns"]
+
+
+def _grad_norm(torch, tree, loss_fn, params) -> float:
+    """Global L2 norm of the gradient of ``loss_fn(params)[0]`` (zero for the
+    leaves the loss does not reach)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree.tree_leaves(params)]
+    with torch.enable_grad():
+        loss, _ = loss_fn(tree.tree_unflatten(params, leaves))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    return tree.tree_global_norm(list(grads)).item()
+
+
+AGENT_NAMES = ("dqn", "lagged grad", "lagged act", "ppo")
+
+
+def make_agent(A, name: str, cfg):
+    """The agents of the ``agents`` phase, each with the reference's
+    default hyperparameters (lagged PAAC: t_max 5, delay 4; DQN: t_max 5,
+    batch 128, target sync 100; PPO: t_max 16, 4 epochs)."""
+    if name == "dqn":
+        return A.DQNAgent(cfg, A.DQNConfig())
+    if name == "ppo":
+        return A.PPOAgent(cfg, A.PPOConfig())
+    return A.LaggedPAACAgent(cfg, A.LaggedConfig(), name.split()[1])
+
+
+def agents_card_vs_cpu(torch, configs, models, envs, A, replay, core, optim,
+                       tree, dev="cuda"):
+    """(a) One update of each agent on the same replayed data, on the CPU
+    and on the card."""
+    cfg = configs.get_config("paac_nature").replace(num_actions=3)
+    cpu = models.init_policy(cfg, generator=torch.Generator().manual_seed(SEED),
+                             device="cpu")
+    # the stale copy of lagged PAAC and DQN's target network
+    other = models.init_policy(
+        cfg, generator=torch.Generator().manual_seed(SEED + 2), device="cpu")
+    env = envs.FrameStack(envs.AtariLike(32, device="cpu"), 4)
+    g = torch.Generator().manual_seed(SEED)
+    state = env.reset(g)
+    collect = A.PAACAgent(cfg, A.PAACConfig(t_max=16)).make_collect_step(env)
+    _, _, traj, boot = collect(cpu, state, env.observe(state),
+                               torch.Generator().manual_seed(SEED + 1), g)
+    buf = replay.replay_init(16 * 32, env.obs_shape, device="cpu")
+    for t in range(15):
+        replay.replay_add(buf, traj.obs[t], traj.action[t], traj.reward[t],
+                          traj.obs[t + 1], traj.done[t])
+    batch = replay.replay_sample(buf, torch.Generator().manual_seed(SEED), 128)
+    rms = optim.make_optimizer("rmsprop")
+    lr = optim.constant(0.0007 * 32)
+    to = lambda d: (lambda x: tree.tree_map(lambda t: t.to(d), x))  # noqa: E731
+    Tr = type(traj)
+
+    def run(name, d):
+        mv = to(d)
+        p, o, tr = mv(cpu), mv(other), Tr(*(x.to(d) for x in traj))
+        agent = make_agent(A, name, cfg)
+        if name == "dqn":
+            bt = mv(batch)
+            new, _, _, m = agent.make_update_step(rms, lr)(
+                p, rms.init(p), {"target": o, "updates": 0}, bt, 0)
+            gn = _grad_norm(torch, tree, lambda q: A.dqn.dqn_loss(
+                q, o, bt, cfg, agent.hp.gamma), p)
+        elif name == "ppo":
+            b = boot.to(d)
+            new, _, m = agent.make_update_step(rms, lr)(p, rms.init(p), tr, b,
+                                                        0)
+            adv, ret = core.gae_advantages(tr.reward, tr.done, tr.value, b,
+                                           agent.hp.gamma, agent.hp.lam)
+            gn = _grad_norm(torch, tree, lambda q: A.ppo.ppo_loss(
+                q, cfg, agent.hp, tr, adv, ret), p)  # the first epoch's
+        else:  # t_max 5: the first five steps, bootstrapped by V(s_6)
+            short, sb = Tr(*(x[:5] for x in tr)), tr.value[5]
+            new, _, _, m = agent.make_lagged_update(rms, lr)(
+                p, rms.init(p), {"stale": o, "since": 0}, short, sb, 0)
+            _, _, grads = A.paac.loss_and_grads(
+                o if agent.mode == "grad" else p, cfg, agent.hp, short, sb)
+            gn = tree.tree_global_norm(grads).item()
+        return m["loss"].item(), gn, new
+
+    for name in AGENT_NAMES:
+        loss_c, gn_c, new_c = run(name, "cpu")
+        loss_g, gn_g, new_g = run(name, dev)
+        d_loss = abs(loss_c - loss_g)
+        d_norm = abs(gn_c - gn_g) / max(1.0, abs(gn_c))
+        d_param = max((a - b.cpu()).abs().max().item() for a, b in
+                      zip(tree.tree_leaves(new_c), tree.tree_leaves(new_g)))
+        moved = max((a - b).abs().max().item() for a, b in
+                    zip(tree.tree_leaves(new_c), tree.tree_leaves(cpu)))
+        check(d_loss <= RL_TOL, f"{name} loss: card vs CPU {d_loss:.3g}")
+        check(d_norm <= RL_TOL, f"{name} grad norm: card {gn_g} vs CPU {gn_c}")
+        check(d_param <= RL_TOL, f"{name} new parameters: card vs CPU "
+              f"{d_param:.3g}")
+        check(moved > 10 * RL_TOL, f"{name}: the update moved no parameter "
+              f"({moved:.3g})")
+        say("agents", f"(a) {name}, paac_nature full size fp32, one update "
+            + ("on a replayed batch of 128" if name == "dqn" else
+               "on a replayed 16x32 trajectory, 4 epochs" if name == "ppo"
+               else "on a replayed 5x32 trajectory, stale copy unlike the "
+               "params")
+            + f": loss {loss_c:.6f} (|d| {d_loss:.3g}), grad norm {gn_c:.6f} "
+            f"(rel d {d_norm:.3g}), new params max |d| {d_param:.3g} (largest "
+            f"step {moved:.3g}); all <= {RL_TOL}")
+
+
+def phase_agents(torch, configs, models, envs, A, replay, core, optim, tree,
+                 ops, train, card, trained, dev="cuda", n_envs=32, warmup=10,
+                 iters=50, lock_iters=10, window=10, replay_capacity=50_000,
+                 eval_steps=1_000, cli_iters=50, compare_iters=100):
+    """The framework's other agents in the paper's setting, ``evaluate`` on
+    the parameters the training phase trained, the trainer's three legs and
+    the baselines example. Returns the launch counts of the agents' timed
+    runs and of the trainer's legs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    leaves = tree.tree_leaves
+    agents_card_vs_cpu(torch, configs, models, envs, A, replay, core, optim,
+                       tree, dev)
+
+    def build(name):
+        env = envs.FrameStack(envs.AtariLike(n_envs, device=dev), 4)
+        cfg = configs.get_config("paac_nature").replace(
+            obs_shape=env.obs_shape, num_actions=env.num_actions)
+        return core.ParallelRL(env, make_agent(A, name, cfg),
+                               optimizer="rmsprop",
+                               lr_schedule=optim.constant(0.0007 * n_envs),
+                               seed=SEED, replay_capacity=replay_capacity,
+                               device=dev)
+
+    # (b) each agent through ParallelRL: one seed, one run (cuDNN
+    # deterministic for this part), then timed
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for name in AGENT_NAMES:
+            runs = []
+            for _ in range(2):
+                rl = build(name)
+                res = rl.run(lock_iters)
+                runs.append((res.mean_metrics, [t.clone() for t in
+                                                leaves(rl.params)]))
+                del rl
+            (ma, pa), (mb, pb) = runs
+            check(ma == mb, f"{name}: same-seed metrics {ma} != {mb}")
+            diff = [i for i, (x, y) in enumerate(zip(pa, pb))
+                    if not torch.equal(x, y)]
+            check(not diff, f"{name}: same-seed parameter leaves {diff} "
+                  "differ")
+            del runs, pa, pb
+    finally:
+        torch.backends.cudnn.deterministic = False
+    say("agents", f"(b) two same-seed ParallelRL runs of {lock_iters} "
+        "iterations agree bitwise (every metric and parameter) for "
+        + ", ".join(AGENT_NAMES))
+
+    path = {k: 0 for k in ops.launches}
+    for name in AGENT_NAMES:
+        rl = build(name)
+        rl.run(warmup)
+        before = [t.clone() for t in leaves(rl.params)]
+        ops.reset_launches()
+        res = rl.run(iters)
+        counts = dict(ops.launches)
+        want = {k: 0 for k in counts}
+        if name.startswith("lagged"):
+            want["nstep_returns"] = iters
+        check(counts == want, f"{name}: launches {counts}, expected {want}")
+        for k, v in counts.items():
+            path[k] += v
+        m = res.mean_metrics
+        check(all(math.isfinite(v) for v in m.values()),
+              f"{name}: non-finite metrics {m}")
+        changed = max((a - b).abs().max().item() for a, b in
+                      zip(before, leaves(rl.params)))
+        check(changed > 0, f"{name}: the parameters did not change")
+        t_max = rl.agent.hp.t_max
+        iter_ms = 1e3 * n_envs * t_max / res.timesteps_per_sec
+        extra = ""
+        if name == "dqn":
+            buf = rl.agent_state["replay"]
+            extra = (f"; replay buffer of {replay_capacity} transitions "
+                     f"({tuple(buf['obs'].shape[1:])} {buf['obs'].dtype} obs "
+                     f"and next_obs): {replay.replay_nbytes(buf)} bytes on "
+                     f"the card, {buf['size']} filled")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rl.run(window)
+            torch.cuda.synchronize()
+        busy_ms, by_name = device_window(prof, window)
+        classes = {}
+        for k, (ms, n) in by_name.items():
+            row = classes.setdefault(kernel_class(k), [0.0, 0.0])
+            row[0] += ms
+            row[1] += n
+        say("agents", f"(b) {name}: {iters} iterations of {n_envs}x{t_max} "
+            f"after {warmup} warm-up, launches K1 {counts['nstep_returns']} "
+            f"K2 {counts['vtrace_returns']}; {res.timesteps_per_sec:.1f} "
+            f"timesteps/s, {iter_ms:.2f} ms an iteration; mean loss "
+            f"{m['loss']:.4f}, reward/iter {m['reward_sum']:+.3f}; largest "
+            f"parameter change {changed:.3g}{extra}; profiler window of "
+            f"{window}: device busy {busy_ms:.3f} ms an iteration "
+            f"({100 * busy_ms / iter_ms:.1f}% of the unprofiled "
+            f"{iter_ms:.2f} ms), {sum(n for _, n in by_name.values()):.0f} "
+            "device activities an iteration; by class (ms, launches an "
+            "iteration): " + "; ".join(
+                f"{k} {ms:.3f} x{n:.0f}" for k, (ms, n) in
+                sorted(classes.items(), key=lambda kv: -kv[1][0]))
+            + f" ({card})")
+        del rl
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+
+    # (c) the paper's Table-1 protocol on the trained PAAC parameters
+    agent, params = trained
+    env = envs.FrameStack(envs.AtariLike(n_envs, device=dev), 4)
+    t0 = time.perf_counter()
+    ev = core.evaluate(agent.act_fn(), env, params,
+                       torch.Generator(device=dev).manual_seed(SEED),
+                       n_runs=30, n_actor_seeds=3, max_steps=eval_steps)
+    wall = time.perf_counter() - t0
+    check(len(ev["per_seed"]) == 3
+          and all(math.isfinite(v) for v in ev["per_seed"])
+          and ev["best_of_k"] >= ev["mean"], f"evaluate: {ev}")
+    say("agents", f"(c) evaluate, greedy, 3 seeds x 30 runs, max_steps "
+        f"{eval_steps}, on FrameStack(AtariLike({n_envs})) with the "
+        f"training phase's paac_nature parameters: best_of_k "
+        f"{ev['best_of_k']:.4f}, mean {ev['mean']:.4f}, per_seed "
+        f"{[round(v, 4) for v in ev['per_seed']]}; {wall:.2f} s ({card})")
+
+    # (d) the trainer itself: its three legs
+    base = ["--arch", "paac_vector", "--n-envs", "32", "--t-max", "5",
+            "--iterations", str(cli_iters), "--device", str(dev)]
+    legs = (("sync PAAC", [], "nstep_returns"),
+            ("--pipeline", ["--pipeline"], "vtrace_returns"),
+            ("--algo dqn", ["--algo", "dqn"], None))
+    cli = {k: 0 for k in ops.launches}
+    for label, extra, kernel in legs:
+        ops.reset_launches()
+        res = train.main(base + extra)
+        counts = dict(ops.launches)
+        want = {k: cli_iters if k == kernel else 0 for k in counts}
+        check(counts == want, f"train {label}: launches {counts}, expected "
+              f"{want}")
+        check(len(res) == 1 and res[0].steps == cli_iters * 32 * 5
+              and all(math.isfinite(v) for v in res[0].mean_metrics.values()),
+              f"train {label}: {res}")
+        for k, v in counts.items():
+            cli[k] += v
+        say("agents", f"(d) python -m repro_torch.launch.train "
+            f"{' '.join(base + extra)}: {res[0].steps} steps, launches K1 "
+            f"{counts['nstep_returns']} K2 {counts['vtrace_returns']}, "
+            f"{res[0].timesteps_per_sec:.1f} timesteps/s (first run included),"
+            f" reward/iter {res[0].mean_metrics['reward_sum']:+.3f} ({card})")
+
+    # (e) the paper's stability argument, the order reported
+    spec = importlib.util.spec_from_file_location(
+        "compare_baselines_torch",
+        Path(__file__).resolve().parent / "examples"
+        / "compare_baselines_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    t0 = time.perf_counter()
+    scores = example.run(iters=compare_iters, device=dev)
+    check(len(scores) == 4 and all(math.isfinite(v) for v in scores.values()),
+          f"compare_baselines_torch: {scores}")
+    say("agents", f"(e) examples/compare_baselines_torch.py at "
+        f"{compare_iters} iterations on Catch(32), reward an iteration over "
+        "40 more (best first): " + ", ".join(
+            f"{k} {v:+.3f}" for k, v in
+            sorted(scores.items(), key=lambda kv: -kv[1]))
+        + f"; {time.perf_counter() - t0:.1f} s")
+    return ({k: v for k, v in path.items() if v},
+            {k: v for k, v in cli.items() if v})
 
 
 MODEL_CASES = (  # (arch, config changes, prompt length, prefill, decode kernel)
@@ -1689,8 +1988,9 @@ def main(argv=None) -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch import configs, envs, models, optim, serving
-    from repro_torch.core.agents import paac
+    from repro_torch import configs, core, envs, models, optim, serving
+    from repro_torch.core import agents
+    from repro_torch.core.agents import paac, replay
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -1698,7 +1998,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import nstep_returns as nr
     from repro_torch.kernels import ssd_scan as sk
     from repro_torch.kernels import vtrace as vt
-    from repro_torch.launch import paper_atari, serve
+    from repro_torch.launch import paper_atari, serve, train
     from repro_torch.utils import tree
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1712,13 +2012,19 @@ def main(argv=None) -> int:
     phase_rl_model(torch, configs, models, envs, paac, optim, tree)
     # launches of each kernel on each main path, every path driven with the
     # counts set to 0 just before it and read just after
-    by_path = {"training": phase_training(torch, paper_atari, ops, tree,
-                                          card)}
+    by_path = {}
+    by_path["training"], trained = phase_training(torch, paper_atari, ops,
+                                                  tree, card)
     if args.trace_dir:
         os.makedirs(args.trace_dir, exist_ok=True)
     by_path["pipeline"] = {"vtrace_returns": phase_pipeline(
         torch, paper_atari, configs, ops, tree, card,
         trace_dir=args.trace_dir or None)}
+    by_path["agents"], by_path["train cli"] = phase_agents(
+        torch, configs, models, envs, agents, replay, core, optim, tree, ops,
+        train, card, trained)
+    del trained
+    torch.cuda.empty_cache()
     phase_model(torch, np, configs, models, ops, tree)
     for cell in SERVING_CELLS:
         by_path[f"{cell['arch']} serving"] = phase_serving(

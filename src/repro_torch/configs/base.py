@@ -195,7 +195,7 @@ class PipelineConfig:
     them with ``NotImplementedError`` naming the ROADMAP item that ports
     them: the host plane (Queue 1 item 8), the mesh plane (item 14), the
     process backend, the replay plane, elastic recovery, fault plans and
-    checkpoints (items 9 and 10), the heartbeat and the stall watchdog
+    checkpoints (item 10), the heartbeat and the stall watchdog
     (item 13). ``trace_path`` writes a Chrome trace of the run's spans.
     """
 

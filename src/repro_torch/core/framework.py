@@ -6,9 +6,12 @@ train step per iteration and runs the outer ``until N >= N_max`` loop
 Fig. 2/4 metric) and episode returns. It runs on the card unless its
 caller passes ``device="cpu"``; the env must live on the same device.
 
-The reference's second regime, external ``HostEnvPool`` envs stepped by
-host threads, and its other agents (DQN, the lagged baselines) wait for
-later slices (ROADMAP Queue 1 items 8 and 9).
+It is algorithm agnostic (paper §3): any ``Agent`` supplies the train
+step. ``DQNAgent`` and ``LaggedPAACAgent`` also carry state between steps
+(the replay buffer and target network; the stale parameter copy), which
+the framework creates and threads through; ``PAACAgent`` and ``PPOAgent``
+carry none. The reference's second regime, external ``HostEnvPool`` envs
+stepped by host threads, waits for a later slice (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from repro_torch.core.agents.base import Agent
-from repro_torch.core.agents.paac import PAACAgent
+from repro_torch.core.agents.baselines import LaggedPAACAgent
+from repro_torch.core.agents.dqn import DQNAgent
+from repro_torch.core.agents.replay import replay_nbytes
 from repro_torch.device import resolve_device
 from repro_torch.envs.base import VectorEnv
 from repro_torch.models import init_policy
@@ -163,6 +168,7 @@ class ParallelRL:
         optimizer: str = "rmsprop",
         lr_schedule: Optional[Callable] = None,
         seed: int = 0,
+        replay_capacity: int = 50_000,
         device="cuda",
     ):
         dev = resolve_device(device)
@@ -171,12 +177,6 @@ class ParallelRL:
                 f"ParallelRL drives batched tensor envs (VectorEnv); "
                 f"{type(env).__name__} is not one. External host env pools "
                 "(HostEnvPool) are ROADMAP Queue 1 item 8")
-        # exact type: other agents need their own update step
-        if type(agent) is not PAACAgent:
-            raise NotImplementedError(
-                f"ParallelRL drives PAACAgent; {type(agent).__name__} is not "
-                "ported (DQNAgent, LaggedPAACAgent and PPOAgent are ROADMAP "
-                "Queue 1 item 9)")
         if env.device.type != dev.type:
             raise ValueError(f"env lives on {env.device}, ParallelRL runs on "
                              f"{dev}")
@@ -186,9 +186,21 @@ class ParallelRL:
         (self.optimizer, self.lr_schedule, self.act_generator,
          self.env_generator, self.params, self.opt_state) = init_rl_common(
              env, agent, optimizer, lr_schedule, seed, dev)
-        self.agent_state = None  # PAAC keeps no lagged/duplicate params
         self.env_state = env.reset(self.env_generator)
         self.obs = env.observe(self.env_state)
+        self._has_agent_state = isinstance(agent, (DQNAgent, LaggedPAACAgent))
+        if isinstance(agent, DQNAgent):
+            self.agent_state = agent.init_state(
+                replay_capacity, env.obs_shape, self.params, self.obs.dtype,
+                device=dev)
+            log.info("DQN replay buffer: %d transitions of %s %s, %d bytes "
+                     "on %s", replay_capacity, tuple(env.obs_shape),
+                     self.obs.dtype, replay_nbytes(self.agent_state["replay"]),
+                     dev)
+        elif isinstance(agent, LaggedPAACAgent):
+            self.agent_state = agent.init_state(self.params)
+        else:
+            self.agent_state = None
         self._train_step = agent.make_train_step(env, self.optimizer,
                                                  self.lr_schedule)
         self.total_steps = 0
@@ -201,10 +213,17 @@ class ParallelRL:
         # repro.core.framework.ParallelRL.run
         step = self.total_steps
         for i in range(iterations):
-            (self.params, self.opt_state, self.env_state, self.obs,
-             metrics) = self._train_step(
-                 self.params, self.opt_state, self.env_state, self.obs,
-                 self.act_generator, self.env_generator, step)
+            if self._has_agent_state:
+                (self.params, self.opt_state, self.agent_state,
+                 self.env_state, self.obs, metrics) = self._train_step(
+                     self.params, self.opt_state, self.agent_state,
+                     self.env_state, self.obs, self.act_generator,
+                     self.env_generator, step)
+            else:
+                (self.params, self.opt_state, self.env_state, self.obs,
+                 metrics) = self._train_step(
+                     self.params, self.opt_state, self.env_state, self.obs,
+                     self.act_generator, self.env_generator, step)
             self.total_steps += self._steps_per_iter
             step += 1
             acc.update(metrics)

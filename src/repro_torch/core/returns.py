@@ -17,7 +17,10 @@ with truncated-importance corrections folded into the recursion. It runs
 through ``kernels.ops.vtrace_returns``: K2 on the card, the plain version
 on the CPU; time-major as well.
 
-GAE waits for a later slice (ROADMAP Queue 1 item 5).
+``gae_advantages`` is generalized advantage estimation (Schulman et al.
+2016), which PPO uses. The reference computes it with a ``lax.scan`` and
+no Pallas kernel, so the port computes it in plain PyTorch, a reverse loop
+over T of batched operations over all actors.
 """
 from __future__ import annotations
 
@@ -65,3 +68,28 @@ def vtrace_returns(rewards: torch.Tensor,  # (T, E)
                               bootstrap.to(torch.float32).contiguous(),
                               rho.to(torch.float32).contiguous(), gamma,
                               rho_bar, c_bar)
+
+
+def gae_advantages(rewards: torch.Tensor,  # (T, E)
+                   dones: torch.Tensor,  # (T, E) bool
+                   values: torch.Tensor,  # (T, E)
+                   bootstrap: torch.Tensor,  # (E,) — V(s_{T+1})
+                   gamma: float,
+                   lam: float = 0.95) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generalized advantage estimation, time-major. Returns ``(advantages,
+    returns)``, each (T, E) float32, with returns = advantages + values:
+
+        δ_t = r_t + γ·(1-done_t)·V(s_{t+1}) - V(s_t)
+        A_t = δ_t + γ·λ·(1-done_t)·A_{t+1},   A_{T+1} = 0
+    """
+    rewards = rewards.to(torch.float32)
+    values = values.to(torch.float32)
+    not_done = 1.0 - dones.to(torch.float32)
+    next_values = torch.cat([values[1:], bootstrap.to(torch.float32)[None]])
+    deltas = rewards + gamma * not_done * next_values - values
+    adv = torch.empty_like(deltas)
+    carry = torch.zeros_like(deltas[0])
+    for t in range(deltas.shape[0] - 1, -1, -1):
+        carry = deltas[t] + gamma * lam * not_done[t] * carry
+        adv[t] = carry
+    return adv, adv + values

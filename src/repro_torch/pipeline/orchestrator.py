@@ -31,10 +31,13 @@ act and env generators (the same seeded layout), so in ``lockstep`` mode
 with infinite clips the pipeline reproduces the synchronous run bit for
 bit. With more, each replica gets its own pair from ``seeded_generators``.
 
-The reference's host plane (ROADMAP Queue 1 item 8), mesh plane (item
-14), process backend, replay plane, supervisor, faults and checkpoints
-(items 9 and 10), heartbeat and watchdog (item 13) are refused with
-``NotImplementedError``.
+It drives plain ``PAACAgent``, as the reference does on its FIFO planes;
+the reference's other agents are refused as it refuses them, and
+``DQNAgent``, which the reference runs on its replay plane, is refused
+naming that plane's item. The reference's host plane (ROADMAP Queue 1 item
+8), mesh plane (item 14), process backend, replay plane, supervisor,
+faults and checkpoints (item 10), heartbeat and watchdog (item 13) are
+refused with ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import PipelineConfig
+from repro_torch.core.agents.dqn import DQNAgent
 from repro_torch.core.agents.paac import PAACAgent
 from repro_torch.core.framework import (MetricsAccumulator, RunResult,
                                         init_rl_common)
@@ -74,7 +78,7 @@ def _refuse_unported(cfg: PipelineConfig) -> None:
          "(rollout_plane='mesh', mesh_shape > 1) is ROADMAP Queue 1 item 14"),
         (cfg.actor_backend == "process", "actor_backend='process' is ROADMAP "
          "Queue 1 item 10"),
-        (cfg.replay_plane, "replay_plane is ROADMAP Queue 1 items 9 and 10"),
+        (cfg.replay_plane, "replay_plane is ROADMAP Queue 1 item 10"),
         (cfg.elastic, "elastic recovery is ROADMAP Queue 1 item 10"),
         (cfg.fault_plan is not None, "fault_plan is ROADMAP Queue 1 item 10"),
         (bool(cfg.checkpoint_dir), "checkpoint_dir is ROADMAP Queue 1 item "
@@ -97,6 +101,24 @@ class PipelinedRL:
                  pipeline: PipelineConfig = PipelineConfig(),
                  device="cuda"):
         dev = resolve_device(device)
+        # exact types, as in the reference: subclasses (LaggedPAACAgent) and
+        # look-alikes (PPOAgent) carry their own loss/state that the learner
+        # step would silently drop; DQNAgent rides only the replay plane
+        if type(agent) is DQNAgent:
+            if not pipeline.replay_plane:
+                raise ValueError(
+                    "DQNAgent needs the replay plane: pass PipelineConfig("
+                    "replay_plane=True) — the FIFO planes feed the on-policy "
+                    "V-trace learner")
+            raise NotImplementedError(
+                "PipelinedRL of the port: DQNAgent rides the replay plane, "
+                "which is ROADMAP Queue 1 item 10")
+        if type(agent) is not PAACAgent:
+            raise NotImplementedError(
+                f"PipelinedRL drives plain PAACAgent (got "
+                f"{type(agent).__name__}) on the FIFO planes, plus DQNAgent "
+                "on the replay plane; other agents carry losses the learner "
+                "steps would silently drop")
         _refuse_unported(pipeline)
         if pipeline.actor_backend != "thread":
             raise ValueError("actor_backend must be 'thread' or 'process', "
@@ -104,12 +126,6 @@ class PipelinedRL:
         if pipeline.rollout_plane not in ("auto", "device"):
             raise ValueError("rollout_plane must be 'auto', 'device', 'host' "
                              f"or 'mesh', got {pipeline.rollout_plane!r}")
-        # exact type: other agents carry losses the learner step would drop
-        if type(agent) is not PAACAgent:
-            raise NotImplementedError(
-                f"PipelinedRL drives plain PAACAgent (got "
-                f"{type(agent).__name__}); DQNAgent and the other agents are "
-                "ROADMAP Queue 1 item 9")
         n_actors = pipeline.num_actors
         if n_actors < 1:
             raise ValueError(f"num_actors must be >= 1, got {n_actors}")

@@ -3,7 +3,9 @@ the reduced qwen2, minicpm3-4b and mamba2-370m and the full-size
 ``paac_nature`` on the card against the same weights on the CPU, one
 training iteration through K1, and the pipeline: five async updates
 through K2, and lockstep with infinite clips bitwise equal to
-``ParallelRL`` through K1.
+``ParallelRL`` through K1; the other agents (DQN, lagged PAAC in both
+modes, PPO) each with one update on the card against the CPU, and the
+trainer's three legs with their K1 and K2 launches.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one. This file imports no JAX, so it also runs on a machine that has
@@ -557,3 +559,92 @@ def test_lockstep_infinite_clips_on_the_card_is_parallel_rl_bitwise(
         assert res.mean_metrics[k] == sync.mean_metrics[k], k
     for a, b in zip(tree_leaves(rl.params), tree_leaves(prl.params)):
         assert torch.equal(a, b)
+
+
+def _replayed():
+    """paac_nature params, a second set (stale copy / target network), an
+    8-env trajectory of 8 steps and a replayed batch of 32 on the CPU."""
+    from repro_torch.core.agents import replay
+    from repro_torch.models import init_policy
+
+    env, agent = _paac_nature("cpu", 8)
+    cfg = agent.cfg
+    params = init_policy(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    other = init_policy(cfg, generator=torch.Generator().manual_seed(2),
+                        device="cpu")
+    g = torch.Generator().manual_seed(0)
+    state = env.reset(g)
+    collect = type(agent)(cfg, agent.hp._replace(t_max=8)).make_collect_step(
+        env)
+    _, _, traj, boot = collect(params, state, env.observe(state),
+                               torch.Generator().manual_seed(1), g)
+    buf = replay.replay_init(64, env.obs_shape, device="cpu")
+    for t in range(7):
+        replay.replay_add(buf, traj.obs[t], traj.action[t], traj.reward[t],
+                          traj.obs[t + 1], traj.done[t])
+    batch = replay.replay_sample(buf, torch.Generator().manual_seed(0), 32)
+    return cfg, params, other, traj, boot, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dqn", "lagged grad", "lagged act", "ppo"])
+def test_other_agents_update_on_the_card_matches_the_cpu(cuda, name):
+    from repro_torch.core.agents import (DQNAgent, DQNConfig, LaggedConfig,
+                                         LaggedPAACAgent, PPOAgent,
+                                         PPOConfig)
+    from repro_torch.optim import constant, make_optimizer
+
+    cfg, params, other, traj, boot, batch = _replayed()
+    opt, lr = make_optimizer("rmsprop"), constant(0.0056)
+
+    def run(dev):
+        to = lambda t: tree_map(lambda x: x.to(dev), t)  # noqa: E731
+        p, o = to(params), to(other)
+        tr, b = type(traj)(*(x.to(dev) for x in traj)), boot.to(dev)
+        if name == "dqn":
+            agent = DQNAgent(cfg, DQNConfig(batch_size=32))
+            new, _, _, m = agent.make_update_step(opt, lr)(
+                p, opt.init(p), {"target": o, "updates": 0}, to(batch), 0)
+        elif name == "ppo":
+            agent = PPOAgent(cfg, PPOConfig(t_max=8, epochs=4))
+            new, _, m = agent.make_update_step(opt, lr)(p, opt.init(p), tr, b,
+                                                        0)
+        else:
+            agent = LaggedPAACAgent(cfg, LaggedConfig(t_max=8, delay=4),
+                                    name.split()[1])
+            new, _, _, m = agent.make_lagged_update(opt, lr)(
+                p, opt.init(p), {"stale": o, "since": 0}, tr, b, 0)
+        return m, new
+
+    m_c, new_c = run("cpu")
+    ops.reset_launches()
+    m_g, new_g = run(cuda)
+    want_k1 = 1 if name.startswith("lagged") else 0
+    assert ops.launches["nstep_returns"] == want_k1
+    assert ops.launches["vtrace_returns"] == 0
+    assert all(t.is_cuda for t in tree_leaves(new_g))
+    torch.testing.assert_close(m_g["loss"].cpu(), m_c["loss"], rtol=1e-4,
+                               atol=1e-4)
+    for a, b in zip(tree_leaves(new_c), tree_leaves(new_g)):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg,kernel", [([], "nstep_returns"),
+                                        (["--pipeline"], "vtrace_returns"),
+                                        (["--algo", "dqn"], None)],
+                         ids=["paac", "pipeline", "dqn"])
+def test_the_trainers_legs_on_the_card_launch_their_kernels(cuda, leg,
+                                                             kernel):
+    import math
+
+    from repro_torch.launch import train
+
+    ops.reset_launches()
+    (res,) = train.main(["--n-envs", "32", "--t-max", "5", "--iterations",
+                         "6"] + leg)
+    want = {k: 6 if k == kernel else 0 for k in ops.launches}
+    assert dict(ops.launches) == want
+    assert res.steps == 6 * 32 * 5
+    assert all(math.isfinite(v) for v in res.mean_metrics.values())

@@ -556,7 +556,7 @@ def test_trace_shows_actor_ring_and_learner_tracks(tmp_path):
     (dict(rollout_plane="mesh"), "item 14"),
     (dict(mesh_shape=2), "item 14"),
     (dict(actor_backend="process"), "item 10"),
-    (dict(replay_plane=True), "items 9 and 10"),
+    (dict(replay_plane=True), "item 10"),
     (dict(elastic=True), "item 10"),
     (dict(fault_plan=object()), "item 10"),
     (dict(checkpoint_dir="ckpt"), "item 10"),
@@ -580,8 +580,21 @@ def test_pipeline_config_validates_as_the_reference():
     class OtherAgent(PAACAgent):
         pass
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PipelinedRL(_grid(), OtherAgent(_grid_agent().cfg), device="cpu")
+    # the reference's agent checks: plain PAACAgent on the FIFO planes;
+    # DQNAgent only on the replay plane, which is item 10
+    from repro_torch.core.agents import (DQNAgent, LaggedPAACAgent,
+                                         PPOAgent)
+
+    cfg = _grid_agent().cfg
+    for other in (OtherAgent(cfg), LaggedPAACAgent(cfg), PPOAgent(cfg)):
+        with pytest.raises(NotImplementedError, match="drives plain "
+                           "PAACAgent"):
+            PipelinedRL(_grid(), other, device="cpu")
+    with pytest.raises(ValueError, match="needs the replay plane"):
+        PipelinedRL(_grid(), DQNAgent(cfg), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        PipelinedRL(_grid(), DQNAgent(cfg), device="cpu",
+                    pipeline=PipelineConfig(replay_plane=True))
 
 
 def test_entry_points_raise_without_a_card_unless_the_cpu_is_asked_for():

@@ -592,14 +592,25 @@ def test_entry_points_raise_without_a_card_unless_the_cpu_is_asked_for():
 
 
 def test_parallel_rl_refuses_what_it_does_not_drive():
+    """ParallelRL is algorithm agnostic: it drives DQN, lagged PAAC and PPO
+    (and any agent with a train step), with the state each carries; only
+    envs that are not batched tensor envs are refused, naming item 8."""
+    from repro_torch.core.agents import (DQNAgent, LaggedPAACAgent,
+                                         PPOAgent)
+
     env = GridWorld(4, device="cpu")
     cfg = _vector_cfg(env)
 
     class OtherAgent(PAACAgent):
         pass
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ParallelRL(env, OtherAgent(cfg), device="cpu")
+    for agent, state in ((OtherAgent(cfg), None), (PPOAgent(cfg), None),
+                         (LaggedPAACAgent(cfg), {"stale", "since"}),
+                         (DQNAgent(cfg), {"replay", "target", "updates"})):
+        rl = ParallelRL(env, agent, replay_capacity=64, device="cpu")
+        assert (rl.agent_state if state is None
+                else set(rl.agent_state)) == state
+        assert rl.run(1).steps == 4 * agent.hp.t_max
     with pytest.raises(NotImplementedError, match="item 8"):
         ParallelRL(object(), PAACAgent(cfg), device="cpu")
 

@@ -2,13 +2,14 @@
 
 * ``repro_torch`` (every module) and ``chip_smoke`` import in a fresh
   interpreter where ``jax`` and ``repro`` cannot be imported;
-* no module under ``src/repro_torch`` and not ``chip_smoke.py`` names
-  ``jax`` or ``repro`` in an import (AST scan);
+* no module under ``src/repro_torch``, not ``chip_smoke.py`` and no
+  ``examples/*_torch.py`` names ``jax`` or ``repro`` in an import (AST
+  scan);
 * every kernel source carries its note and C entry point, is built, the
   build goes to an ignored directory, and ``chip_smoke.py`` refuses to run
   without a CUDA device, printing no result;
-* the training, pipeline, MLA and SSM slices' modules are among those
-  the pins above cover.
+* the training, pipeline, MLA, SSM and agents slices' modules are among
+  those the pins above cover.
 """
 import ast
 import os
@@ -22,7 +23,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _modules():
@@ -113,7 +115,9 @@ def test_every_source_is_built_and_the_training_slice_is_pinned():
               "pipeline.actor", "pipeline.ring", "pipeline.learner",
               "pipeline.orchestrator", "kernels.mla_decode",
               "kernels.ssd_scan", "models.ssm", "configs.minicpm3_4b",
-              "configs.mamba2_370m"):
+              "configs.mamba2_370m", "core.agents.dqn", "core.agents.replay",
+              "core.agents.baselines", "core.agents.ppo", "core.evaluation",
+              "envs.token_env", "envs.cartpole", "launch.train"):
         assert f"repro_torch.{m}" in mods, m
 
 
