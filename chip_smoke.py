@@ -123,6 +123,31 @@ paths:
               times, K2 50 times and neither, each with its timesteps/s;
               (e) ``examples/compare_baselines_torch.py`` at 100
               iterations, its four scores in their order;
+   host     — the paper's host env plane: a ``HostEnvPool`` of 32
+              stand-in emulators (``FrameEnv``: 84x84x4 fp32 frames from
+              numpy, 6 actions, ``delay`` s of GIL-free sleep a step) over
+              8 worker threads, paac_nature fp32, RMSProp lr 0.0224, t_max
+              5: (a) sync ``ParallelRL`` at delay 0, then at the update's
+              time over (5 steps x 4 envs a worker) rounded up to 0.1 ms:
+              10 warm-up and 100 timed iterations each, K1 once an
+              iteration and K2 never, timesteps/s, the collect/update
+              split, the update alone, a profiler window (busy share, H2D
+              copies); (b) with cuDNN deterministic: two same-seed sync
+              runs, lockstep ``PipelinedRL`` (depth 1, inf clips) on the
+              same pool recipe and the forced host plane on
+              FrameStack(AtariLike(32)) against ``ParallelRL``, bitwise;
+              (c) ``PipelinedRL`` on the pool, clips 1, one actor at depth
+              2 and four actors on its shards at depth 4, at both delays:
+              100 timed updates, K2 once each and K1 never, every
+              (actor_id, seq) learned once, staleness within the bound,
+              idle shares, spans and busy share; (d) the GIL: one step of
+              32 ``PyBoundEnv``s (spin 2000) on 8 workers and on 1, then
+              ``launch/train.py --host-env`` sync (K1 50), ``--pipeline``
+              (K2 50) and ``--pipeline --metrics-jsonl F --stall-timeout
+              30`` (the heartbeat's lines carry the reference's keys); (e)
+              ``HostEnvPool.step()`` tensors on the card unchanged by the
+              next step, and staging sets overwritten with NaN when
+              released change no lockstep update (bitwise);
 6. model    — reduced qwen2-7b, minicpm3-4b (absorbed and naive decode)
               and mamba2-370m in fp32, one set of weights on the CPU
               (plain versions) and on the card (kernels): prefill and
@@ -151,8 +176,9 @@ paths:
 
 TF32 is off for matmuls and convolutions throughout. The line before the
 last is a JSON object with each kernel's numbers and its launches on each
-main path (training, pipeline, agents, train cli and the three serving
-cells, each read with the counts set to 0 just before it); the last line is
+main path (training, pipeline, agents, train cli, host sync, host
+pipeline, host train cli and the three serving cells, each read with the
+counts set to 0 just before it); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
 phase fails, it exits non-zero and prints no result. ``--trace-dir DIR``
 also writes the pipeline runs' Chrome traces (actor, ring and learner
@@ -167,6 +193,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1153,6 +1180,22 @@ def phase_training(torch, paper_atari, ops, tree, card, dev="cuda",
     return counts, trained
 
 
+SHARED_METRICS = ("loss", "policy_loss", "value_loss", "entropy",
+                  "reward_sum", "episodes")
+
+
+def check_bitwise(torch, tree, ra, a, rb, b, what: str) -> None:
+    """Two runs' shared mean metrics and every parameter leaf are equal."""
+    for k in SHARED_METRICS:
+        check(ra.mean_metrics[k] == rb.mean_metrics[k],
+              f"{what}: mean {k} {ra.mean_metrics[k]!r} != "
+              f"{rb.mean_metrics[k]!r}")
+    diff = [i for i, (x, y) in enumerate(zip(tree.tree_leaves(a.params),
+                                             tree.tree_leaves(b.params)))
+            if not torch.equal(x, y)]
+    check(not diff, f"{what}: parameter leaves {diff} differ")
+
+
 def _merge(intervals):
     """Sorted, merged copies of ``(start, end)`` intervals."""
     out = []
@@ -1215,7 +1258,7 @@ def span_means(hub) -> str:
     sums = {}
     for _, _, em in hub.tracks():
         who = "actors" if em.name.startswith("actor") else em.name
-        if who == "ring":
+        if who in ("ring", "queue"):  # the parties' own waits, again
             continue
         for cat, t0, t1 in em.snapshot():
             row = sums.setdefault((who, CATEGORIES[cat]), [0.0, 0])
@@ -1236,18 +1279,9 @@ def phase_pipeline(torch, paper_atari, configs, ops, tree, card, dev="cuda",
     PipelineConfig = configs.PipelineConfig
     leaves = tree.tree_leaves
     inf = float("inf")
-    shared = ("loss", "policy_loss", "value_loss", "entropy", "reward_sum",
-              "episodes")
 
     def bitwise(ra, a, rb, b, what):
-        for k in shared:
-            check(ra.mean_metrics[k] == rb.mean_metrics[k],
-                  f"{what}: mean {k} {ra.mean_metrics[k]!r} != "
-                  f"{rb.mean_metrics[k]!r}")
-        diff = [i for i, (x, y) in enumerate(zip(leaves(a.params),
-                                                 leaves(b.params)))
-                if not torch.equal(x, y)]
-        check(not diff, f"{what}: parameter leaves {diff} differ")
+        check_bitwise(torch, tree, ra, a, rb, b, what)
 
     # (a) lockstep, infinite clips: the synchronous update, bit for bit
     torch.backends.cudnn.deterministic = True
@@ -1927,6 +1961,447 @@ def profile_prefill(torch, np, serving, cfg, params, slots, max_len,
     return wall_ms, busy_ms, by_name
 
 
+class FrameEnv:
+    """A stand-in for one ALE emulator behind ``HostEnvPool``: 84x84x4 fp32
+    frames made with numpy from the env's own ``RandomState``, reward 1
+    when action == state mod 3 and an episode every 10 steps (the rule of
+    ``benchmarks/fig2_time_split.py``'s external env), 6 actions; each step
+    costs ``delay`` seconds of ``time.sleep``, which releases the GIL as
+    an emulator's native step does."""
+
+    SHAPE = (84, 84, 4)
+
+    def __init__(self, seed: int, delay: float):
+        import numpy as np
+
+        self.rng = np.random.RandomState(seed)
+        self.delay = delay
+        self.state = 0
+
+    def _obs(self):
+        return self.rng.random_sample(self.SHAPE).astype("float32")
+
+    def reset(self):
+        self.state = int(self.rng.randint(0, 100))
+        return self._obs()
+
+    def step(self, action):
+        if self.delay:
+            time.sleep(self.delay)
+        reward = 1.0 if int(action) == self.state % 3 else 0.0
+        self.state += 1
+        return self._obs(), reward, self.state % 10 == 0, {}
+
+
+# the keys of a heartbeat line of repro/telemetry/hub.py, with the
+# pipeline's two gauges
+HEARTBEAT_KEYS = {"time_unix", "uptime_s", "steps", "steps_per_s_ema",
+                  "span_drops", "actor_last_activity_s", "counters",
+                  "queue_depth", "staleness"}
+
+
+def phase_host(torch, np, configs, core, envs, A, optim, pipeline,
+               paper_atari, ops, tree, train, card, dev="cuda", n_envs=32,
+               n_workers=8, warmup=10, iters=100, lock_iters=10, window=10,
+               cli_iters=50, env_spin=2000):
+    """The paper's host env plane: ``ParallelRL`` and ``PipelinedRL`` on a
+    ``HostEnvPool`` of ``n_envs`` stand-in emulators over ``n_workers``
+    threads, paac_nature at full size in fp32; the bitwise pins; the
+    trainer's ``--host-env`` legs; the aliasing checks. Returns the launch
+    counts of the timed sync runs, of the timed pipelined runs and of the
+    trainer's legs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.pipeline.actor import to_device
+
+    t_phase = time.perf_counter()
+    leaves = tree.tree_leaves
+    inf = float("inf")
+    t_max = 5
+    lr = 0.0007 * n_envs
+    frame_bytes = n_envs * int(np.prod(FrameEnv.SHAPE)) * 4
+    cfg = configs.get_config("paac_nature").replace(
+        obs_shape=FrameEnv.SHAPE, num_actions=6)
+
+    def pool(delay):
+        return envs.HostEnvPool([lambda s=i: FrameEnv(s, delay)
+                                 for i in range(n_envs)],
+                                n_workers=n_workers,
+                                obs_shape=FrameEnv.SHAPE, device=dev)
+
+    def agent():
+        return A.PAACAgent(cfg, A.PAACConfig(gamma=0.99, entropy_beta=0.01,
+                                             t_max=t_max))
+
+    kw = dict(optimizer="rmsprop", lr_schedule=optim.constant(lr), seed=SEED,
+              device=dev)
+
+    def sync(p):
+        return core.ParallelRL(p, agent(), **kw)
+
+    def piped(p, **cfg_kw):
+        return pipeline.PipelinedRL(p, agent(),
+                                    pipeline=configs.PipelineConfig(**cfg_kw),
+                                    **kw)
+
+    def run_checked(label, rl, n, want):
+        """``rl.run(n)`` with the counts set to 0 just before it: the
+        launches must be ``want``, the metrics finite, the parameters
+        changed."""
+        before = [t.clone() for t in leaves(rl.params)]
+        ops.reset_launches()
+        res = rl.run(n)
+        counts = dict(ops.launches)
+        expect = {k: want.get(k, 0) for k in counts}
+        check(counts == expect, f"{label}: launches {counts}, expected "
+              f"{expect}")
+        check(all(math.isfinite(v) for v in res.mean_metrics.values()),
+              f"{label}: non-finite metrics {res.mean_metrics}")
+        changed = max((a - b).abs().max().item() for a, b in
+                      zip(before, leaves(rl.params)))
+        check(changed > 0, f"{label}: the parameters did not change")
+        return res, counts
+
+    def busy_window(rl):
+        """(device-busy ms, H2D ms, H2D copies, device activities), each an
+        iteration, of a profiler window."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rl.run(window)
+            torch.cuda.synchronize()
+        busy_ms, by_name = device_window(prof, window)
+        h2d = [row for name, row in by_name.items() if "HtoD" in name]
+        return (busy_ms, sum(r[0] for r in h2d), sum(r[1] for r in h2d),
+                sum(r[1] for r in by_name.values()))
+
+    with pool(0.0) as p:
+        n_params = sum(t.numel() for t in leaves(sync(p).params))
+    say("host", f"paac_nature ({n_params / 1e6:.2f} M parameters, fp32) on "
+        f"a HostEnvPool of {n_envs} stand-in emulators (84x84x4 fp32 "
+        f"frames, 6 actions) over {n_workers} worker threads, t_max "
+        f"{t_max}, RMSProp lr {lr:g}; page-locked H2D {frame_bytes} B an "
+        f"acting step, {t_max * frame_bytes} B of frames (+ {frame_bytes} B "
+        "bootstrap) at the update")
+
+    # (a) the synchronous host ParallelRL at delay 0, then calibrated
+    sync_counts = {k: 0 for k in ops.launches}
+
+    def timed_sync(delay):
+        with pool(delay) as p:
+            rl = sync(p)
+            collect_s = []
+            real_collect = rl._collect_host
+
+            def collect(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return real_collect(*a, **k)
+                finally:
+                    collect_s.append(time.perf_counter() - t0)
+
+            rl._collect_host = collect
+            rl.run(warmup)
+            collect_s.clear()
+            res, counts = run_checked(f"sync host, delay {delay}", rl, iters,
+                                      {"nstep_returns": iters})
+            for k, v in counts.items():
+                sync_counts[k] += v
+            iter_ms = 1e3 * n_envs * t_max / res.timesteps_per_sec
+            collect_ms = 1e3 * sum(collect_s) / len(collect_s)
+            # the update alone, at the state the run reached: the staged
+            # trajectory's copy to the card and the learner step
+            traj, last = rl._staging.traj, rl._staging.last_obs
+            for i in range(21):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                rl._update_step(rl.params, rl.opt_state,
+                                *to_device(traj, last, rl.device), 0)
+            torch.cuda.synchronize()
+            update_ms = (time.perf_counter() - t0) / 20 * 1e3
+            busy_ms, h2d_ms, h2d_n, acts = busy_window(rl)
+            if delay == 0:
+                layers = step_layers(rl)
+        m = res.mean_metrics
+        say("host", f"(a) sync ParallelRL, delay {1e3 * delay:.1f} ms a "
+            f"step: {iters} iterations after {warmup} warm-up, K1 "
+            f"{counts['nstep_returns']} K2 {counts['vtrace_returns']}; "
+            f"{res.timesteps_per_sec:.1f} timesteps/s, {iter_ms:.2f} ms an "
+            f"iteration = collect {collect_ms:.2f} ms "
+            f"({100 * collect_ms / iter_ms:.1f}%) + update "
+            f"{iter_ms - collect_ms:.2f} ms; the update alone (H2D + "
+            f"learner step) {update_ms:.2f} ms; mean loss {m['loss']:.4f}, "
+            f"entropy {m['entropy']:.4f}, rho_mean {m['rho_mean']:.6f}; "
+            f"profiler window of {window}: device busy {busy_ms:.3f} ms an "
+            f"iteration ({100 * busy_ms / iter_ms:.1f}%), {acts:.0f} device "
+            f"activities, H2D copies {h2d_ms:.3f} ms x{h2d_n:.0f} "
+            f"({card})")
+        if delay == 0:
+            say("host", "(a) one acting step's layers alone, at the state "
+                "the run reached (host ms a call): " + "; ".join(
+                    f"{k} {v:.3f}" for k, v in layers.items()))
+        return dict(tps=res.timesteps_per_sec, iter_ms=iter_ms,
+                    update_ms=update_ms, busy=busy_ms / iter_ms)
+
+    def step_layers(rl, n=20):
+        """The layers of one step of ``collect_host``, each alone: the env
+        workers' step (on the pool's workers and on one), the copy of the
+        frames into the staging set, their H2D, and the act step with its
+        packed read-back (the acting sync)."""
+        p, s, dev_ = rl.env, rl._staging, rl.device
+        actions = np.zeros(n_envs, np.int64)
+        gen = torch.Generator(device=dev_).manual_seed(SEED)
+        obs = s.traj.obs[0].to(dev_)
+        with envs.HostEnvPool([lambda i=i: FrameEnv(i, 0.0)
+                               for i in range(n_envs)], n_workers=1,
+                              obs_shape=FrameEnv.SHAPE, device=dev) as one:
+            one.reset()
+
+            def h2d():
+                s.traj.obs[0].to(dev_, non_blocking=True)
+                torch.cuda.synchronize()
+
+            def act():
+                a, v, lp = rl._act(rl.params, obs, gen)
+                torch.stack([a.float(), v.float(), lp.float()]).cpu()
+
+            fns = {f"env step ({n_workers} workers)":
+                   lambda: p.step_host(actions),
+                   "env step (1 worker)": lambda: one.step_host(actions),
+                   "staging copy": lambda: np.copyto(s.np_traj.obs[1],
+                                                     p._obs),
+                   "H2D of the frames": h2d,
+                   "act step + packed read-back": act}
+            out = {}
+            for k, fn in fns.items():
+                fn()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                out[k] = (time.perf_counter() - t0) / n * 1e3
+        return out
+
+    rows = {"sync, delay 0": timed_sync(0.0)}
+    envs_a_worker = -(-n_envs // n_workers)
+    # the update's wall spread over the rollout's t_max steps and the envs
+    # each worker steps in turn, rounded up to 0.1 ms: the envs then take
+    # about as long as the update (the paper's ~50% env time)
+    delay = math.ceil(rows["sync, delay 0"]["update_ms"]
+                      / (t_max * envs_a_worker) * 10) / 1e4
+    say("host", f"calibrated delay: update "
+        f"{rows['sync, delay 0']['update_ms']:.2f} ms / ({t_max} steps x "
+        f"{envs_a_worker} envs a worker), rounded up to 0.1 ms: "
+        f"{1e3 * delay:.1f} ms a step")
+    rows[f"sync, delay {1e3 * delay:.1f}"] = timed_sync(delay)
+
+    # (b) bitwise pins, cuDNN deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        runs = []
+        for _ in range(2):
+            with pool(0.0) as p:
+                rl = sync(p)
+                runs.append((rl.run(lock_iters), rl))
+        check_bitwise(torch, tree, *runs[0], *runs[1],
+                      "two same-seed sync host runs")
+        with pool(0.0) as p:
+            lock = piped(p, queue_depth=1, lockstep=True, rho_bar=inf,
+                         c_bar=inf)
+            lock_res, counts = run_checked(
+                "lockstep host plane", lock, lock_iters,
+                {"nstep_returns": lock_iters})
+        check(lock.staleness == [0.0] * lock_iters,
+              f"lockstep host staleness {lock.staleness}")
+        check_bitwise(torch, tree, lock_res, lock, *runs[0],
+                      "lockstep host plane vs sync host ParallelRL")
+        dev_sync = paper_atari.build("paac_nature", n_envs, SEED, dev)
+        forced = paper_atari.build(
+            "paac_nature", n_envs, SEED, dev,
+            configs.PipelineConfig(queue_depth=1, lockstep=True, rho_bar=inf,
+                                   c_bar=inf, rollout_plane="host"))
+        check(forced._plane == "host", f"plane {forced._plane}")
+        check_bitwise(torch, tree, forced.run(lock_iters), forced,
+                      dev_sync.run(lock_iters), dev_sync,
+                      "forced host plane on FrameStack(AtariLike) vs "
+                      "ParallelRL")
+        del runs, rl, lock, dev_sync, forced
+    finally:
+        torch.backends.cudnn.deterministic = False
+    say("host", f"(b) bitwise, cuDNN deterministic, {lock_iters} "
+        "iterations each: two same-seed sync host runs; lockstep "
+        "PipelinedRL (depth 1, rho_bar = c_bar = inf) on the same pool "
+        f"recipe equals them (K1 {counts['nstep_returns']}, K2 "
+        f"{counts['vtrace_returns']}); the forced host plane on "
+        f"FrameStack(AtariLike({n_envs})) equals ParallelRL on it")
+
+    # (c) the pipelined host plane at clips 1, at both delays
+    pipe_counts = {k: 0 for k in ops.launches}
+    for d in (0.0, delay):
+        for label, n_act, depth in (("one actor", 1, 2),
+                                    (f"four actors of {n_envs // 4} envs", 4,
+                                     4)):
+            with pool(d) as p:
+                rl = piped(p, queue_depth=depth, num_actors=n_act)
+                rl.run(warmup)
+                res, counts = run_checked(f"{label}, delay {d}", rl, iters,
+                                          {"vtrace_returns": iters})
+                for k, v in counts.items():
+                    pipe_counts[k] += v
+                want = [(a, s) for a in range(n_act)
+                        for s in range(iters // n_act)]
+                check(sorted(rl.learned_ids) == want,
+                      f"{label}: an (actor_id, seq) was dropped or learned "
+                      "twice")
+                # one actor runs at most depth rollouts ahead of the
+                # learner, plus the one it is collecting; several contend
+                # for the queue's free slots in no fixed order, so their
+                # staleness has no such bound (the reference's neither)
+                stale = max(rl.staleness)
+                check(n_act > 1 or stale <= depth + 1,
+                      f"{label}: staleness {stale} > {depth + 1}")
+                spans = span_means(rl.telemetry)
+                busy_ms, h2d_ms, h2d_n, acts = busy_window(rl)
+            per_iter = rl._steps_per_iter
+            iter_ms = 1e3 * per_iter / res.timesteps_per_sec
+            wall_s = iters * iter_ms / 1e3
+            m = res.mean_metrics
+            row = rows[f"{'one actor' if n_act == 1 else 'four actors'}, "
+                       f"delay {1e3 * d:.1f}"] = dict(
+                tps=res.timesteps_per_sec, iter_ms=iter_ms,
+                busy=busy_ms / iter_ms,
+                actor_idle=res.actor_idle_s / (n_act * wall_s),
+                learner_idle=res.learner_idle_s / wall_s)
+            say("host", f"(c) PipelinedRL host plane, {label}, depth "
+                f"{depth}, clips 1, delay {1e3 * d:.1f} ms: {iters} updates "
+                f"after {warmup} warm-up, K1 {counts['nstep_returns']} K2 "
+                f"{counts['vtrace_returns']}; {res.timesteps_per_sec:.1f} "
+                f"timesteps/s, {iter_ms:.2f} ms an update of {per_iter} "
+                f"timesteps; staleness mean {m['staleness']:.3f} max "
+                f"{stale:.0f}, rho_mean {m['rho_mean']:.4f}; "
+                f"actor idle {100 * row['actor_idle']:.1f}%, learner idle "
+                f"{100 * row['learner_idle']:.1f}%; profiler window of "
+                f"{window}: device busy {busy_ms:.3f} ms an update "
+                f"({100 * row['busy']:.1f}%), {acts:.0f} device activities, "
+                f"H2D {h2d_ms:.3f} ms x{h2d_n:.0f}; mean host ms of each "
+                f"span (track, stage, count): {spans} ({card})")
+            del rl
+    say("host", "timesteps/s: " + ", ".join(
+        f"{k} {r['tps']:.1f} (busy {100 * r['busy']:.1f}%)"
+        for k, r in rows.items()))
+
+    # (d) the reference trainer with --host-env (PyBoundEnv, GIL-held spin)
+    spec = envs.py_bound_spec(n_envs, obs_dim=16, spin=env_spin,
+                              n_workers=min(8, n_envs), device=dev)
+    step_ms = {}
+    for n_w in (spec.n_workers, 1):
+        with envs.HostEnvPool([lambda a=a: spec.env_fn(*a)
+                               for a in spec.env_args], n_workers=n_w,
+                              obs_shape=spec.obs_shape, device=dev) as p:
+            p.reset()
+            acts = np.zeros(n_envs, np.int64)
+            p.step_host(acts)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                p.step_host(acts)
+            step_ms[n_w] = (time.perf_counter() - t0) / 20 * 1e3
+    say("host", f"(d) PyBoundEnv spin {env_spin}: one step_host of {n_envs} "
+        f"envs takes {step_ms[spec.n_workers]:.3f} ms on {spec.n_workers} "
+        f"workers and {step_ms[1]:.3f} ms on 1 "
+        f"({step_ms[1] / step_ms[spec.n_workers]:.2f}x): the workers "
+        "serialise on the GIL")
+    base = ["--arch", "paac_vector", "--host-env", "--n-envs", str(n_envs),
+            "--t-max", str(t_max), "--iterations", str(cli_iters),
+            "--env-spin", str(env_spin), "--device", str(dev)]
+    cli = {k: 0 for k in ops.launches}
+    with tempfile.TemporaryDirectory() as tmp:
+        hb = os.path.join(tmp, "hb.jsonl")
+        legs = (("sync", [], "nstep_returns"),
+                ("--pipeline", ["--pipeline"], "vtrace_returns"),
+                ("--pipeline + observers", ["--pipeline", "--metrics-jsonl",
+                                            hb, "--stall-timeout", "30"],
+                 "vtrace_returns"))
+        for label, extra, kernel in legs:
+            ops.reset_launches()
+            res = train.main(base + extra)
+            counts = dict(ops.launches)
+            want = {k: cli_iters if k == kernel else 0 for k in counts}
+            check(counts == want, f"train --host-env {label}: launches "
+                  f"{counts}, expected {want}")
+            check(len(res) == 1
+                  and res[0].steps == cli_iters * n_envs * t_max
+                  and all(math.isfinite(v)
+                          for v in res[0].mean_metrics.values()),
+                  f"train --host-env {label}: {res}")
+            for k, v in counts.items():
+                cli[k] += v
+            say("host", f"(d) python -m repro_torch.launch.train "
+                f"{' '.join(base + extra[:1])}"
+                f"{' --metrics-jsonl F --stall-timeout 30' if extra[1:] else ''}"
+                f": {res[0].steps} steps, K1 {counts['nstep_returns']} K2 "
+                f"{counts['vtrace_returns']}, {res[0].timesteps_per_sec:.1f} "
+                f"timesteps/s (first run included), reward/iter "
+                f"{res[0].mean_metrics['reward_sum']:+.3f} ({card})")
+        with open(hb) as f:
+            lines = [json.loads(x) for x in f if x.strip()]
+    check(lines and all(set(x) == HEARTBEAT_KEYS for x in lines)
+          and lines[-1]["steps"] == cli_iters * n_envs * t_max,
+          f"heartbeat: {len(lines)} lines, keys "
+          f"{sorted(set(lines[-1])) if lines else None}")
+    say("host", f"(d) heartbeat: {len(lines)} lines, each with the "
+        f"reference's keys; last steps {lines[-1]['steps']:.0f}, "
+        f"steps_per_s_ema {lines[-1]['steps_per_s_ema']:.1f}")
+
+    # (e) no aliasing on the card
+    with pool(0.0) as p:
+        p.reset()
+        out = p.step(np.zeros(n_envs, np.int64))
+        check(all(t.device.type == torch.device(dev).type for t in out),
+              f"HostEnvPool.step() gave tensors off {dev}")
+        snap = [t.clone() for t in out]
+        p.step_host(np.ones(n_envs, np.int64))
+        check(all(torch.equal(a, b) for a, b in zip(out, snap)),
+              "a HostEnvPool.step() tensor changed at the next step_host")
+        check(not torch.equal(out[0].cpu(), torch.from_numpy(p._obs)),
+              "the next step_host wrote the same frames")
+    real_release = pipeline.HostStagingRing.release
+
+    def poisoned(self, s):
+        for t in s.traj + (s.last_obs,):
+            if t.dtype.is_floating_point:
+                t.fill_(float("nan"))
+        real_release(self, s)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for poison in (False, True):
+            pipeline.HostStagingRing.release = (poisoned if poison
+                                                else real_release)
+            try:
+                with pool(0.0) as p:
+                    rl = piped(p, queue_depth=1, lockstep=True, rho_bar=inf,
+                               c_bar=inf)
+                    runs.append((rl.run(lock_iters), rl))
+            finally:
+                pipeline.HostStagingRing.release = real_release
+        check(all(math.isfinite(v) for v in runs[1][0].mean_metrics.values()),
+              f"NaN-poisoned release: {runs[1][0].mean_metrics}")
+        check_bitwise(torch, tree, *runs[1], *runs[0],
+                      "NaN-poisoned release vs a clean rerun")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    say("host", "(e) HostEnvPool.step() gives CUDA tensors that the next "
+        "step_host leaves unchanged; staging sets overwritten with NaN the "
+        f"moment release() hands them back: {lock_iters} lockstep updates "
+        "finite and bitwise equal to a clean rerun; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return ({k: v for k, v in sync_counts.items() if v},
+            {k: v for k, v in pipe_counts.items() if v},
+            {k: v for k, v in cli.items() if v})
+
+
 # Each kernel's CUDA kernels as a profile names them. K4 and K5 share the
 # combine (split_combine_kernel); no serving cell runs both. decode_kernel,
 # decode_combine_kernel, mla_decode_kernel and ssd_scan_kernel (bf16) are
@@ -1988,7 +2463,8 @@ def main(argv=None) -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch import configs, core, envs, models, optim, serving
+    from repro_torch import (configs, core, envs, models, optim, pipeline,
+                             serving)
     from repro_torch.core import agents
     from repro_torch.core.agents import paac, replay
     from repro_torch.kernels import _build, ops, ref
@@ -2024,6 +2500,10 @@ def main(argv=None) -> int:
         torch, configs, models, envs, agents, replay, core, optim, tree, ops,
         train, card, trained)
     del trained
+    (by_path["host sync"], by_path["host pipeline"],
+     by_path["host train cli"]) = phase_host(
+        torch, np, configs, core, envs, agents, optim, pipeline, paper_atari,
+        ops, tree, train, card)
     torch.cuda.empty_cache()
     phase_model(torch, np, configs, models, ops, tree)
     for cell in SERVING_CELLS:

@@ -1,13 +1,15 @@
 """Quickstart of the PyTorch port: PAAC (paper Algorithm 1) on GridWorld,
-then the asynchronous pipeline's device ring pinned to it.
+then the asynchronous pipeline's two queue planes pinned to it.
 
 Part 1 trains synchronously with ``ParallelRL``. Part 2 runs the same
-training through the pipeline's device-resident ring in lockstep settings
+training through the pipeline's device-resident ring and through its host
+staging queue (forced onto the tensor env: the GA3C-style baseline, whose
+trajectories go to page-locked host sets and back) in lockstep settings
 (depth 1, the actor waits for fresh params, infinite V-trace clips) and
-asserts that it reproduces the synchronous metrics exactly: the planes
-differ in overlap and placement, never in math. The reference's host
-staging queue and mesh sub-rings are not ported yet (ROADMAP Queue 1 items
-8 and 14); the script says so and skips them.
+asserts that each reproduces the synchronous metrics exactly: the planes
+differ in overlap and placement, never in math. The reference's mesh
+sub-rings are not ported yet (ROADMAP Queue 1 item 14); the script says
+so and skips them.
 
     PYTHONPATH=src python examples/quickstart_torch.py             # the card
     PYTHONPATH=src python examples/quickstart_torch.py --device cpu
@@ -60,7 +62,7 @@ def main(argv=None):
               f"episodes={res.episodes:.0f} "
               f"steps/s={res.timesteps_per_sec:,.0f}")
 
-    # -- part 2: the device ring, pinned to the synchronous run -------------
+    # -- part 2: both queue planes, pinned to the synchronous run ------------
     kw = dict(optimizer="rmsprop", lr_schedule=constant(0.01),
               seed=SEED, device=dev)
     sync = ParallelRL(GridWorld(n_envs=args.n_envs, size=5, device=dev),
@@ -68,25 +70,27 @@ def main(argv=None):
     print(f"{'sync':>10}: reward/iter={sync.mean_metrics['reward_sum']:+.3f} "
           f"loss={sync.mean_metrics['loss']:+.5f} "
           f"steps/s={sync.timesteps_per_sec:,.0f}")
-    prl = PipelinedRL(GridWorld(n_envs=args.n_envs, size=5, device=dev),
-                      fresh_agent(),
-                      pipeline=PipelineConfig(queue_depth=1, lockstep=True,
-                                              rho_bar=INF, c_bar=INF,
-                                              rollout_plane="device"), **kw)
-    ring = prl.run(args.lock_iters)
-    print(f"{'device':>10}: reward/iter={ring.mean_metrics['reward_sum']:+.3f} "
-          f"loss={ring.mean_metrics['loss']:+.5f} "
-          f"steps/s={ring.timesteps_per_sec:,.0f}")
-    for k in SHARED:
-        if ring.mean_metrics[k] != sync.mean_metrics[k]:
-            raise AssertionError(f"device ring: mean {k} "
-                                 f"{ring.mean_metrics[k]!r} != sync "
-                                 f"{sync.mean_metrics[k]!r}")
-    print("the device ring reproduces the synchronous metrics bit for bit")
-    print(f"{'host':>10}: not ported yet (ROADMAP Queue 1 item 8)")
+    planes = {}
+    for plane in ("device", "host"):
+        prl = PipelinedRL(GridWorld(n_envs=args.n_envs, size=5, device=dev),
+                          fresh_agent(),
+                          pipeline=PipelineConfig(queue_depth=1, lockstep=True,
+                                                  rho_bar=INF, c_bar=INF,
+                                                  rollout_plane=plane), **kw)
+        res_p = planes[plane] = prl.run(args.lock_iters)
+        print(f"{plane:>10}: "
+              f"reward/iter={res_p.mean_metrics['reward_sum']:+.3f} "
+              f"loss={res_p.mean_metrics['loss']:+.5f} "
+              f"steps/s={res_p.timesteps_per_sec:,.0f}")
+        for k in SHARED:
+            if res_p.mean_metrics[k] != sync.mean_metrics[k]:
+                raise AssertionError(f"{plane} plane: mean {k} "
+                                     f"{res_p.mean_metrics[k]!r} != sync "
+                                     f"{sync.mean_metrics[k]!r}")
+    print("the device ring and the host queue reproduce the synchronous "
+          "metrics bit for bit")
     print(f"{'mesh':>10}: not ported yet (ROADMAP Queue 1 item 14)")
-    return res, sync, ring
-
+    return res, sync, planes["device"], planes["host"]
 
 if __name__ == "__main__":
     main()

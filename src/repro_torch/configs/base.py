@@ -190,13 +190,14 @@ class PipelineConfig:
     params before each rollout: synchronous semantics through the
     pipelined code path.
 
-    The port runs the device rollout plane with thread actors. The other
-    settings are validated here as in ``repro`` but ``PipelinedRL`` refuses
-    them with ``NotImplementedError`` naming the ROADMAP item that ports
-    them: the host plane (Queue 1 item 8), the mesh plane (item 14), the
+    The port runs the device and host rollout planes with thread actors.
+    The other settings are validated here as in ``repro`` but
+    ``PipelinedRL`` refuses them with ``NotImplementedError`` naming the
+    ROADMAP item that ports them: the mesh plane (Queue 1 item 14), the
     process backend, the replay plane, elastic recovery, fault plans and
-    checkpoints (item 10), the heartbeat and the stall watchdog
-    (item 13). ``trace_path`` writes a Chrome trace of the run's spans.
+    checkpoints (item 10). ``trace_path`` writes a Chrome trace of the
+    run's spans, ``metrics_jsonl`` a JSONL heartbeat every
+    ``heartbeat_s``, and ``stall_timeout_s`` > 0 arms the stall watchdog.
     """
 
     queue_depth: int = 2

@@ -6,12 +6,22 @@ train step per iteration and runs the outer ``until N >= N_max`` loop
 Fig. 2/4 metric) and episode returns. It runs on the card unless its
 caller passes ``device="cpu"``; the env must live on the same device.
 
-It is algorithm agnostic (paper §3): any ``Agent`` supplies the train
-step. ``DQNAgent`` and ``LaggedPAACAgent`` also carry state between steps
-(the replay buffer and target network; the stale parameter copy), which
-the framework creates and threads through; ``PAACAgent`` and ``PPOAgent``
-carry none. The reference's second regime, external ``HostEnvPool`` envs
-stepped by host threads, waits for a later slice (ROADMAP Queue 1 item 8).
+Two environment regimes, as in the reference:
+
+* batched tensor ``VectorEnv`` — acting, stepping and learning all run on
+  the device, one train step per iteration. ``ParallelRL`` is algorithm
+  agnostic here (paper §3): any ``Agent`` supplies the train step.
+  ``DQNAgent`` and ``LaggedPAACAgent`` also carry state between steps (the
+  replay buffer and target network; the stale parameter copy), which the
+  framework creates and threads through; ``PAACAgent`` and ``PPOAgent``
+  carry none.
+* ``HostEnvPool`` — external gym-style envs stepped by host worker threads
+  (paper §3 literally). One iteration is a host-side rollout
+  (``pipeline.actor.collect_host``: acting on the device, threaded env
+  stepping) into one page-locked staging set, then its copy to the device
+  and the pipeline learner's update at infinite clips (n-step returns
+  through K1). This is the paper's Fig. 2 "env time on the critical path"
+  regime, and it drives plain ``PAACAgent`` only, as the reference does.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from repro_torch.core.agents.dqn import DQNAgent
 from repro_torch.core.agents.replay import replay_nbytes
 from repro_torch.device import resolve_device
 from repro_torch.envs.base import VectorEnv
+from repro_torch.envs.host_env import HostEnvPool
 from repro_torch.models import init_policy
 from repro_torch.optim import constant, make_optimizer
 from repro_torch.utils import get_logger
@@ -172,11 +183,12 @@ class ParallelRL:
         device="cuda",
     ):
         dev = resolve_device(device)
-        if not isinstance(env, VectorEnv):
+        self._host = isinstance(env, HostEnvPool)
+        if not (self._host or isinstance(env, VectorEnv)):
             raise NotImplementedError(
-                f"ParallelRL drives batched tensor envs (VectorEnv); "
-                f"{type(env).__name__} is not one. External host env pools "
-                "(HostEnvPool) are ROADMAP Queue 1 item 8")
+                f"ParallelRL drives batched tensor envs (VectorEnv) and "
+                f"external host env pools (HostEnvPool); "
+                f"{type(env).__name__} is neither")
         if env.device.type != dev.type:
             raise ValueError(f"env lives on {env.device}, ParallelRL runs on "
                              f"{dev}")
@@ -186,6 +198,11 @@ class ParallelRL:
         (self.optimizer, self.lr_schedule, self.act_generator,
          self.env_generator, self.params, self.opt_state) = init_rl_common(
              env, agent, optimizer, lr_schedule, seed, dev)
+        self.total_steps = 0
+        self._steps_per_iter = env.n_envs * agent.hp.t_max
+        if self._host:
+            self._init_host(env, agent)
+            return
         self.env_state = env.reset(self.env_generator)
         self.obs = env.observe(self.env_state)
         self._has_agent_state = isinstance(agent, (DQNAgent, LaggedPAACAgent))
@@ -203,8 +220,50 @@ class ParallelRL:
             self.agent_state = None
         self._train_step = agent.make_train_step(env, self.optimizer,
                                                  self.lr_schedule)
-        self.total_steps = 0
-        self._steps_per_iter = env.n_envs * agent.hp.t_max
+
+    # -- the HostEnvPool regime ----------------------------------------------
+    def _init_host(self, pool: HostEnvPool, agent) -> None:
+        from repro_torch.core.agents.paac import PAACAgent
+        from repro_torch.pipeline.actor import (StagingSet, collect_host,
+                                                make_host_act_step)
+        from repro_torch.pipeline.learner import make_learner_step
+
+        # exact type: subclasses/look-alikes (LaggedPAACAgent, PPOAgent,
+        # DQNAgent) need their own update step, which the shared host
+        # learner step would silently replace with the plain PAAC loss
+        if type(agent) is not PAACAgent:
+            raise NotImplementedError(
+                "HostEnvPool currently drives plain PAACAgent "
+                f"(got {type(agent).__name__})")
+        self._has_agent_state = False
+        self.agent_state = self.env_state = None
+        self.obs = pool.reset()
+        self._collect_host = collect_host
+        self._act = make_host_act_step(agent.act_fn())
+        # one reusable staging set: the loop reads every update's metrics
+        # back (an eager MetricsAccumulator) before the next rollout
+        # overwrites the set, and that read waits for the update and the
+        # copy of the set to the card that precedes it on the stream
+        self._staging = StagingSet(agent.hp.t_max, pool.n_envs,
+                                   pool.obs_shape, pool.obs_dtype,
+                                   pin_memory=self.device.type == "cuda")
+        # the pipelined learner's step at infinite clips: the correction
+        # left out exactly, so a lock-stepped pipeline matches this loop
+        # bit for bit (n-step returns through K1)
+        self._update_step = make_learner_step(
+            agent, self.optimizer, self.lr_schedule, rho_bar=float("inf"),
+            c_bar=float("inf"))
+
+    def _host_iteration(self, step: int):
+        from repro_torch.pipeline.actor import to_device
+
+        self.obs, traj, last_obs = self._collect_host(
+            self._act, self.env, self.params, self.obs, self.act_generator,
+            self.agent.hp.t_max, staging=self._staging)
+        traj, last_obs = to_device(traj, last_obs, self.device)
+        self.params, self.opt_state, metrics = self._update_step(
+            self.params, self.opt_state, traj, last_obs, step)
+        return metrics
 
     def run(self, iterations: int, log_every: int = 0) -> RunResult:
         """Run `iterations` framework iterations (each = n_e·t_max timesteps)."""
@@ -213,7 +272,9 @@ class ParallelRL:
         # repro.core.framework.ParallelRL.run
         step = self.total_steps
         for i in range(iterations):
-            if self._has_agent_state:
+            if self._host:
+                metrics = self._host_iteration(step)
+            elif self._has_agent_state:
                 (self.params, self.opt_state, self.agent_state,
                  self.env_state, self.obs, metrics) = self._train_step(
                      self.params, self.opt_state, self.agent_state,

@@ -4,14 +4,22 @@
 ``TokenEnv`` — rollout with the current policy, synchronous update — on
 the card, or on the CPU with ``--device cpu`` (without a CUDA device the
 default raises). ``--algo dqn`` selects the value-based agent: the
-synchronous DQN with its own replay buffer. ``--pipeline`` swaps the
-synchronous ``ParallelRL`` backend for the asynchronous actor/learner
-pipeline (``repro_torch.pipeline.PipelinedRL``) on the device plane with
-thread actors: ``--num-actors`` replicas (the env axis split between them)
-collect rollouts while the learner consumes earlier ones, with
+synchronous DQN with its own replay buffer. ``--host-env`` swaps the
+TokenEnv for the paper's host env plane: a ``HostEnvPool`` of GIL-holding
+Python emulators (``PyBoundEnv``, ``--env-spin`` pure-Python work a step,
+16-wide observations, 3 actions) stepped by up to 8 worker threads.
+``--pipeline`` swaps the synchronous ``ParallelRL`` backend for the
+asynchronous actor/learner pipeline (``repro_torch.pipeline.PipelinedRL``)
+with thread actors: ``--num-actors`` replicas (the env axis split between
+them) collect rollouts while the learner consumes earlier ones, with
 ``--queue-depth`` bounding staleness and ``--rho-bar``/``--c-bar`` the
-V-trace clips (K2) on the off-policy importance correction; ``--trace``
-writes a Chrome trace of the pipeline's spans. The synchronous PAAC update
+V-trace clips (K2) on the off-policy importance correction.
+``--rollout-plane`` picks the trajectory plane: the device ring (tensor
+envs), or the host staging queue (``--host-env`` pools; on the TokenEnv
+the GA3C-style baseline). ``--trace`` writes a Chrome trace of the
+pipeline's spans, ``--metrics-jsonl`` a JSONL liveness heartbeat, and
+``--stall-timeout`` arms the stall watchdog, which names the stage each
+party is blocked in when progress stops. The synchronous PAAC update
 computes its n-step returns through K1.
 
 The parser takes every flag of the reference, with its defaults, plus
@@ -19,13 +27,12 @@ The parser takes every flag of the reference, with its defaults, plus
 in the reference's order with its text. What the port does not run yet
 raises ``NotImplementedError`` naming its ROADMAP Queue 1 item: the token
 archs and ``--mode synthetic`` (their training pass needs a backward
-through K3 and K6: item 11), ``--host-env`` and ``--rollout-plane host``
-(item 8), ``--actor-backend process``, ``--replay``, ``--elastic``,
-``--fault-*``, ``--checkpoint*`` and ``--resume`` (item 10),
-``--sanitize``, ``--metrics-jsonl`` and ``--stall-timeout`` (item 13), and
-``--mesh`` > 1 and ``--rollout-plane mesh`` (item 14). So ``--arch``
-defaults to ``paac_vector``, the vector policy acting on the raw token ids
-(the reference's default, ``mamba2-370m``, waits for item 11).
+through K3 and K6: item 11), ``--actor-backend process``, ``--replay``,
+``--elastic``, ``--fault-*``, ``--checkpoint*`` and ``--resume`` (item
+10), ``--sanitize`` (item 13), and ``--mesh`` > 1 and ``--rollout-plane
+mesh`` (item 14). So ``--arch`` defaults to ``paac_vector``, the vector
+policy acting on the raw observations (the reference's default,
+``mamba2-370m``, waits for item 11).
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --iterations 50
@@ -33,6 +40,8 @@ Examples:
         --pipeline --num-actors 4 --n-envs 16
     PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
         --algo dqn
+    PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
+        --host-env --n-envs 32 --pipeline --metrics-jsonl hb.jsonl
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --iterations 4 --n-envs 4
 """
@@ -46,7 +55,7 @@ from repro_torch.core.agents import (DQNAgent, DQNConfig, PAACAgent,
                                      PAACConfig)
 from repro_torch.core.framework import ParallelRL, RunResult
 from repro_torch.device import resolve_device
-from repro_torch.envs import TokenEnv
+from repro_torch.envs import TokenEnv, py_bound_spec
 from repro_torch.optim import constant
 from repro_torch.pipeline import PipelinedRL
 from repro_torch.utils import get_logger
@@ -110,6 +119,13 @@ def _refuse_invalid(args) -> None:
         raise SystemExit(
             "--checkpoint-every/--resume need --checkpoint-dir (where the "
             "pipeline's full-state snapshots live)")
+    # the reference's cfg.family != "cnn": of the trainer's archs only
+    # paac_vector is of the vector/cnn family
+    if (args.host_env or args.actor_backend == "process") \
+            and args.arch != "paac_vector":
+        raise SystemExit(
+            f"--host-env/--actor-backend process need a vector/cnn "
+            f"policy (e.g. --arch paac_vector), got {args.arch}")
 
 
 def _refuse_unported(args) -> None:
@@ -119,8 +135,6 @@ def _refuse_unported(args) -> None:
         (args.arch != "paac_vector", f"--arch {args.arch} (the token archs' "
          "training pass, which needs a backward through K3 and K6) is item "
          "11"),
-        (args.host_env or args.rollout_plane == "host", "--host-env and "
-         "--rollout-plane host (the host env plane) are item 8"),
         (args.actor_backend == "process", "--actor-backend process is item "
          "10"),
         (args.replay, "--replay (the replay plane) is item 10"),
@@ -131,8 +145,6 @@ def _refuse_unported(args) -> None:
          or args.resume, "--checkpoint, --checkpoint-dir, --checkpoint-every "
          "and --resume (checkpoints) are item 10"),
         (args.sanitize, "--sanitize (the runtime sanitizers) is item 13"),
-        (args.metrics_jsonl or args.stall_timeout, "--metrics-jsonl and "
-         "--stall-timeout (the heartbeat and the watchdog) are item 13"),
         (args.mesh > 1 or args.rollout_plane == "mesh", "--mesh > 1 and "
          "--rollout-plane mesh (the mesh plane) are item 14"),
     ]
@@ -151,10 +163,17 @@ def run_rl(args) -> Tuple[object, List[RunResult]]:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    env = TokenEnv(args.n_envs, vocab=min(cfg.vocab_size, 64), ctx=args.ctx,
-                   k=2, horizon=64, device=dev)
-    # the vector policy acts on the raw token ids
-    cfg = cfg.replace(num_actions=env.vocab, obs_shape=env.obs_shape)
+    if args.host_env:
+        # the GIL-holding external-emulator pool (repro_torch.envs.pyemu)
+        spec = py_bound_spec(args.n_envs, obs_dim=16, spin=args.env_spin,
+                             n_workers=min(8, args.n_envs), device=str(dev))
+        cfg = cfg.replace(obs_shape=spec.obs_shape, num_actions=3)
+        env = spec if args.pipeline else spec.build()
+    else:
+        env = TokenEnv(args.n_envs, vocab=min(cfg.vocab_size, 64),
+                       ctx=args.ctx, k=2, horizon=64, device=dev)
+        # the vector policy acts on the raw token ids
+        cfg = cfg.replace(num_actions=env.vocab, obs_shape=env.obs_shape)
     if args.algo == "dqn":
         agent = DQNAgent(cfg, DQNConfig(t_max=args.t_max))
     else:
@@ -169,10 +188,17 @@ def run_rl(args) -> Tuple[object, List[RunResult]]:
                                     num_actors=args.num_actors,
                                     rollout_plane=args.rollout_plane,
                                     lease_timeout_s=args.lease_timeout,
-                                    trace_path=args.trace))
+                                    trace_path=args.trace,
+                                    metrics_jsonl=args.metrics_jsonl,
+                                    stall_timeout_s=args.stall_timeout))
     else:
-        rl = ParallelRL(env, agent, lr_schedule=constant(args.lr),
-                        seed=args.seed, device=dev)
+        try:
+            rl = ParallelRL(env, agent, lr_schedule=constant(args.lr),
+                            seed=args.seed, device=dev)
+        except BaseException:
+            if args.host_env:
+                env.close()
+            raise
     results = []
     try:
         for epoch in range(args.epochs):
@@ -189,7 +215,9 @@ def run_rl(args) -> Tuple[object, List[RunResult]]:
             results.append(res)
     finally:
         if hasattr(rl, "close"):
-            rl.close()
+            rl.close()  # the pools PipelinedRL built from the spec
+        elif args.host_env:
+            env.close()
     return rl, results
 
 
@@ -224,8 +252,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rollout-plane",
                     choices=("auto", "device", "host", "mesh"),
                     default="auto",
-                    help="trajectory queue plane: auto or device (host and "
-                    "mesh are ROADMAP Queue 1 items 8 and 14)")
+                    help="trajectory queue plane: auto, device or host "
+                    "(mesh is ROADMAP Queue 1 item 14)")
     ap.add_argument("--mesh", type=int, default=1,
                     help="mesh rollout plane over this many devices (ROADMAP "
                     "Queue 1 item 14)")
@@ -247,20 +275,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="where actor replicas run: threads (process is "
                     "ROADMAP Queue 1 item 10)")
     ap.add_argument("--host-env", action="store_true",
-                    help="the Python-bound emulator pool (ROADMAP Queue 1 "
-                    "item 8)")
+                    help="drive a HostEnvPool of GIL-holding Python-bound "
+                    "emulators (the paper's n_w worker threads)")
     ap.add_argument("--env-spin", type=int, default=2000,
                     help="pure-Python work per host-env step")
     ap.add_argument("--trace", default="",
                     help="write a Chrome trace-event JSON of the run's spans "
                     "here (open in Perfetto); pipeline backend only")
     ap.add_argument("--metrics-jsonl", default="",
-                    help="JSONL metrics heartbeat (ROADMAP Queue 1 item 13)")
+                    help="append a JSONL metrics heartbeat line here every "
+                    "tick; pipeline backend only")
     ap.add_argument("--sanitize", default="",
                     help="runtime sanitizers (ROADMAP Queue 1 item 13)")
     ap.add_argument("--stall-timeout", type=float, default=0.0,
-                    help="stall watchdog window in seconds (ROADMAP Queue 1 "
-                    "item 13)")
+                    help="stall watchdog window in seconds (0 = off): log "
+                    "each party's blocked stage when progress stops; "
+                    "pipeline backend only")
     ap.add_argument("--elastic", action="store_true",
                     help="supervise actor replicas (ROADMAP Queue 1 item 10)")
     ap.add_argument("--restart-budget", type=int, default=1,

@@ -1,5 +1,20 @@
 """The pipeline's acting half: rollout collection decoupled from learning
-(a port of ``repro.pipeline.actor``, device plane and thread backend).
+(a port of ``repro.pipeline.actor``, with the thread backend).
+
+Two collection paths, mirroring the two environment regimes of
+``repro_torch.core.framework``:
+
+* ``make_collect_fn`` (re-exported from ``repro_torch.core.rollout``) —
+  batched tensor ``VectorEnv``: the collect runs on the device and its
+  output feeds the device ring without touching host memory.
+* ``collect_host`` — ``HostEnvPool``: batched acting on the device
+  interleaved with threaded host env stepping (paper §3's master/worker
+  loop, run on the actor thread). Trajectories are written row by row
+  into reusable ``HostStagingRing`` sets — page-locked memory on a CUDA
+  run, so the learner's copy to the card is one asynchronous transfer a
+  field — and each acting step brings action, value and log-prob back to
+  the host in one packed copy, the one read-back a step that the env
+  workers need.
 
 ``ParamSlot`` is the basic learner→actor exchange (a reference swap).
 ``PingPongParamSlot`` is its safe upgrade: the learner's working params
@@ -8,14 +23,16 @@ two alternating actor-facing buffers, and actors bracket their rollouts
 with ``acquire``/``release`` read leases, so the learner overwrites the
 stale buffer in place only once nobody reads it.
 
-``Rollout`` is the ring payload: the trajectory, the bootstrap
+``Rollout`` is the queue payload: the trajectory, the bootstrap
 observation, the behaviour params version (staleness = learner_version −
-behaviour_version), the producing replica and its sequence number.
+behaviour_version), the producing replica and its sequence number, and on
+the host plane the ``release`` hook that hands its staging set back.
 
 ``ActorThread`` is one replica on its own thread. On the card the
 reference's ordering through XLA buffers becomes CUDA stream order:
 
-* each replica collects on its own ``torch.cuda.Stream``;
+* each replica collects on its own ``torch.cuda.Stream`` (on the host
+  plane the obs copy of each acting step goes there too);
 * ``commit`` records an event on the learner's stream after the copy into
   a ping-pong buffer and ``acquire`` returns it: the replica's stream
   waits on it before its first forward, so it never reads a half-written
@@ -26,7 +43,8 @@ reference's ordering through XLA buffers becomes CUDA stream order:
   depth really bounds the rollouts in flight (the reference's
   ``block_until_ready`` before release). The event rides the payload, and
   the learner's stream waits on it before reading
-  (``repro_torch.pipeline.ring.adopt``).
+  (``repro_torch.pipeline.ring.adopt``). A host-plane collect has already
+  waited for its device work when it returns, so its payload carries none.
 
 The reference's supervisor, quota ledger, fault injector and checkpoint
 snapshot hooks wait for ROADMAP Queue 1 item 10: ``ActorThread`` keeps
@@ -39,22 +57,30 @@ import threading
 from queue import Full
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.rollout import Transition, make_collect_fn  # noqa: F401
+from repro_torch.core.rollout import (Transition, behaviour_logp,
+                                      make_collect_fn)
 from repro_torch.pipeline.queue import QueueClosed
 from repro_torch.telemetry.spans import (COLLECT, LEASE, QUEUE_PUT_WAIT,
                                          SpanEmitter)
+from repro_torch.utils.sampling import categorical
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = [
     "ParamSlot",
     "PingPongParamSlot",
+    "HostStagingRing",
+    "StagingSet",
     "Rollout",
     "ActorBase",
     "ActorThread",
+    "collect_host",
     "make_collect_fn",
+    "make_host_act_step",
     "record_event",
+    "staging_fields",
 ]
 
 
@@ -271,10 +297,11 @@ class Rollout(NamedTuple):
     ``actor_id``/``seq`` tag which replica produced the rollout and where it
     sits in that replica's stream — the learner uses them to attribute
     staleness, and the tests to prove every ``(actor_id, seq)`` is learned
-    exactly once. ``release`` returns host staging buffers on the
-    reference's host plane (ROADMAP Queue 1 item 8); it is ``None`` on the
-    device plane. ``ready`` is the CUDA event recorded on the actor's stream
-    after the collect (``None`` on the CPU)."""
+    exactly once. ``release`` returns the payload's host staging set to its
+    ring on the host plane, once the learner has consumed the update; it is
+    ``None`` on the device plane. ``ready`` is the CUDA event recorded on
+    the actor's stream after the collect (``None`` on the CPU and on the
+    host plane, whose collect has waited for its device work)."""
 
     traj: Transition  # time-major (T, E, ...)
     last_obs: torch.Tensor  # (E, *obs_shape) — bootstrap observation
@@ -283,6 +310,183 @@ class Rollout(NamedTuple):
     seq: int = 0  # per-actor rollout sequence number
     release: Optional[Callable[[], None]] = None  # staging-set return hook
     ready: Any = None  # CUDA event after the collect, or None
+
+
+# ---------------------------------------------------------------------------
+# Host staging — reusable page-locked buffers for host-plane payloads
+# ---------------------------------------------------------------------------
+
+
+def staging_fields(t_max: int, n_envs: int, obs_shape: Tuple[int, ...],
+                   obs_dtype) -> List[Tuple[Tuple[int, ...], np.dtype]]:
+    """The staging-payload layout: ``Transition``'s six fields (in field
+    order) followed by the bootstrap ``last_obs``. Actions are int64, the
+    dtype the port's learner gathers with (the reference stages int32)."""
+    E = n_envs
+    obs_shape = tuple(obs_shape)
+    obs_dtype = np.dtype(obs_dtype)
+    return [
+        ((t_max, E) + obs_shape, obs_dtype),      # Transition.obs
+        ((t_max, E), np.dtype(np.int64)),         # Transition.action
+        ((t_max, E), np.dtype(np.float32)),       # Transition.reward
+        ((t_max, E), np.dtype(bool)),             # Transition.done
+        ((t_max, E), np.dtype(np.float32)),       # Transition.value
+        ((t_max, E), np.dtype(np.float32)),       # Transition.logp
+        ((E,) + obs_shape, obs_dtype),            # last_obs
+    ]
+
+
+def _host_tensor(shape, dtype: np.dtype, pin_memory: bool) -> torch.Tensor:
+    tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
+    return torch.zeros(shape, dtype=tdtype, pin_memory=pin_memory)
+
+
+class StagingSet:
+    """One reusable host payload: a ``(t_max, E, ...)`` trajectory plus the
+    bootstrap observation, written in place row by row during collection.
+
+    ``traj``/``last_obs`` are CPU tensors — page-locked with ``pin_memory``
+    (a CUDA run), so their copies to the card can be asynchronous — and
+    ``np_traj``/``np_last_obs`` numpy views of the same memory, which the
+    host loop and the env workers write."""
+
+    __slots__ = ("traj", "last_obs", "np_traj", "np_last_obs")
+
+    def __init__(self, t_max: int, n_envs: int, obs_shape: Tuple[int, ...],
+                 obs_dtype, pin_memory: bool = False):
+        tensors = [_host_tensor(shape, dtype, pin_memory) for shape, dtype in
+                   staging_fields(t_max, n_envs, obs_shape, obs_dtype)]
+        self.traj = Transition(*tensors[:6])
+        self.last_obs = tensors[6]
+        self.np_traj = Transition(*(t.numpy() for t in tensors[:6]))
+        self.np_last_obs = tensors[6].numpy()
+
+
+def to_device(traj: Transition, last_obs: torch.Tensor, device):
+    """A staged payload's copy to ``device``: one transfer a field, on the
+    current stream, asynchronous from page-locked memory. The staging set
+    must stay untouched until the work that reads the copies has finished
+    (the ``Rollout.release`` protocol). On the CPU the tensors come back
+    as they are."""
+    return (Transition(*(t.to(device, non_blocking=True) for t in traj)),
+            last_obs.to(device, non_blocking=True))
+
+
+class HostStagingRing:
+    """Pool of reusable staging sets for one actor's host-plane rollouts.
+
+    Collection writes into preallocated sets instead of stacking per-step
+    copies: ``acquire`` hands out a free set, the payload's ``release``
+    callback (invoked by the learner after it has consumed the update, i.e.
+    after the copy to the card has provably finished) returns it.
+    ``n_sets`` must cover every set simultaneously in flight: up to
+    ``queue_depth`` enqueued + 1 consumed-but-unreleased + 1 being written,
+    so callers size it ``queue_depth + 2``. ``acquire`` never blocks when
+    that invariant holds; a blocked acquire is a release-protocol bug, which
+    the timeout turns into a loud error instead of a hang.
+    """
+
+    def __init__(self, n_sets: int, t_max: int, n_envs: int,
+                 obs_shape: Tuple[int, ...], obs_dtype=np.float32,
+                 pin_memory: bool = False):
+        if n_sets < 2:
+            raise ValueError(f"staging ring needs >= 2 sets, got {n_sets}")
+        self._free: List[StagingSet] = [
+            StagingSet(t_max, n_envs, obs_shape, obs_dtype, pin_memory)
+            for _ in range(n_sets)
+        ]
+        self.n_sets = n_sets
+        self._cond = threading.Condition()
+
+    def acquire(self, timeout: float = 60.0) -> StagingSet:
+        with self._cond:
+            if not self._cond.wait_for(lambda: self._free, timeout=timeout):
+                raise RuntimeError(
+                    "HostStagingRing.acquire timed out — a payload was "
+                    "consumed without its release() being called"
+                )
+            return self._free.pop()
+
+    def release(self, s: StagingSet) -> None:
+        with self._cond:
+            self._free.append(s)
+            self._cond.notify_all()
+
+    def free_sets(self) -> int:
+        with self._cond:
+            return len(self._free)
+
+
+def make_host_act_step(act_fn: Callable) -> Callable:
+    """One acting step — forward, draw, behaviour logp — for the host loop:
+    ``act_step(params, obs, generator, action=None) -> (action, value,
+    logp)``. The draw comes from the explicit ``generator``; ``action``,
+    if given, replaces it (a test seam that replays another run's
+    actions). ``logp`` is the sampled action's logit minus the logsumexp,
+    the gather of ``core.rollout.behaviour_logp``."""
+
+    @torch.no_grad()
+    def act_step(params, obs, generator, action=None):
+        logits, value = act_fn(params, obs)
+        if action is None:
+            action = categorical(logits, generator)
+        else:
+            action = torch.as_tensor(action, dtype=torch.int64,
+                                     device=logits.device)
+        return action, value, behaviour_logp(logits, action)
+
+    return act_step
+
+
+def collect_host(act_step: Callable, pool, params, obs, generator,
+                 t_max: int, staging: Optional[StagingSet] = None,
+                 actions=None):
+    """Collect ``t_max`` steps from a ``HostEnvPool`` (paper §3 loop).
+
+    ``act_step`` is ``make_host_act_step``'s step, run on ``pool.device``;
+    env stepping runs on the pool's worker threads. ``obs`` is the carried
+    observation, a tensor or a numpy array. Returns ``(next_obs, traj,
+    last_obs)``: ``traj`` a time-major ``Transition`` of *host* tensors,
+    including the behaviour log-prob the learner's correction needs, and
+    ``last_obs`` the bootstrap observation — both the staging set's own
+    memory, copied to the card only by the learner — and ``next_obs`` the
+    pool's shared observation buffer, to carry into the next collect (it
+    stays valid until the pool's next step, and no staging set holds it).
+
+    Each step copies its observation row to the device (on the current
+    stream, asynchronously from page-locked memory), acts, and brings
+    action, value and logp back in one packed copy: the workers need the
+    actions on the host, and that read-back also waits for the step's
+    device work. With ``staging`` every step writes its rows directly into
+    the set's buffers; the caller must not reuse the set until the learner
+    has consumed the payload. Without it each call allocates a fresh set.
+    ``actions`` (T, E), if given, replaces the draws.
+    """
+    if staging is None:
+        staging = StagingSet(t_max, pool.n_envs, pool.obs_shape,
+                             pool.obs_dtype, pool.device.type == "cuda")
+    traj = staging.np_traj
+    if isinstance(obs, torch.Tensor):
+        staging.traj.obs[0].copy_(obs)
+    else:
+        np.copyto(traj.obs[0], obs)
+    for t in range(t_max):
+        obs_t = staging.traj.obs[t].to(pool.device, non_blocking=True)
+        action, value, logp = act_step(
+            params, obs_t, generator, None if actions is None else actions[t])
+        # the step's one read-back; actions are exact in float32 (< 2**24)
+        packed = torch.stack([action.float(), value.float(),
+                              logp.float()]).cpu().numpy()
+        action_np = packed[0].astype(np.int64)
+        next_obs, reward, done = pool.step_host(action_np)
+        traj.action[t] = action_np
+        traj.reward[t] = reward
+        traj.done[t] = done
+        traj.value[t] = packed[1]
+        traj.logp[t] = packed[2]
+        np.copyto(traj.obs[t + 1] if t + 1 < t_max else staging.np_last_obs,
+                  next_obs)
+    return next_obs, staging.traj, staging.last_obs
 
 
 class ActorBase(threading.Thread):

@@ -1,5 +1,6 @@
-"""Bounded FIFO between producers and one consumer (the serving plane's
-admission queue), a copy of ``repro.pipeline.queue.TrajectoryQueue``.
+"""Bounded FIFO between producers and one consumer — the pipeline's host
+plane and the serving plane's admission queue — a copy of
+``repro.pipeline.queue.TrajectoryQueue``.
 
 A condition-variable FIFO with the properties the pipeline needs beyond the
 stdlib ``queue.Queue``:
@@ -47,7 +48,7 @@ class QueueClosed(RuntimeError):
 class TrajectoryQueue:
     """Bounded FIFO of payloads with idle-time accounting."""
 
-    def __init__(self, depth: int = 2, producers: int = 1,
+    def __init__(self, depth: int = 2, producers: int = 1, telemetry=None,
                  name: str = "queue"):
         if depth < 1:
             raise ValueError(f"queue depth must be >= 1, got {depth}")
@@ -58,7 +59,12 @@ class TrajectoryQueue:
         self._cond = threading.Condition()
         self._producers_left = producers
         self._closed = False
-        self.span_emitter = SpanEmitter(name, locked=True)
+        # span-derived idle accounting, registered with the run's hub when
+        # one is given (the queue's track in the Chrome trace)
+        if telemetry is not None:
+            self.span_emitter = telemetry.emitter(name, locked=True)
+        else:
+            self.span_emitter = SpanEmitter(name, locked=True)
 
     @property
     def put_wait_s(self) -> float:

@@ -1,7 +1,7 @@
 """Telemetry of the port: span recording (``spans``), the per-run hub
-(``hub.Telemetry``: emitter registry, counters, gauges, reports) and the
-Chrome trace export (``trace``). The reference's heartbeat and stall
-watchdog wait for ROADMAP.md Queue 1, item 13."""
+(``hub.Telemetry``: emitter registry, counters, gauges, reports, the JSONL
+heartbeat and the stall watchdog) and the Chrome trace export
+(``trace``)."""
 from repro_torch.telemetry.hub import Telemetry
 from repro_torch.telemetry.spans import (
     CATEGORIES,

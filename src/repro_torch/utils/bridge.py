@@ -12,12 +12,16 @@ them HWIO, PyTorch's ``conv2d`` takes OIHW, and they are permuted on the
 way. Everything else crosses as it is, dtype included: MLA's (in, out)
 linears, Mamba2's depthwise ``conv_x``/``conv_B``/``conv_C`` (K, C), which
 are not under ``convs``, and the fp32 leaves (``dt_bias``, ``A_log``,
-``D``) of a bf16 model. This module imports no JAX.
+``D``) of a bf16 model. Like every entry point of the port, the bridge
+puts the tensors on the card unless its caller asks for the CPU. This
+module imports no JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 _HWIO_TO_OIHW = (3, 2, 0, 1)
 _OIHW_TO_HWIO = (2, 3, 1, 0)
@@ -34,9 +38,12 @@ def _is_conv_weight(path) -> bool:
     return len(path) >= 3 and path[-3] == "convs" and path[-1] == "w"
 
 
-def params_from_numpy(tree, device="cpu", _path=()):
+def params_from_numpy(tree, device="cuda", _path=()):
     """Nested dicts (and lists/tuples) of numpy arrays -> the same structure
-    of tensors on ``device``; conv weights HWIO -> OIHW."""
+    of tensors on ``device``; conv weights HWIO -> OIHW. ``device`` goes
+    through ``resolve_device``: without a CUDA device the default raises."""
+    if not _path:
+        device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, _path + (k,))
                 for k, v in tree.items()}

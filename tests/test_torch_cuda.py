@@ -5,7 +5,11 @@ training iteration through K1, and the pipeline: five async updates
 through K2, and lockstep with infinite clips bitwise equal to
 ``ParallelRL`` through K1; the other agents (DQN, lagged PAAC in both
 modes, PPO) each with one update on the card against the CPU, and the
-trainer's three legs with their K1 and K2 launches.
+trainer's three legs with their K1 and K2 launches; the host env plane:
+``HostEnvPool`` snapshots on the card that never alias, page-locked
+staging sets, the sync host ``ParallelRL`` through K1 and the pipelined
+host plane through K2, lockstep ≡ sync bitwise, a NaN-poisoned release
+changing nothing, and the trainer's ``--host-env`` legs.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one. This file imports no JAX, so it also runs on a machine that has
@@ -644,6 +648,121 @@ def test_the_trainers_legs_on_the_card_launch_their_kernels(cuda, leg,
     ops.reset_launches()
     (res,) = train.main(["--n-envs", "32", "--t-max", "5", "--iterations",
                          "6"] + leg)
+    want = {k: 6 if k == kernel else 0 for k in ops.launches}
+    assert dict(ops.launches) == want
+    assert res.steps == 6 * 32 * 5
+    assert all(math.isfinite(v) for v in res.mean_metrics.values())
+
+
+def _host_pool(cuda, n=8, obs_dim=8):
+    from repro_torch.envs import py_bound_spec
+
+    return py_bound_spec(n, obs_dim=obs_dim, n_workers=4,
+                         device=str(cuda)).build()
+
+
+def _host_agent(obs_dim=8):
+    from repro_torch.configs import get_config
+    from repro_torch.core.agents import PAACAgent, PAACConfig
+
+    cfg = get_config("paac_vector").replace(obs_shape=(obs_dim,),
+                                            num_actions=3)
+    return PAACAgent(cfg, PAACConfig(t_max=5))
+
+
+@pytest.mark.cuda
+def test_host_pool_snapshots_live_on_the_card_and_never_alias(cuda):
+    from repro_torch.pipeline import HostStagingRing
+
+    with _host_pool(cuda) as pool:
+        obs = pool.reset()
+        out = pool.step(np.zeros(8, np.int64))
+        assert obs.is_cuda and all(t.is_cuda for t in out)
+        snap = [t.clone() for t in (obs,) + out]
+        for _ in range(12):  # dones and auto-resets included
+            pool.step_host(np.ones(8, np.int64))
+        assert all(torch.equal(a, b) for a, b in zip((obs,) + out, snap))
+    s = HostStagingRing(2, 5, 8, (8,), np.float32, pin_memory=True).acquire()
+    assert all(t.is_pinned() for t in s.traj + (s.last_obs,))
+    s.np_traj.reward[0, 0] = 3.0
+    assert float(s.traj.reward[0, 0]) == 3.0
+
+
+@pytest.mark.cuda
+def test_sync_host_and_pipelined_host_launch_k1_and_k2(cuda):
+    import math
+
+    from repro_torch.configs import PipelineConfig
+    from repro_torch.core import ParallelRL
+    from repro_torch.pipeline import PipelinedRL
+
+    with _host_pool(cuda) as pool:
+        ops.reset_launches()
+        res = ParallelRL(pool, _host_agent()).run(4)
+        assert ops.launches["nstep_returns"] == 4
+        assert ops.launches["vtrace_returns"] == 0
+        assert math.isfinite(res.mean_metrics["loss"])
+        for n_act, depth in ((1, 2), (4, 4)):
+            ops.reset_launches()
+            prl = PipelinedRL(pool, _host_agent(), pipeline=PipelineConfig(
+                queue_depth=depth, num_actors=n_act))
+            res = prl.run(8)
+            assert ops.launches["vtrace_returns"] == 8
+            assert ops.launches["nstep_returns"] == 0
+            assert sorted(prl.learned_ids) == [(a, s) for a in range(n_act)
+                                               for s in range(8 // n_act)]
+            assert all(math.isfinite(v) for v in res.mean_metrics.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poison", [False, True], ids=["clean", "poisoned"])
+def test_host_lockstep_on_the_card_is_sync_bitwise(cuda, poison,
+                                                   monkeypatch):
+    """Lockstep at infinite clips on a host pool ≡ the sync host run, bit
+    for bit; with every staging set overwritten with NaN the moment it is
+    released, too: release waits for the update's copy of the set."""
+    from repro_torch.configs import PipelineConfig
+    from repro_torch.core import ParallelRL
+    from repro_torch.pipeline import HostStagingRing, PipelinedRL
+
+    inf = float("inf")
+    with _host_pool(cuda) as pool:
+        rl = ParallelRL(pool, _host_agent(), seed=3)
+        r_sync = rl.run(6)
+    if poison:
+        real = HostStagingRing.release
+
+        def release(self, s):
+            for t in s.traj + (s.last_obs,):
+                if t.dtype.is_floating_point:
+                    t.fill_(float("nan"))
+            real(self, s)
+
+        monkeypatch.setattr(HostStagingRing, "release", release)
+    with _host_pool(cuda) as pool:
+        ops.reset_launches()
+        prl = PipelinedRL(pool, _host_agent(), seed=3, pipeline=PipelineConfig(
+            queue_depth=1, lockstep=True, rho_bar=inf, c_bar=inf))
+        r_pipe = prl.run(6)
+    assert ops.launches["nstep_returns"] == 6
+    for k in ("loss", "policy_loss", "value_loss", "entropy", "reward_sum"):
+        assert r_pipe.mean_metrics[k] == r_sync.mean_metrics[k], k
+    for a, b in zip(tree_leaves(rl.params), tree_leaves(prl.params)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg,kernel", [([], "nstep_returns"),
+                                        (["--pipeline"], "vtrace_returns")],
+                         ids=["sync", "pipeline"])
+def test_the_trainers_host_env_legs_on_the_card(cuda, leg, kernel):
+    import math
+
+    from repro_torch.launch import train
+
+    ops.reset_launches()
+    (res,) = train.main(["--host-env", "--n-envs", "32", "--t-max", "5",
+                         "--iterations", "6", "--env-spin", "200"] + leg)
     want = {k: 6 if k == kernel else 0 for k in ops.launches}
     assert dict(ops.launches) == want
     assert res.steps == 6 * 32 * 5

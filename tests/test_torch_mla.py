@@ -71,7 +71,7 @@ def test_plain_mla_decode_matches_reference_and_pallas(dtype, Sk, H, R, Rr,
             for s in ((B, H, R), (B, H, Rr), (B, Sk, R), (B, Sk, Rr))]
     scale = 1.0 / np.sqrt(R + Rr)
     out = tref.mla_decode_attention_ref(
-        *[params_from_numpy(a) for a in arrs], pos, scale)
+        *[params_from_numpy(a, "cpu") for a in arrs], pos, scale)
     assert out.shape == (B, H, R) and out.dtype == getattr(torch, dtype)
     j = [jnp.asarray(a) for a in arrs]
     tol = 3e-2 if dtype == "bfloat16" else 3e-5

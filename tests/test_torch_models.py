@@ -111,10 +111,17 @@ def test_common_blocks_match_jax():
 def test_bridge_keeps_bfloat16_bits_and_layout():
     a = np.asarray(jnp.asarray(np.linspace(-3, 3, 24).reshape(2, 3, 4),
                                jnp.bfloat16))
-    t = params_from_numpy({"w": a, "nest": {"b": np.arange(3)}})
+    t = params_from_numpy({"w": a, "nest": {"b": np.arange(3)}}, "cpu")
     assert t["w"].dtype == torch.bfloat16 and tuple(t["w"].shape) == (2, 3, 4)
     np.testing.assert_array_equal(t["w"].float().numpy(), a.astype(np.float32))
     assert t["nest"]["b"].tolist() == [0, 1, 2]
+
+
+def test_bridge_puts_params_on_the_card_unless_the_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({"w": np.zeros(3, np.float32)})
 
 
 def test_port_init_matches_the_reference_tree_and_distributions(pair):

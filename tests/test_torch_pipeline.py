@@ -16,11 +16,22 @@
   propagates without deadlock; zero-quota replicas check out.
 * Only the learner calls the kernels: every K1/K2 call of a run comes from
   the learner's thread, once an update.
+* The host plane (mirrors of the reference's pins, torch against torch):
+  the staging ring recycles its sets and a timed-out acquire is loud;
+  lockstep at infinite clips on a host pool (and on a ``HostEnvSpec``,
+  whose pool the pipeline owns) ≡ the synchronous host ``ParallelRL``,
+  bitwise; the depth-1 lockstep forced host plane on a tensor env ≡
+  ``ParallelRL``, bitwise; smoke runs on a pool and on four shards, each
+  ``(actor_id, seq)`` learned once; the act step's logp is the gather;
+  every staging set goes back once, only after its update, so a set
+  overwritten with NaN on release changes nothing; a crashing external env
+  propagates; the plane refusals; a run's heartbeat lines and watchdog.
 * Settings outside this slice raise ``NotImplementedError``; the entry
   point runs with ``--pipeline`` on the CPU and raises without a card
   unless the CPU is asked for.
 """
 import json
+import logging
 import math
 import threading
 import time
@@ -47,14 +58,17 @@ from repro_torch.configs import PipelineConfig, get_config  # noqa: E402
 from repro_torch.core import ParallelRL, RunResult  # noqa: E402
 from repro_torch.core.agents import PAACAgent, PAACConfig  # noqa: E402
 from repro_torch.core.rollout import Transition  # noqa: E402
-from repro_torch.envs import GridWorld  # noqa: E402
+from repro_torch.envs import (GridWorld, HostEnvPool,  # noqa: E402
+                              py_bound_spec)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import paper_atari  # noqa: E402
 from repro_torch.models import init_policy  # noqa: E402
 from repro_torch.optim import constant, make_optimizer  # noqa: E402
 from repro_torch.pipeline import (CLOSED, DeviceTrajectoryRing,  # noqa: E402
-                                  ParamSlot, PingPongParamSlot, PipelinedRL,
-                                  QueueClosed, Rollout, make_learner_step)
+                                  HostStagingRing, ParamSlot,
+                                  PingPongParamSlot, PipelinedRL,
+                                  QueueClosed, Rollout, make_host_act_step,
+                                  make_learner_step)
 from repro_torch.utils.bridge import (params_from_numpy,  # noqa: E402
                                       params_to_numpy)
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
@@ -550,9 +564,261 @@ def test_trace_shows_actor_ring_and_learner_tracks(tmp_path):
     assert prl.telemetry.gauges()["queue_depth"] == 0
 
 
+# ---------------------------------------------------------------- host plane
+def test_host_staging_ring_recycles_sets():
+    ring = HostStagingRing(3, t_max=2, n_envs=4, obs_shape=(5,))
+    a = ring.acquire()
+    b = ring.acquire()
+    c = ring.acquire()
+    assert ring.free_sets() == 0
+    assert a.traj.obs.shape == (2, 4, 5) and a.last_obs.shape == (4, 5)
+    assert a.traj.action.dtype == torch.int64
+    # the numpy views the host loop writes are the tensors' own memory
+    a.np_traj.reward[1, 2] = 7.0
+    a.np_last_obs[3] = 1.5
+    assert float(a.traj.reward[1, 2]) == 7.0
+    assert bool((a.last_obs[3] == 1.5).all())
+    assert not a.traj.obs.is_pinned()  # page-locked only on a CUDA run
+    ring.release(b)
+    assert ring.acquire() is b  # LIFO reuse of the hot set
+    ring.release(a)
+    ring.release(c)
+
+
+def test_host_staging_ring_acquire_timeout_is_loud():
+    ring = HostStagingRing(2, t_max=1, n_envs=1, obs_shape=())
+    ring.acquire()
+    ring.acquire()
+    with pytest.raises(RuntimeError, match="release"):
+        ring.acquire(timeout=0.1)
+    with pytest.raises(ValueError):
+        HostStagingRing(1, t_max=1, n_envs=1, obs_shape=())
+
+
+def _host_agent(obs_dim=8, t_max=5):
+    cfg = get_config("paac_vector").replace(obs_shape=(obs_dim,),
+                                            num_actions=3)
+    return PAACAgent(cfg, PAACConfig(t_max=t_max))
+
+
+def _spec(n=8, n_workers=4, **kw):
+    return py_bound_spec(n, obs_dim=8, n_workers=n_workers, device="cpu",
+                         **kw)
+
+
+def _host_pipelined(env, seed=0, t_max=5, **cfg):
+    return PipelinedRL(env, _host_agent(t_max=t_max),
+                       lr_schedule=constant(0.003), seed=seed, device="cpu",
+                       pipeline=PipelineConfig(**cfg))
+
+
+def _assert_bitwise(r_a, a, r_b, b):
+    for k in ("loss", "policy_loss", "value_loss", "entropy", "reward_sum",
+              "episodes"):
+        assert r_a.mean_metrics[k] == r_b.mean_metrics[k], k
+    assert r_a.steps == r_b.steps
+    for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("as_spec", [False, True], ids=["pool", "spec"])
+def test_lockstep_infinite_clips_bitwise_vs_sync_on_a_host_pool(as_spec):
+    """Single actor, depth 1, ρ̄ = c̄ = ∞ on a host pool (or a spec the
+    pipeline builds, owns and closes) ≡ the synchronous host ParallelRL,
+    bitwise, over two runs: the same learner step, the same staged
+    trajectories."""
+    with _spec().build() as pool:
+        rl = ParallelRL(pool, _host_agent(), lr_schedule=constant(0.003),
+                        seed=1, device="cpu")
+        r_sync = [rl.run(8), rl.run(3)]
+    with _spec().build() as pool:
+        prl = _host_pipelined(_spec() if as_spec else pool, seed=1,
+                              queue_depth=1, rho_bar=INF, c_bar=INF,
+                              lockstep=True)
+        assert prl._plane == "host"
+        r_pipe = [prl.run(8), prl.run(3)]
+        prl.close()
+        prl.close()  # idempotent
+        owned = prl.env if as_spec else None
+    assert all(r.mean_metrics["staleness"] == 0.0 for r in r_pipe)
+    _assert_bitwise(r_pipe[1], prl, r_sync[1], rl)
+    assert r_pipe[0].mean_metrics == {**r_sync[0].mean_metrics,
+                                      "staleness": 0.0}
+    if as_spec:  # the pool built from the spec was closed by close()
+        with pytest.raises(RuntimeError, match="closed env pool"):
+            owned.reset()
+
+
+def test_forced_host_plane_depth1_lockstep_bitwise_vs_sync():
+    """The GA3C-style baseline: a tensor env's trajectories staged to host
+    sets and copied back — losslessly, so lockstep ≡ ParallelRL bitwise."""
+    rl = ParallelRL(_grid(), _grid_agent(), lr_schedule=constant(0.01),
+                    seed=1, device="cpu")
+    r_sync = rl.run(10)
+    prl = _pipelined(seed=1, queue_depth=1, rho_bar=INF, c_bar=INF,
+                     lockstep=True, rollout_plane="host")
+    assert prl._plane == "host"
+    r_pipe = prl.run(10)
+    assert prl.staleness == [0.0] * 10
+    _assert_bitwise(r_pipe, prl, r_sync, rl)
+
+
+def test_host_plane_smoke_on_a_pool_and_on_four_shards():
+    with _spec(16).build() as pool:
+        prl = _host_pipelined(pool, queue_depth=2)
+        res = prl.run(6)
+        assert res.steps == 6 * 16 * 5
+        assert math.isfinite(res.mean_metrics["loss"]) and res.episodes > 0
+        assert max(prl.staleness) <= 2 + 1
+        prl = _host_pipelined(pool, queue_depth=4, num_actors=4)
+        assert [e.n_envs for e in prl._actor_envs] == [4] * 4
+        assert all(e._parent is pool for e in prl._actor_envs)
+        res = prl.run(12)
+        assert res.steps == 12 * 4 * 5  # one 4-env shard a rollout
+        assert sorted(prl.learned_ids) == [(a, s) for a in range(4)
+                                           for s in range(3)]
+        assert res.actor_idle_s == pytest.approx(sum(res.per_actor_idle_s))
+        assert math.isfinite(res.mean_metrics["loss"])
+    # per-actor pools (GA3C's sweep), each a spec the pipeline owns
+    prl = _host_pipelined([_spec(4, 2, base_seed=4 * a) for a in range(2)],
+                          queue_depth=2, num_actors=2, t_max=3)
+    assert prl.run(6).steps == 6 * 4 * 3
+    prl.close()
+
+
+def test_host_plane_releases_each_set_once_after_its_update(monkeypatch):
+    """The release protocol: every payload's set goes back exactly once,
+    after its update has read it — so a set overwritten with NaN the moment
+    it is released changes no loss and no parameter."""
+    events, real_release = [], HostStagingRing.release
+
+    def release(self, s, poison=False):
+        events.append(("release", id(s)))
+        if poison:
+            for t in s.traj + (s.last_obs,):
+                if t.dtype.is_floating_point:
+                    t.fill_(float("nan"))
+        real_release(self, s)
+
+    real_step = make_learner_step
+
+    def step_spy(*a, **kw):
+        inner = real_step(*a, **kw)
+
+        def step(params, opt_state, traj, last_obs, *rest):
+            events.append(("update", None))
+            return inner(params, opt_state, traj, last_obs, *rest)
+
+        return step
+
+    runs = []
+    for poison in (False, True):
+        monkeypatch.setattr(HostStagingRing, "release",
+                            lambda self, s, p=poison: release(self, s, p))
+        monkeypatch.setattr("repro_torch.pipeline.orchestrator."
+                            "make_learner_step", step_spy)
+        events.clear()
+        with _spec().build() as pool:
+            prl = _host_pipelined(pool, seed=2, queue_depth=1, rho_bar=INF,
+                                  c_bar=INF, lockstep=True)
+            res = prl.run(6)
+        runs.append((res, prl))
+        kinds = [k for k, _ in events]
+        assert kinds == ["update", "release"] * 6
+        assert len({i for k, i in events if k == "release"}) <= 3
+    (r_a, a), (r_b, b) = runs
+    assert all(math.isfinite(v) for v in r_b.mean_metrics.values())
+    _assert_bitwise(r_a, a, r_b, b)
+
+
+def test_host_plane_actor_failure_propagates():
+    class _Exploding:
+        def reset(self):
+            return np.zeros(8, np.float32)
+
+        def step(self, action):
+            raise RuntimeError("emulator crashed")
+
+    with HostEnvPool([_Exploding] * 4, n_workers=2, obs_shape=(8,),
+                     device="cpu") as pool:
+        prl = _host_pipelined(pool, queue_depth=1, num_actors=2)
+        t0 = time.perf_counter()
+        with pytest.raises(RuntimeError, match="pipeline actor") as info:
+            prl.run(10)
+        assert time.perf_counter() - t0 < 60.0
+    assert "emulator crashed" in str(info.value.__cause__)
+
+
+def test_host_act_step_logp_matches_the_log_softmax_gather():
+    cfg = get_config("paac_vector").replace(obs_shape=(3,), num_actions=5)
+    agent = PAACAgent(cfg, PAACConfig(t_max=2))
+    act = agent.act_fn()
+    params = init_policy(cfg, generator=torch.Generator().manual_seed(1),
+                         device="cpu")
+    obs = torch.randn(8, 3, generator=torch.Generator().manual_seed(2))
+    action, value, logp = make_host_act_step(act)(
+        params, obs, torch.Generator().manual_seed(0))
+    logits, v = act(params, obs)
+    want = torch.log_softmax(logits, -1).gather(1, action[:, None])[:, 0]
+    torch.testing.assert_close(logp, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(value, v) and action.dtype == torch.int64
+    replay = torch.tensor([0, 1, 2, 3, 4, 0, 1, 2])
+    again, _, logp2 = make_host_act_step(act)(params, obs, None, replay)
+    assert torch.equal(again, replay)
+    torch.testing.assert_close(
+        logp2, torch.log_softmax(logits, -1).gather(1, replay[:, None])[:, 0],
+        rtol=1e-6, atol=1e-6)
+
+
+def test_only_the_learner_calls_the_kernels_on_the_host_plane(monkeypatch):
+    calls = []
+    for name in ("nstep_returns", "vtrace_returns"):
+        real = getattr(ops, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls.append((_name, threading.current_thread().name))
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(ops, name, spy)
+    learner = threading.current_thread().name
+    with _spec().build() as pool:
+        ParallelRL(pool, _host_agent(), device="cpu").run(2)
+        assert calls == [("nstep_returns", learner)] * 2
+        calls.clear()
+        _host_pipelined(pool, queue_depth=2, num_actors=2).run(4)
+        assert calls == [("vtrace_returns", learner)] * 4
+
+
+def test_host_plane_refusals_and_the_run_observers(tmp_path, caplog):
+    with _spec().build() as pool:
+        with pytest.raises(ValueError, match="born in host memory"):
+            _host_pipelined(pool, rollout_plane="device")
+        with pytest.raises(ValueError, match="born in host memory"):
+            _host_pipelined(pool, rollout_plane="mesh")
+        with pytest.raises(ValueError, match="all host or all tensor"):
+            _host_pipelined([pool, _grid(8)], num_actors=2)
+        with pytest.raises(NotImplementedError, match="is neither"):
+            _pipelined(object())
+        hb = tmp_path / "hb.jsonl"
+        with caplog.at_level(logging.WARNING,
+                             logger="repro_torch.telemetry"):
+            prl = _host_pipelined(pool, queue_depth=2,
+                                  metrics_jsonl=str(hb), heartbeat_s=0.05,
+                                  stall_timeout_s=30.0)
+            res = prl.run(4)
+    lines = [json.loads(x) for x in hb.read_text().splitlines()]
+    assert lines and lines[-1]["steps"] == res.steps == 4 * 8 * 5
+    assert {"time_unix", "uptime_s", "steps_per_s_ema", "span_drops",
+            "actor_last_activity_s", "counters", "queue_depth",
+            "staleness"} <= set(lines[-1])
+    assert set(lines[-1]["actor_last_activity_s"]) == {"actor0"}
+    assert "stall watchdog" not in caplog.text
+    names = {em.name for _, _, em in prl.telemetry.tracks()}
+    assert names == {"learner", "queue", "actor0"}
+
+
 # ---------------------------------------------------------------- refusals
 @pytest.mark.parametrize("setting,item", [
-    (dict(rollout_plane="host"), "item 8"),
     (dict(rollout_plane="mesh"), "item 14"),
     (dict(mesh_shape=2), "item 14"),
     (dict(actor_backend="process"), "item 10"),
@@ -560,8 +826,6 @@ def test_trace_shows_actor_ring_and_learner_tracks(tmp_path):
     (dict(elastic=True), "item 10"),
     (dict(fault_plan=object()), "item 10"),
     (dict(checkpoint_dir="ckpt"), "item 10"),
-    (dict(metrics_jsonl="hb.jsonl"), "item 13"),
-    (dict(stall_timeout_s=5.0), "item 13"),
 ], ids=lambda x: next(iter(x)) if isinstance(x, dict) else x)
 def test_unported_settings_raise(setting, item):
     with pytest.raises(NotImplementedError, match=item):

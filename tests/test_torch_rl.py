@@ -593,8 +593,8 @@ def test_entry_points_raise_without_a_card_unless_the_cpu_is_asked_for():
 
 def test_parallel_rl_refuses_what_it_does_not_drive():
     """ParallelRL is algorithm agnostic: it drives DQN, lagged PAAC and PPO
-    (and any agent with a train step), with the state each carries; only
-    envs that are not batched tensor envs are refused, naming item 8."""
+    (and any agent with a train step), with the state each carries; an env
+    that is neither a batched tensor env nor a host env pool is refused."""
     from repro_torch.core.agents import (DQNAgent, LaggedPAACAgent,
                                          PPOAgent)
 
@@ -611,7 +611,7 @@ def test_parallel_rl_refuses_what_it_does_not_drive():
         assert (rl.agent_state if state is None
                 else set(rl.agent_state)) == state
         assert rl.run(1).steps == 4 * agent.hp.t_max
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="HostEnvPool.*is neither"):
         ParallelRL(object(), PAACAgent(cfg), device="cpu")
 
 

@@ -8,8 +8,8 @@
 * every kernel source carries its note and C entry point, is built, the
   build goes to an ignored directory, and ``chip_smoke.py`` refuses to run
   without a CUDA device, printing no result;
-* the training, pipeline, MLA, SSM and agents slices' modules are among
-  those the pins above cover.
+* the training, pipeline, MLA, SSM, agents and host env slices' modules
+  are among those the pins above cover.
 """
 import ast
 import os
@@ -117,7 +117,8 @@ def test_every_source_is_built_and_the_training_slice_is_pinned():
               "kernels.ssd_scan", "models.ssm", "configs.minicpm3_4b",
               "configs.mamba2_370m", "core.agents.dqn", "core.agents.replay",
               "core.agents.baselines", "core.agents.ppo", "core.evaluation",
-              "envs.token_env", "envs.cartpole", "launch.train"):
+              "envs.token_env", "envs.cartpole", "launch.train",
+              "envs.host_env", "envs.pyemu", "pipeline.queue"):
         assert f"repro_torch.{m}" in mods, m
 
 

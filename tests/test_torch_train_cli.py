@@ -11,9 +11,13 @@
   its ROADMAP Queue 1 item.
 * ``--device cpu`` runs the three ported legs (PAAC synchronous,
   ``--pipeline`` and ``--algo dqn``) on the reference's ``TokenEnv``
-  setting; without a card and without ``--device cpu`` the trainer raises.
-* ``examples/quickstart_torch.py`` and ``examples/compare_baselines_torch.py``
-  run at a tiny size on the CPU.
+  setting, the ``--host-env`` legs (synchronous and ``--pipeline``, with
+  the reference's pool recipe), ``--pipeline --rollout-plane host`` on the
+  TokenEnv, and ``--metrics-jsonl`` with ``--stall-timeout``; without a
+  card and without ``--device cpu`` the trainer raises.
+* ``examples/quickstart_torch.py`` (its device and host legs bitwise equal
+  to the synchronous run) and ``examples/compare_baselines_torch.py`` run
+  at a tiny size on the CPU.
 """
 import importlib.util
 import json
@@ -21,6 +25,7 @@ import math
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -74,6 +79,8 @@ SYSTEM_EXITS = [
     ["--resume", "--checkpoint-dir", "ck"],
     ["--pipeline", "--checkpoint-every", "2"],
     ["--pipeline", "--resume", "--sanitize", "locks"],
+    ["--arch", "qwen2-7b", "--host-env"],
+    ["--arch", "mamba2-370m", "--pipeline", "--host-env"],
 ]
 
 
@@ -98,15 +105,14 @@ def test_system_exits_come_in_the_references_order_with_its_text(
 
 
 def test_every_reference_exit_is_among_the_cases(reference_exits):
-    assert len(set(reference_exits)) == 10
+    # eleven exits; the vector/cnn one names the arch, so two of its texts
+    assert len(set(reference_exits)) == 12
 
 
 UNPORTED = [
     (["--arch", "qwen2-7b"], "item 11"),
     (["--arch", "mamba2-370m", "--reduced"], "item 11"),
     (["--mode", "synthetic"], "item 11"),
-    (["--host-env"], "item 8"),
-    (["--pipeline", "--rollout-plane", "host"], "item 8"),
     (["--pipeline", "--actor-backend", "process"], "item 10"),
     (["--pipeline", "--replay"], "item 10"),
     (["--pipeline", "--algo", "dqn", "--replay"], "item 10"),
@@ -118,8 +124,6 @@ UNPORTED = [
      "item 10"),
     (["--pipeline", "--checkpoint-dir", "ck", "--resume"], "item 10"),
     (["--pipeline", "--sanitize", "locks"], "item 13"),
-    (["--pipeline", "--metrics-jsonl", "m.jsonl"], "item 13"),
-    (["--pipeline", "--stall-timeout", "5"], "item 13"),
     (["--pipeline", "--mesh", "2"], "item 14"),
     (["--pipeline", "--rollout-plane", "mesh"], "item 14"),
 ]
@@ -151,6 +155,59 @@ def test_the_ported_legs_run_on_the_cpu(leg):
         assert rl.agent_state["replay"]["size"] == 4 * 4 * 3
 
 
+@pytest.mark.parametrize("leg", [[], ["--pipeline"],
+                                 ["--pipeline", "--num-actors", "2"]],
+                         ids=["sync", "pipeline", "pipeline-2-actors"])
+def test_the_host_env_legs_run_on_the_cpu(leg, monkeypatch):
+    """``--host-env``: the reference's recipe, py_bound_spec(n_envs,
+    obs_dim=16, spin, n_workers=min(8, n_envs)), 3 actions; the sync leg
+    builds the pool, --pipeline hands over the spec; either way the pool
+    is closed at the end."""
+    from repro.envs import py_bound_spec as ref_spec
+    from repro_torch.envs import HostEnvPool
+
+    built, specs = [], []
+    real_init, real_spec = HostEnvPool.__init__, train.py_bound_spec
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        built.append(self)
+
+    monkeypatch.setattr(HostEnvPool, "__init__", init)
+    monkeypatch.setattr(train, "py_bound_spec",
+                        lambda *a, **kw: specs.append(real_spec(*a, **kw))
+                        or specs[-1])
+    rl, results = train.run_rl(train.build_parser().parse_args(
+        TINY + ["--host-env", "--env-spin", "20"] + leg))
+    (spec,), (pool,) = specs, built
+    want = ref_spec(4, obs_dim=16, spin=20, n_workers=4)
+    assert (spec.env_fn.__name__, spec.env_args, spec.n_workers,
+            spec.obs_shape, spec.device) == (
+        want.env_fn.__name__, want.env_args, want.n_workers,
+        want.obs_shape, "cpu")
+    assert [e.spin for e in pool.envs] == [20] * 4
+    assert pool._closed
+    assert rl.agent.cfg.obs_shape == (16,) and rl.agent.cfg.num_actions == 3
+    (res,) = results
+    assert res.steps == 4 * 4 * 3 // (2 if "2" in leg else 1)
+    assert all(math.isfinite(v) for v in res.mean_metrics.values())
+    if leg:
+        assert rl._plane == "host"
+
+
+def test_the_forced_host_plane_and_the_observers_run_on_the_cpu(tmp_path):
+    hb = tmp_path / "hb.jsonl"
+    rl, (res,) = train.run_rl(train.build_parser().parse_args(
+        TINY + ["--pipeline", "--rollout-plane", "host", "--metrics-jsonl",
+                str(hb), "--stall-timeout", "30"]))
+    assert isinstance(rl.env, TokenEnv) and rl._plane == "host"
+    assert rl.pipeline.metrics_jsonl == str(hb)
+    assert rl.pipeline.stall_timeout_s == 30.0
+    assert res.steps == 4 * 4 * 3
+    lines = [json.loads(x) for x in hb.read_text().splitlines()]
+    assert lines and lines[-1]["steps"] == res.steps
+
+
 def test_epochs_and_the_pipeline_trace(tmp_path):
     path = tmp_path / "trace.json"
     results = train.main(TINY + ["--epochs", "2", "--pipeline", "--trace",
@@ -177,12 +234,15 @@ def _example(name):
 
 
 def test_quickstart_runs_on_the_cpu(capsys):
-    part1, sync, ring = _example("quickstart_torch").main(
+    part1, sync, ring, host = _example("quickstart_torch").main(
         ["--device", "cpu", "--n-envs", "4", "--epochs", "1", "--iters", "2",
          "--lock-iters", "3"])
-    assert part1.steps == 2 * 4 * 5 and sync.steps == ring.steps == 3 * 4 * 5
+    assert part1.steps == 2 * 4 * 5
+    assert sync.steps == ring.steps == host.steps == 3 * 4 * 5
+    assert host.mean_metrics["loss"] == sync.mean_metrics["loss"]
     out = capsys.readouterr().out
-    assert "bit for bit" in out and "item 8" in out and "item 14" in out
+    assert "bit for bit" in out and "item 14" in out and "item 8" not in out
+    assert "      host: reward/iter=" in out
 
 
 def test_compare_baselines_runs_on_the_cpu(capsys):
