@@ -147,7 +147,42 @@ paths:
               30`` (the heartbeat's lines carry the reference's keys); (e)
               ``HostEnvPool.step()`` tensors on the card unchanged by the
               next step, and staging sets overwritten with NaN when
-              released change no lockstep update (bitwise);
+              released change no lockstep update (bitwise); (f) the
+              four-actor cell at delay 0 again under
+              ``sys.setswitchinterval(0.0005)`` (restored after), its
+              timesteps/s and learner update span beside the default's;
+              the process actor plane (``actor_backend="process"``:
+              spawned workers, each its own interpreter and CUDA context,
+              over shared-memory staging sets and a shared-memory param
+              slot), on ``HostEnvSpec``s of the same 32 ``FrameEnv``s:
+              (g) one worker at depth 2 and four of 8 envs at depth 4,
+              clips 1, at both delays: 100 timed updates, K2 once each
+              and K1 never, every (actor_id, seq) learned once,
+              timesteps/s beside sync and the thread plane, the learner's
+              update span and idle share, staleness, the workers' shipped
+              spans, the card memory a worker takes, a profiler window of
+              the parent's device work (busy share, H2D ms a payload from
+              pageable shared memory), and after close() no worker alive
+              and no segment of the plane left in /dev/shm; (h) 32
+              ``PyBoundEnv``s (spin 2000) on 1, 2, 4 and 8 workers:
+              timesteps/s and the workers' own stepping rate; (i) lockstep
+              (depth 1, inf clips) on one worker ≡ the thread host plane,
+              bitwise with the acting generator's state; (j)
+              ``launch/train.py --pipeline --actor-backend process
+              --host-env`` (K2 50);
+   replay   — the replay plane in the paper's setting (paac_nature,
+              FrameStack(AtariLike(32)), fp32): (a) with cuDNN
+              deterministic, depth-1 lockstep pipelined DQN ≡
+              ``SyncReplayDQN`` over two runs (no kernel), and PAAC at
+              capacity 1 (staleness 0) ≡ the FIFO device plane's lockstep
+              run at clips 1 (K2) and ≡ ``ParallelRL`` at clips inf; (b)
+              one actor on a ring of 64 rollouts (21.7 MB each, ~1.4 GB
+              when full): DQN, DQN prioritized at batch 2 and V-trace
+              PAAC, 100 timed updates each (K2 once a PAAC update, none for
+              DQN), timesteps/s, staleness, learner idle, the update and
+              sample spans, peak device memory; (c) ``launch/train.py
+              --pipeline --replay`` (K2 50) and ``--pipeline --algo dqn
+              --replay`` (none) on TokenEnv;
 6. model    — reduced qwen2-7b, minicpm3-4b (absorbed and naive decode)
               and mamba2-370m in fp32, one set of weights on the CPU
               (plain versions) and on the card (kernels): prefill and
@@ -177,8 +212,9 @@ paths:
 TF32 is off for matmuls and convolutions throughout. The line before the
 last is a JSON object with each kernel's numbers and its launches on each
 main path (training, pipeline, agents, train cli, host sync, host
-pipeline, host train cli and the three serving cells, each read with the
-counts set to 0 just before it); the last line is
+pipeline, host train cli, host process, host process train cli, replay,
+replay train cli and the three serving cells, each read with the counts
+set to 0 just before it); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
 phase fails, it exits non-zero and prints no result. ``--trace-dir DIR``
 also writes the pipeline runs' Chrome traces (actor, ring and learner
@@ -1184,9 +1220,14 @@ SHARED_METRICS = ("loss", "policy_loss", "value_loss", "entropy",
                   "reward_sum", "episodes")
 
 
-def check_bitwise(torch, tree, ra, a, rb, b, what: str) -> None:
-    """Two runs' shared mean metrics and every parameter leaf are equal."""
-    for k in SHARED_METRICS:
+DQN_METRICS = ("loss", "q_mean", "td_abs", "reward_sum", "episodes")
+
+
+def check_bitwise(torch, tree, ra, a, rb, b, what: str,
+                  keys=SHARED_METRICS) -> None:
+    """Two runs' mean metrics ``keys`` and every parameter leaf are
+    equal."""
+    for k in keys:
         check(ra.mean_metrics[k] == rb.mean_metrics[k],
               f"{what}: mean {k} {ra.mean_metrics[k]!r} != "
               f"{rb.mean_metrics[k]!r}")
@@ -1266,6 +1307,19 @@ def span_means(hub) -> str:
             row[1] += 1
     return ", ".join(f"{who} {cat} {ms / n:.3f} x{n}"
                      for (who, cat), (ms, n) in sorted(sums.items()))
+
+
+def span_stat(hub, track: str, stage: str):
+    """(mean host ms, count) of the ``stage`` spans of the tracks whose
+    name starts with ``track`` (shipped worker rings included)."""
+    ms, n = 0.0, 0
+    for _, _, em in hub.tracks():
+        if em.name.startswith(track):
+            for cat, t0, t1 in em.snapshot():
+                if em.categories[cat] == stage:
+                    ms += (t1 - t0) * 1e3
+                    n += 1
+    return (ms / n if n else float("nan")), n
 
 
 def phase_pipeline(torch, paper_atari, configs, ops, tree, card, dev="cuda",
@@ -2183,6 +2237,7 @@ def phase_host(torch, np, configs, core, envs, A, optim, pipeline,
         return out
 
     rows = {"sync, delay 0": timed_sync(0.0)}
+    sync_tps = rows["sync, delay 0"]["tps"]
     envs_a_worker = -(-n_envs // n_workers)
     # the update's wall spread over the rollout's t_max steps and the envs
     # each worker steps in turn, rounded up to 0.1 ms: the envs then take
@@ -2262,6 +2317,8 @@ def phase_host(torch, np, configs, core, envs, A, optim, pipeline,
                 check(n_act > 1 or stale <= depth + 1,
                       f"{label}: staleness {stale} > {depth + 1}")
                 spans = span_means(rl.telemetry)
+                update_ms, _ = span_stat(rl.telemetry, "learner",
+                                         "learner.update")
                 busy_ms, h2d_ms, h2d_n, acts = busy_window(rl)
             per_iter = rl._steps_per_iter
             iter_ms = 1e3 * per_iter / res.timesteps_per_sec
@@ -2270,7 +2327,7 @@ def phase_host(torch, np, configs, core, envs, A, optim, pipeline,
             row = rows[f"{'one actor' if n_act == 1 else 'four actors'}, "
                        f"delay {1e3 * d:.1f}"] = dict(
                 tps=res.timesteps_per_sec, iter_ms=iter_ms,
-                busy=busy_ms / iter_ms,
+                busy=busy_ms / iter_ms, update_ms=update_ms,
                 actor_idle=res.actor_idle_s / (n_act * wall_s),
                 learner_idle=res.learner_idle_s / wall_s)
             say("host", f"(c) PipelinedRL host plane, {label}, depth "
@@ -2290,6 +2347,32 @@ def phase_host(torch, np, configs, core, envs, A, optim, pipeline,
     say("host", "timesteps/s: " + ", ".join(
         f"{k} {r['tps']:.1f} (busy {100 * r['busy']:.1f}%)"
         for k, r in rows.items()))
+
+    # (f) the GIL's hand-off: the four-actor cell at delay 0 again with a
+    # switch interval of 0.5 ms (a thread woken from a wait gets the GIL
+    # within it), then the default 5 ms restored
+    default_switch = sys.getswitchinterval()
+    sys.setswitchinterval(0.0005)
+    try:
+        with pool(0.0) as p:
+            rl = piped(p, queue_depth=4, num_actors=4)
+            rl.run(warmup)
+            res, _ = run_checked("four actors, switch interval 0.5 ms", rl,
+                                 iters, {"vtrace_returns": iters})
+            update_ms, n_upd = span_stat(rl.telemetry, "learner",
+                                         "learner.update")
+            del rl
+    finally:
+        sys.setswitchinterval(default_switch)
+    base = rows["four actors, delay 0.0"]
+    say("host", f"(f) four actors, depth 4, delay 0, "
+        f"sys.setswitchinterval(0.0005): {res.timesteps_per_sec:.1f} "
+        f"timesteps/s ({res.timesteps_per_sec / base['tps']:.2f}x the "
+        f"default {1e3 * default_switch:g} ms interval's "
+        f"{base['tps']:.1f}, {res.timesteps_per_sec / sync_tps:.2f}x sync), "
+        f"learner update span {update_ms:.2f} ms x{n_upd} against "
+        f"{base['update_ms']:.2f} ms at the default; the interval restored "
+        f"to {1e3 * sys.getswitchinterval():g} ms ({card})")
 
     # (d) the reference trainer with --host-env (PyBoundEnv, GIL-held spin)
     spec = envs.py_bound_spec(n_envs, obs_dim=16, spin=env_spin,
@@ -2399,6 +2482,440 @@ def phase_host(torch, np, configs, core, envs, A, optim, pipeline,
         f"{time.perf_counter() - t_phase:.1f} s")
     return ({k: v for k, v in sync_counts.items() if v},
             {k: v for k, v in pipe_counts.items() if v},
+            {k: v for k, v in cli.items() if v}, rows, delay)
+
+
+def frame_spec(envs, np, n_envs: int, delay: float, n_workers: int, dev):
+    """A picklable ``HostEnvSpec`` of ``n_envs`` ``FrameEnv``s: spawned
+    workers rebuild it (``FrameEnv`` is a module-level class of this
+    script, which a spawned child imports again as ``__mp_main__``)."""
+    return envs.HostEnvSpec(env_fn=FrameEnv,
+                            env_args=tuple((i, delay) for i in range(n_envs)),
+                            n_workers=n_workers, obs_shape=FrameEnv.SHAPE,
+                            obs_dtype=np.float32, device=str(dev))
+
+
+def phase_host_process(torch, np, configs, envs, A, optim, pipeline, ops,
+                       tree, train, card, sync_rows, delay, dev="cuda",
+                       n_envs=32, n_workers=8, warmup=10, iters=100,
+                       lock_iters=10, window=10, cli_iters=50, env_spin=2000,
+                       sweep=(1, 2, 4, 8), sweep_iters=50):
+    """The process actor plane (spawned workers over shared memory) in the
+    host phase's setting: one worker at depth 2 and four of 8 envs at
+    depth 4, at delay 0 and at the calibrated ``delay``, beside the
+    synchronous rows ``sync_rows`` of ``phase_host``; 32 ``PyBoundEnv``s
+    on 1, 2, 4 and 8 workers; lockstep ≡ the thread host plane bitwise;
+    nothing left in /dev/shm; the trainer's ``--actor-backend process``
+    leg. Returns the launch counts of the timed runs and of the trainer's
+    leg."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    leaves = tree.tree_leaves
+    inf = float("inf")
+    t_max = 5
+    lr = 0.0007 * n_envs
+    cfg = configs.get_config("paac_nature").replace(
+        obs_shape=FrameEnv.SHAPE, num_actions=6)
+
+    def agent(c=cfg):
+        return A.PAACAgent(c, A.PAACConfig(gamma=0.99, entropy_beta=0.01,
+                                           t_max=t_max))
+
+    def piped(env, c=cfg, lr=lr, **cfg_kw):
+        cfg_kw.setdefault("actor_backend", "process")
+        return pipeline.PipelinedRL(env, agent(c),
+                                    pipeline=configs.PipelineConfig(**cfg_kw),
+                                    optimizer="rmsprop",
+                                    lr_schedule=optim.constant(lr), seed=SEED,
+                                    device=dev)
+
+    def shm_now():
+        return set(os.listdir("/dev/shm"))
+
+    def timed(rl, n_act, label, n_iters, free0, reserved0):
+        """Warm-up, then ``n_iters`` updates with the counts set to 0 just
+        before them; every (actor_id, seq) learned once; spans; then a
+        profiler window of the parent's device work. ``free0`` and
+        ``reserved0`` are the card's free and the parent's reserved bytes
+        before the workers were spawned: what the card lost beyond the
+        parent's own growth is the workers' (contexts and tensors).
+        Returns the row."""
+        t0 = time.perf_counter()
+        rl.run(warmup)
+        warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        child_mib = (free0 - torch.cuda.mem_get_info()[0]
+                     - (torch.cuda.memory_reserved() - reserved0)) / 2**20
+        quota = [n_iters // n_act + (1 if a < n_iters % n_act else 0)
+                 for a in range(n_act)]
+        before = [t.clone() for t in leaves(rl.params)]
+        ops.reset_launches()
+        res = rl.run(n_iters)
+        counts = dict(ops.launches)
+        want = {k: n_iters if k == "vtrace_returns" else 0 for k in counts}
+        check(counts == want, f"{label}: launches {counts}, expected {want}")
+        check(all(math.isfinite(v) for v in res.mean_metrics.values()),
+              f"{label}: non-finite metrics {res.mean_metrics}")
+        check(max((a - b).abs().max().item() for a, b in
+                  zip(before, leaves(rl.params))) > 0,
+              f"{label}: the parameters did not change")
+        check(sorted(rl.learned_ids) == [(a, q) for a in range(n_act)
+                                         for q in range(quota[a])],
+              f"{label}: an (actor_id, seq) was dropped or learned twice")
+        hub, stale_max = rl.telemetry, max(rl.staleness)
+        update_ms, _ = span_stat(hub, "learner", "learner.update")
+        collect_ms, n_col = span_stat(hub, "worker", "collect")
+        copy_ms, _ = span_stat(hub, "worker", "shm.copy")
+        publish_ms, _ = span_stat(hub, "shm.publish", "shm.copy")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rl.run(window)
+            torch.cuda.synchronize()
+        busy_ms, by_name = device_window(prof, window)
+        h2d = [row for name, row in by_name.items() if "HtoD" in name]
+        # one payload's copy to the card, host-timed: from a worker's
+        # pageable shm set, as the learner copies it, and from page-locked
+        # copies of it (the workers are idle between runs)
+        payload = list(rl._process_plane._workers[0].sets[0].traj) + [
+            rl._process_plane._workers[0].sets[0].last_obs]
+        payload_ms = {}
+        for kind, src in (("pageable", payload),
+                          ("page-locked", [t.pin_memory() for t in payload])):
+            for i in range(21):
+                if i == 1:
+                    t0 = time.perf_counter()
+                for t in src:
+                    t.to(dev, non_blocking=True)
+                torch.cuda.synchronize()
+            payload_ms[kind] = (time.perf_counter() - t0) / 20 * 1e3
+        del payload
+        per_iter = rl._steps_per_iter
+        iter_ms = 1e3 * per_iter / res.timesteps_per_sec
+        wall_s = n_iters * iter_ms / 1e3
+        m = res.mean_metrics
+        return dict(
+            tps=res.timesteps_per_sec, iter_ms=iter_ms, counts=counts,
+            update_ms=update_ms, collect_ms=collect_ms, n_col=n_col,
+            copy_ms=copy_ms, publish_ms=publish_ms,
+            learner_idle=res.learner_idle_s / wall_s,
+            actor_idle=res.actor_idle_s / (n_act * wall_s),
+            stale_mean=m["staleness"], stale_max=stale_max,
+            busy_ms=busy_ms, busy=busy_ms / iter_ms,
+            h2d_ms=sum(r[0] for r in h2d), h2d_n=sum(r[1] for r in h2d),
+            per_iter=per_iter, warm_s=warm_s, child_mib=child_mib / n_act,
+            pageable_ms=payload_ms["pageable"],
+            pinned_ms=payload_ms["page-locked"])
+
+    say("host", f"process plane: paac_nature on HostEnvSpecs of {n_envs} "
+        f"FrameEnvs, spawned workers (each its own interpreter and CUDA "
+        f"context, acting on {dev}), shm staging and the shm param slot; "
+        "the parent's learner through K2 at clips 1")
+    path = {k: 0 for k in ops.launches}
+    rows = {}
+    for d in (0.0, delay):
+        for label, n_act, depth in (("one worker", 1, 2),
+                                    (f"four workers of {n_envs // 4} envs",
+                                     4, 4)):
+            spec = frame_spec(envs, np, n_envs, d, n_workers, dev)
+            free0, reserved0 = (torch.cuda.mem_get_info()[0],
+                                torch.cuda.memory_reserved())
+            rl = piped(spec, queue_depth=depth, num_actors=n_act)
+            try:
+                r = timed(rl, n_act, f"process {label}, delay {d}", iters,
+                          free0, reserved0)
+                segs = rl._process_plane.segment_names()
+                procs = [w.proc for w in rl._process_plane._workers]
+            finally:
+                rl.close()
+            check(not any(p.is_alive() for p in procs),
+                  f"process {label}: a worker outlived close()")
+            check(not set(segs) & shm_now(),
+                  f"process {label}: segments left in /dev/shm")
+            for k, v in r["counts"].items():
+                path[k] += v
+            key = (f"{'one worker' if n_act == 1 else 'four workers'}, "
+                   f"delay {1e3 * d:.1f}")
+            rows[key] = r
+            sync = sync_rows["sync, delay 0" if d == 0 else
+                             f"sync, delay {1e3 * d:.1f}"]
+            thread_key = (f"{'one actor' if n_act == 1 else 'four actors'}"
+                          f", delay {1e3 * d:.1f}")
+            thread = sync_rows.get(thread_key)
+            say("host", f"(g) process plane, {label}, depth {depth}, clips "
+                f"1, delay {1e3 * d:.1f} ms: the warm-up of {warmup} (the "
+                f"workers' start, imports and first forwards included) "
+                f"{r['warm_s']:.1f} s, "
+                f"{r['child_mib']:.0f} MiB of the card a worker; {iters} "
+                "updates, "
+                f"K1 {r['counts']['nstep_returns']} K2 "
+                f"{r['counts']['vtrace_returns']}; {r['tps']:.1f} "
+                f"timesteps/s ({r['tps'] / sync['tps']:.2f}x sync"
+                + (f", {r['tps'] / thread['tps']:.2f}x the thread plane's "
+                   f"{thread['tps']:.1f}" if thread else "")
+                + f"), {r['iter_ms']:.2f} ms an update of {r['per_iter']} "
+                f"timesteps; learner update span {r['update_ms']:.2f} ms"
+                + (f" (thread plane {thread['update_ms']:.2f})" if thread
+                   else "")
+                + f", learner idle {100 * r['learner_idle']:.1f}%, actor "
+                f"(drainer) idle {100 * r['actor_idle']:.1f}%; staleness "
+                f"mean {r['stale_mean']:.3f} max {r['stale_max']:.0f}; "
+                f"workers' collect {r['collect_ms']:.2f} ms x{r['n_col']}, "
+                f"param copy-in {r['copy_ms']:.3f} ms; the D2H publish into "
+                f"shm {r['publish_ms']:.3f} ms an update; profiler window of "
+                f"{window} (the parent's device work): busy "
+                f"{r['busy_ms']:.3f} ms an update ({100 * r['busy']:.1f}%), "
+                f"HtoD DMA {r['h2d_ms'] / window:.3f} ms x"
+                f"{r['h2d_n'] / window:.0f} an update; one payload's copy "
+                f"to the card alone, host-timed: {r['pageable_ms']:.3f} ms "
+                f"from the pageable shm set, {r['pinned_ms']:.3f} ms from "
+                f"page-locked memory ({card})")
+
+    # (h) 32 PyBoundEnvs (spin 2000, GIL-held bytecode) on 1-8 workers
+    vcfg = configs.get_config("paac_vector").replace(obs_shape=(16,),
+                                                     num_actions=3)
+    base = None
+    for n_w in sweep:
+        # the trainer's recipe; a shard's pool gets 8 / n_w threads
+        spec = envs.py_bound_spec(n_envs, obs_dim=16, spin=env_spin,
+                                  n_workers=min(8, n_envs), device=dev)
+        free0, reserved0 = (torch.cuda.mem_get_info()[0],
+                            torch.cuda.memory_reserved())
+        rl = piped(spec, c=vcfg, lr=3e-3, queue_depth=4, num_actors=n_w)
+        try:
+            r = timed(rl, n_w, f"PyBoundEnv on {n_w} workers", sweep_iters,
+                      free0, reserved0)
+        finally:
+            rl.close()
+        for k, v in r["counts"].items():
+            path[k] += v
+        base = base or r
+        env_tps = r["per_iter"] * n_w / (r["collect_ms"] / 1e3)
+        say("host", f"(h) {n_envs} PyBoundEnvs, spin {env_spin}, on {n_w} "
+            f"process worker(s) of {n_envs // n_w} envs: {sweep_iters} "
+            f"updates, {r['tps']:.1f} timesteps/s "
+            f"({r['tps'] / base['tps']:.2f}x one worker), the workers' "
+            f"collect {r['collect_ms']:.2f} ms a rollout of "
+            f"{r['per_iter']} timesteps (the workers together step "
+            f"{env_tps:.0f} timesteps/s while collecting, "
+            f"{env_tps / (base['per_iter'] / (base['collect_ms'] / 1e3)):.2f}"
+            f"x one), learner update span {r['update_ms']:.2f} ms, learner "
+            f"idle {100 * r['learner_idle']:.1f}% ({card})")
+
+    # (i) lockstep process == lockstep thread host plane, bitwise
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        runs = []
+        for backend in ("thread", "process"):
+            spec = frame_spec(envs, np, n_envs, 0.0, n_workers, dev)
+            rl = piped(spec, queue_depth=1, lockstep=True, rho_bar=inf,
+                       c_bar=inf, actor_backend=backend)
+            try:
+                ops.reset_launches()
+                res = rl.run(lock_iters)
+                check(dict(ops.launches)["nstep_returns"] == lock_iters,
+                      f"lockstep {backend}: launches {dict(ops.launches)}")
+                segs = (rl._process_plane.segment_names()
+                        if backend == "process" else [])
+            finally:
+                rl.close()
+            runs.append((res, rl))
+        check(not set(segs) & shm_now(), "lockstep: segments left")
+        check_bitwise(torch, tree, *runs[1], *runs[0],
+                      "lockstep process plane vs thread host plane")
+        check(torch.equal(runs[0][1]._actor_keys[0][0].get_state(),
+                          runs[1][1]._actor_keys[0][0].get_state()),
+              "lockstep: the worker's acting generator came back different")
+        del runs, rl
+    finally:
+        torch.backends.cudnn.deterministic = False
+    say("host", f"(i) bitwise, cuDNN deterministic: {lock_iters} lockstep "
+        "updates at rho_bar = c_bar = inf on one spawned worker equal the "
+        "thread host plane's (metrics, every parameter, the acting "
+        "generator's state brought back); every (actor_id, seq) was "
+        "learned once in (g) and (h); after each close() no worker lived "
+        "and no segment of the plane was left in /dev/shm")
+
+    # (j) the trainer's process leg
+    argv = ["--arch", "paac_vector", "--pipeline", "--actor-backend",
+            "process", "--host-env", "--n-envs", str(n_envs), "--t-max",
+            str(t_max), "--iterations", str(cli_iters), "--env-spin",
+            str(env_spin), "--device", str(dev)]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = train.main(argv)
+    wall = time.perf_counter() - t0
+    cli = dict(ops.launches)
+    want = {k: cli_iters if k == "vtrace_returns" else 0 for k in cli}
+    check(cli == want, f"train --actor-backend process: launches {cli}")
+    check(len(res) == 1 and res[0].steps == cli_iters * n_envs * t_max
+          and all(math.isfinite(v) for v in res[0].mean_metrics.values()),
+          f"train --actor-backend process: {res}")
+    say("host", f"(j) python -m repro_torch.launch.train {' '.join(argv)}: "
+        f"{res[0].steps} steps, K1 {cli['nstep_returns']} K2 "
+        f"{cli['vtrace_returns']}, {res[0].timesteps_per_sec:.1f} "
+        f"timesteps/s (first run included; {wall:.1f} s with the spawn), "
+        f"reward/iter {res[0].mean_metrics['reward_sum']:+.3f} ({card}); "
+        f"the process legs took {time.perf_counter() - t_phase:.1f} s")
+    return ({k: v for k, v in path.items() if v},
+            {k: v for k, v in cli.items() if v})
+
+
+def phase_replay(torch, configs, core, envs, A, optim, pipeline, ops, tree,
+                 train, card, dev="cuda", n_envs=32, warmup=10, iters=100,
+                 lock_iters=10, capacity=64, cli_iters=50):
+    """The replay plane in the paper's setting (paac_nature,
+    FrameStack(AtariLike(n_envs)), fp32, RMSProp lr 0.0007 n_e, t_max 5):
+    depth-1 lockstep pipelined DQN ≡ ``SyncReplayDQN`` over two runs and
+    PAAC at staleness 0 ≡ on-policy, bitwise; pipelined DQN, prioritized
+    DQN and V-trace PAAC timed on a ring of ``capacity`` rollouts; the
+    trainer's ``--replay`` legs. Returns the launch counts of the timed
+    runs and of the trainer's legs."""
+    t_phase = time.perf_counter()
+    leaves = tree.tree_leaves
+    inf = float("inf")
+    t_max = 5
+    lr = 0.0007 * n_envs
+
+    def env():
+        return envs.FrameStack(envs.AtariLike(n_envs, device=dev), 4)
+
+    cfg = configs.get_config("paac_nature").replace(
+        obs_shape=env().obs_shape, num_actions=env().num_actions)
+
+    def dqn():
+        return A.DQNAgent(cfg, A.DQNConfig(t_max=t_max))
+
+    def paac():
+        return A.PAACAgent(cfg, A.PAACConfig(gamma=0.99, entropy_beta=0.01,
+                                             t_max=t_max))
+
+    kw = dict(optimizer="rmsprop", lr_schedule=optim.constant(lr), seed=SEED,
+              device=dev)
+
+    def piped(agent, **cfg_kw):
+        return pipeline.PipelinedRL(env(), agent, **kw,
+                                    pipeline=configs.PipelineConfig(
+                                        replay_plane=True, **cfg_kw))
+
+    # (a) bitwise pins, cuDNN deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        sync = pipeline.SyncReplayDQN(env(), dqn(), replay_capacity=8, **kw)
+        pipe = piped(dqn(), queue_depth=1, lockstep=True, replay_capacity=8)
+        ops.reset_launches()
+        for n in (lock_iters, lock_iters // 2):
+            check_bitwise(torch, tree, sync.run(n), sync, pipe.run(n), pipe,
+                          f"lockstep replay DQN vs SyncReplayDQN ({n})",
+                          DQN_METRICS)
+        check(not any(ops.launches.values()),
+              f"replay DQN launched {dict(ops.launches)}")
+        on = pipeline.PipelinedRL(env(), paac(), **kw,
+                                  pipeline=configs.PipelineConfig(
+                                      queue_depth=1, lockstep=True))
+        rep = piped(paac(), queue_depth=1, lockstep=True, replay_capacity=1)
+        ops.reset_launches()
+        check_bitwise(torch, tree, on.run(lock_iters), on,
+                      rep.run(lock_iters), rep,
+                      "replay PAAC at staleness 0, clips 1, vs the FIFO "
+                      "device plane")
+        k2 = dict(ops.launches)["vtrace_returns"]
+        check(k2 == 2 * lock_iters, f"staleness-0 PAAC: K2 {k2}")
+        ref = core.ParallelRL(env(), paac(), **kw)
+        rep = piped(paac(), queue_depth=1, lockstep=True, replay_capacity=1,
+                    rho_bar=inf, c_bar=inf)
+        check_bitwise(torch, tree, ref.run(lock_iters), ref,
+                      rep.run(lock_iters), rep,
+                      "replay PAAC at staleness 0, clips inf, vs ParallelRL")
+        del sync, pipe, on, rep, ref
+    finally:
+        torch.backends.cudnn.deterministic = False
+    say("replay", f"(a) bitwise, cuDNN deterministic: depth-1 lockstep "
+        f"pipelined DQN equals SyncReplayDQN over two runs ({lock_iters} + "
+        f"{lock_iters // 2}, no kernel launched); replay PAAC at capacity 1 "
+        f"(staleness 0) equals the FIFO device plane's lockstep run at "
+        f"clips 1 (K2 {k2} over both) and ParallelRL at clips inf")
+
+    # (b) timed legs on a ring of `capacity` rollouts
+    path = {k: 0 for k in ops.launches}
+    roll_bytes = None
+    legs = (("DQN", dqn, {}, 0),
+            ("DQN prioritized, batch 2", dqn,
+             dict(prioritized=True, replay_batch=2), 0),
+            ("PAAC V-trace, clips 1", paac, {}, iters))
+    for label, make, extra, k2_want in legs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        rl = piped(make(), replay_capacity=capacity, **extra)
+        rl.run(warmup)
+        before = [t.clone() for t in leaves(rl.params)]
+        ops.reset_launches()
+        res = rl.run(iters)
+        counts = dict(ops.launches)
+        want = {k: k2_want if k == "vtrace_returns" else 0 for k in counts}
+        check(counts == want, f"replay {label}: launches {counts}, "
+              f"expected {want}")
+        check(all(math.isfinite(v) for v in res.mean_metrics.values()),
+              f"replay {label}: non-finite metrics {res.mean_metrics}")
+        check(max((a - b).abs().max().item() for a, b in
+                  zip(before, leaves(rl.params))) > 0,
+              f"replay {label}: the parameters did not change")
+        check(rl.learned_ids == [(-2, q) for q in range(iters)],
+              f"replay {label}: learned {rl.learned_ids[:4]}...")
+        for k, v in counts.items():
+            path[k] += v
+        m = res.mean_metrics
+        wall_s = iters * n_envs * t_max / res.timesteps_per_sec
+        update_ms, _ = span_stat(rl.telemetry, "learner", "learner.update")
+        sample_ms, _ = span_stat(rl.telemetry, "replay", "replay.sample")
+        peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+        if roll_bytes is None:  # obs and bootstrap, then the (T, E) rest
+            roll_bytes = ((t_max + 1) * n_envs * math.prod(cfg.obs_shape) * 4
+                          + t_max * n_envs * (8 + 4 + 1 + 4 + 4))
+        say("replay", f"(b) pipelined {label} on a ring of {capacity} "
+            f"rollouts ({roll_bytes / 1e6:.1f} MB each, "
+            f"{capacity * roll_bytes / 1e9:.2f} GB resident when full), one "
+            f"actor: {iters} updates after {warmup} warm-up, K1 "
+            f"{counts['nstep_returns']} K2 {counts['vtrace_returns']}; "
+            f"{res.timesteps_per_sec:.1f} timesteps/s, staleness mean "
+            f"{m['staleness']:.2f} max {max(rl.staleness):.0f}, learner "
+            f"idle {100 * res.learner_idle_s / wall_s:.1f}%, "
+            f"update span {update_ms:.2f} ms, sample+concat {sample_ms:.3f} "
+            f"ms, mean loss {m['loss']:.4f}; peak device memory above the "
+            f"start {peak:.2f} GiB ({card})")
+        del rl, before
+        torch.cuda.empty_cache()
+
+    # (c) the trainer's replay legs on TokenEnv
+    base = ["--arch", "paac_vector", "--n-envs", str(n_envs), "--t-max",
+            str(t_max), "--iterations", str(cli_iters), "--device", str(dev),
+            "--pipeline", "--replay"]
+    cli = {k: 0 for k in ops.launches}
+    for extra, kernel in (([], "vtrace_returns"),
+                          (["--algo", "dqn"], None)):
+        ops.reset_launches()
+        res = train.main(base + extra)
+        counts = dict(ops.launches)
+        want = {k: cli_iters if k == kernel else 0 for k in counts}
+        check(counts == want, f"train {' '.join(base + extra)}: launches "
+              f"{counts}, expected {want}")
+        check(len(res) == 1 and res[0].steps == cli_iters * n_envs * t_max
+              and all(math.isfinite(v) for v in res[0].mean_metrics.values()),
+              f"train --replay {extra}: {res}")
+        for k, v in counts.items():
+            cli[k] += v
+        say("replay", f"(c) python -m repro_torch.launch.train "
+            f"{' '.join(base + extra)}: {res[0].steps} steps, K1 "
+            f"{counts['nstep_returns']} K2 {counts['vtrace_returns']}, "
+            f"{res[0].timesteps_per_sec:.1f} timesteps/s (first run "
+            f"included), reward/iter {res[0].mean_metrics['reward_sum']:+.3f}"
+            f" ({card}); the phase took "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    return ({k: v for k, v in path.items() if v},
             {k: v for k, v in cli.items() if v})
 
 
@@ -2480,35 +2997,59 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    laps = []  # (phase, seconds since the previous lap)
+
+    def lap(name):
+        done = sum(t for _, t in laps)
+        laps.append((name, time.perf_counter() - t0 - done))
+
     card = phase_card(torch, _build)
+    lap("card")
     rows = {"nstep_returns": phase_returns(torch, ref, nr),
             "vtrace_returns": phase_vtrace(torch, ref, vt)}
+    lap("returns, vtrace")
     rows.update(phase_kernels(torch, np, F, ref, fa, da))
     phase_latent_kernels(torch, np, F, ref, fa, mk, sk, rows)
+    lap("kernels")
     phase_rl_model(torch, configs, models, envs, paac, optim, tree)
     # launches of each kernel on each main path, every path driven with the
     # counts set to 0 just before it and read just after
     by_path = {}
     by_path["training"], trained = phase_training(torch, paper_atari, ops,
                                                   tree, card)
+    lap("rl_model, training")
     if args.trace_dir:
         os.makedirs(args.trace_dir, exist_ok=True)
     by_path["pipeline"] = {"vtrace_returns": phase_pipeline(
         torch, paper_atari, configs, ops, tree, card,
         trace_dir=args.trace_dir or None)}
+    lap("pipeline")
     by_path["agents"], by_path["train cli"] = phase_agents(
         torch, configs, models, envs, agents, replay, core, optim, tree, ops,
         train, card, trained)
     del trained
+    lap("agents")
     (by_path["host sync"], by_path["host pipeline"],
-     by_path["host train cli"]) = phase_host(
+     by_path["host train cli"], host_rows, delay) = phase_host(
         torch, np, configs, core, envs, agents, optim, pipeline, paper_atari,
         ops, tree, train, card)
+    lap("host")
+    by_path["host process"], by_path["host process train cli"] = \
+        phase_host_process(torch, np, configs, envs, agents, optim, pipeline,
+                           ops, tree, train, card, host_rows, delay)
+    lap("host process")
+    torch.cuda.empty_cache()
+    by_path["replay"], by_path["replay train cli"] = phase_replay(
+        torch, configs, core, envs, agents, optim, pipeline, ops, tree, train,
+        card)
+    lap("replay")
     torch.cuda.empty_cache()
     phase_model(torch, np, configs, models, ops, tree)
+    lap("model")
     for cell in SERVING_CELLS:
         by_path[f"{cell['arch']} serving"] = phase_serving(
             torch, np, configs, models, ops, serve, serving, tree, card, cell)
+    lap("serving")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2524,6 +3065,8 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **{k: row[k] for k in ("shape", "host_us", "launch_floor_ms",
                                    "other") if k in row}})
+    say("done", "seconds a phase: " + ", ".join(f"{n} {t:.1f}"
+                                                  for n, t in laps))
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

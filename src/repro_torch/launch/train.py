@@ -9,14 +9,21 @@ TokenEnv for the paper's host env plane: a ``HostEnvPool`` of GIL-holding
 Python emulators (``PyBoundEnv``, ``--env-spin`` pure-Python work a step,
 16-wide observations, 3 actions) stepped by up to 8 worker threads.
 ``--pipeline`` swaps the synchronous ``ParallelRL`` backend for the
-asynchronous actor/learner pipeline (``repro_torch.pipeline.PipelinedRL``)
-with thread actors: ``--num-actors`` replicas (the env axis split between
-them) collect rollouts while the learner consumes earlier ones, with
-``--queue-depth`` bounding staleness and ``--rho-bar``/``--c-bar`` the
-V-trace clips (K2) on the off-policy importance correction.
+asynchronous actor/learner pipeline (``repro_torch.pipeline.PipelinedRL``):
+``--num-actors`` replicas (the env axis split between them) collect
+rollouts while the learner consumes earlier ones, with ``--queue-depth``
+bounding staleness and ``--rho-bar``/``--c-bar`` the V-trace clips (K2) on
+the off-policy importance correction. ``--actor-backend process`` (which
+implies ``--host-env``) runs each replica in a spawned worker subprocess
+over shared memory, the backend that scales GIL-holding emulators.
 ``--rollout-plane`` picks the trajectory plane: the device ring (tensor
 envs), or the host staging queue (``--host-env`` pools; on the TokenEnv
-the GA3C-style baseline). ``--trace`` writes a Chrome trace of the
+the GA3C-style baseline). ``--replay`` swaps the FIFO ring for the sampled
+``ReplayRing``: actors never block, and each update samples
+``--replay-batch`` of the ``--replay-capacity`` resident rollouts
+(uniformly, or TD-error-weighted with ``--prioritized``); ``--algo paac``
+then runs the V-trace learner on stale sampled rollouts and ``--algo
+dqn`` the replay-fed TD learner. ``--trace`` writes a Chrome trace of the
 pipeline's spans, ``--metrics-jsonl`` a JSONL liveness heartbeat, and
 ``--stall-timeout`` arms the stall watchdog, which names the stage each
 party is blocked in when progress stops. The synchronous PAAC update
@@ -27,12 +34,12 @@ The parser takes every flag of the reference, with its defaults, plus
 in the reference's order with its text. What the port does not run yet
 raises ``NotImplementedError`` naming its ROADMAP Queue 1 item: the token
 archs and ``--mode synthetic`` (their training pass needs a backward
-through K3 and K6: item 11), ``--actor-backend process``, ``--replay``,
-``--elastic``, ``--fault-*``, ``--checkpoint*`` and ``--resume`` (item
-10), ``--sanitize`` (item 13), and ``--mesh`` > 1 and ``--rollout-plane
-mesh`` (item 14). So ``--arch`` defaults to ``paac_vector``, the vector
-policy acting on the raw observations (the reference's default,
-``mamba2-370m``, waits for item 11).
+through K3 and K6: item 11), ``--elastic``, ``--fault-*``,
+``--checkpoint*`` and ``--resume`` (item 10), ``--sanitize`` (item 13),
+and ``--mesh`` > 1 and ``--rollout-plane mesh`` (item 14). So
+``--arch`` defaults to ``paac_vector``, the vector policy acting on the
+raw observations (the reference's default, ``mamba2-370m``, waits for
+item 11).
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --iterations 50
@@ -42,6 +49,10 @@ Examples:
         --algo dqn
     PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
         --host-env --n-envs 32 --pipeline --metrics-jsonl hb.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
+        --n-envs 32 --pipeline --actor-backend process --num-actors 4
+    PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
+        --algo dqn --pipeline --replay --replay-capacity 32
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --iterations 4 --n-envs 4
 """
@@ -135,9 +146,6 @@ def _refuse_unported(args) -> None:
         (args.arch != "paac_vector", f"--arch {args.arch} (the token archs' "
          "training pass, which needs a backward through K3 and K6) is item "
          "11"),
-        (args.actor_backend == "process", "--actor-backend process is item "
-         "10"),
-        (args.replay, "--replay (the replay plane) is item 10"),
         (args.elastic or args.fault_kill or args.fault_stall_learner,
          "--elastic and --fault-* (the supervisor and fault injection) are "
          "item 10"),
@@ -163,8 +171,10 @@ def run_rl(args) -> Tuple[object, List[RunResult]]:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if args.host_env:
-        # the GIL-holding external-emulator pool (repro_torch.envs.pyemu)
+    host_env = args.host_env or args.actor_backend == "process"
+    if host_env:
+        # the GIL-holding external-emulator pool (repro_torch.envs.pyemu),
+        # the regime the process backend exists for
         spec = py_bound_spec(args.n_envs, obs_dim=16, spin=args.env_spin,
                              n_workers=min(8, args.n_envs), device=str(dev))
         cfg = cfg.replace(obs_shape=spec.obs_shape, num_actions=3)
@@ -187,6 +197,11 @@ def run_rl(args) -> Tuple[object, List[RunResult]]:
                                     rho_bar=args.rho_bar, c_bar=args.c_bar,
                                     num_actors=args.num_actors,
                                     rollout_plane=args.rollout_plane,
+                                    actor_backend=args.actor_backend,
+                                    replay_plane=args.replay,
+                                    replay_capacity=args.replay_capacity,
+                                    replay_batch=args.replay_batch,
+                                    prioritized=args.prioritized,
                                     lease_timeout_s=args.lease_timeout,
                                     trace_path=args.trace,
                                     metrics_jsonl=args.metrics_jsonl,
@@ -196,7 +211,7 @@ def run_rl(args) -> Tuple[object, List[RunResult]]:
             rl = ParallelRL(env, agent, lr_schedule=constant(args.lr),
                             seed=args.seed, device=dev)
         except BaseException:
-            if args.host_env:
+            if host_env:
                 env.close()
             raise
     results = []
@@ -215,8 +230,8 @@ def run_rl(args) -> Tuple[object, List[RunResult]]:
             results.append(res)
     finally:
         if hasattr(rl, "close"):
-            rl.close()  # the pools PipelinedRL built from the spec
-        elif args.host_env:
+            rl.close()  # the workers or the pools built from the spec
+        elif host_env:
             env.close()
     return rl, results
 
@@ -262,8 +277,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "pipeline) or value-based DQN (synchronous, with its own "
                     "replay buffer)")
     ap.add_argument("--replay", action="store_true",
-                    help="pipeline: the sampled ReplayRing plane (ROADMAP "
-                    "Queue 1 item 10)")
+                    help="pipeline: the sampled ReplayRing plane (actors "
+                    "never block; the learner samples retained rollouts)")
     ap.add_argument("--replay-capacity", type=int, default=64,
                     help="ReplayRing capacity in resident rollouts")
     ap.add_argument("--replay-batch", type=int, default=1,
@@ -272,8 +287,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="TD-error-weighted replay sampling (else uniform)")
     ap.add_argument("--actor-backend", choices=("thread", "process"),
                     default="thread",
-                    help="where actor replicas run: threads (process is "
-                    "ROADMAP Queue 1 item 10)")
+                    help="where actor replicas run: threads, or spawned "
+                    "worker subprocesses over shared memory (implies "
+                    "--host-env)")
     ap.add_argument("--host-env", action="store_true",
                     help="drive a HostEnvPool of GIL-holding Python-bound "
                     "emulators (the paper's n_w worker threads)")

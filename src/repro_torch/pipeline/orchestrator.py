@@ -53,12 +53,36 @@ Two observers ride a run when asked (``repro_torch.telemetry.hub``): the
 JSONL heartbeat (``metrics_jsonl``) and the stall watchdog
 (``stall_timeout_s``), which names the stage every party is blocked in.
 
-It drives plain ``PAACAgent``, as the reference does on its FIFO planes;
-the reference's other agents are refused as it refuses them, and
-``DQNAgent``, which the reference runs on its replay plane, is refused
-naming that plane's item. The reference's mesh plane (ROADMAP Queue 1
-item 14), process backend, replay plane, supervisor, faults and
-checkpoints (item 10) are refused with ``NotImplementedError``.
+Orthogonal to the queue plane is the *actor backend* (``PipelineConfig.
+actor_backend``): ``"thread"`` replicas are ``ActorThread``s in this
+process, while ``"process"`` moves each replica into a spawned worker
+subprocess (``repro_torch.pipeline.worker``) — the backend that scales
+GIL-holding Python emulators. Process workers rebuild their env pools
+from picklable ``HostEnvSpec`` recipes (a spec is sharded across the
+workers, or a list gives each its own), collect into shared-memory
+staging sets and are drained by parent-side ``ProcessActorDrainer``
+threads into the same host ``TrajectoryQueue``; params go to them through
+a shared-memory ping-pong slot (``repro_torch.pipeline.shm``) speaking
+the same reserve/commit protocol, one copy to host memory an update.
+Worker ``i`` starts from the acting generator the thread host plane's
+actor ``i`` gets, so a lock-stepped single worker reproduces the thread
+host plane bit for bit; a single worker's generator state comes back
+after each run. ``close()`` stops the workers and unlinks their segments.
+
+The *replay plane* (``PipelineConfig.replay_plane``) swaps the FIFO ring
+for a sampled ``ReplayRing`` on the device plane: actors never block (a
+full ring evicts its oldest rollout), each update *samples*
+``replay_batch`` retained rollouts, and the learner step is either DQN's
+replay-fed TD update (``repro_torch.pipeline.offpolicy``, no kernel) or
+the same V-trace PAAC step (K2) correcting the sampled rollouts'
+staleness. With ``prioritized`` the update's |TD| goes back as the
+sampled slots' priority, once an update.
+
+It drives plain ``PAACAgent`` on every plane and ``DQNAgent`` on the
+replay plane, as the reference does; the reference's other agents are
+refused as it refuses them. The reference's mesh plane (ROADMAP Queue 1
+item 14), supervisor, faults and checkpoints (item 10) are refused with
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -79,11 +103,17 @@ from repro_torch.envs.base import VectorEnv, narrow_vector_env
 from repro_torch.envs.host_env import HostEnvPool, HostEnvSpec
 from repro_torch.pipeline.actor import (ActorThread, HostStagingRing,
                                         PingPongParamSlot, Rollout,
-                                        collect_host, make_host_act_step,
-                                        on_stream, record_event, to_device)
+                                        _copy_tree, collect_host,
+                                        make_host_act_step, on_stream,
+                                        record_event, to_device)
 from repro_torch.pipeline.learner import make_learner_step
+from repro_torch.pipeline.offpolicy import (make_dqn_collect_fn,
+                                            make_dqn_learner_step)
 from repro_torch.pipeline.queue import CLOSED, TrajectoryQueue
+from repro_torch.pipeline.replay_ring import ReplayRing
 from repro_torch.pipeline.ring import DeviceTrajectoryRing, adopt
+from repro_torch.pipeline.worker import (ProcessActorPlane, generator_state,
+                                         set_generator_state)
 from repro_torch.telemetry import (LEARNER_UPDATE, LEASE, PUBLISH,
                                    QUEUE_GET_WAIT, Telemetry)
 from repro_torch.utils import get_logger
@@ -98,14 +128,12 @@ def _is_host(env) -> bool:
 
 
 def _refuse_unported(cfg: PipelineConfig) -> None:
-    """``NotImplementedError`` for each setting outside the device and host
-    planes with thread actors, naming the ROADMAP item that ports it."""
+    """``NotImplementedError`` for each setting outside the device, host and
+    replay planes and the thread and process backends, naming the ROADMAP
+    item that ports it."""
     unported = [
         (cfg.rollout_plane == "mesh" or cfg.mesh_shape > 1, "the mesh plane "
          "(rollout_plane='mesh', mesh_shape > 1) is ROADMAP Queue 1 item 14"),
-        (cfg.actor_backend == "process", "actor_backend='process' is ROADMAP "
-         "Queue 1 item 10"),
-        (cfg.replay_plane, "replay_plane is ROADMAP Queue 1 item 10"),
         (cfg.elastic, "elastic recovery is ROADMAP Queue 1 item 10"),
         (cfg.fault_plan is not None, "fault_plan is ROADMAP Queue 1 item 10"),
         (bool(cfg.checkpoint_dir), "checkpoint_dir is ROADMAP Queue 1 item "
@@ -127,16 +155,14 @@ class PipelinedRL:
         # exact types, as in the reference: subclasses (LaggedPAACAgent) and
         # look-alikes (PPOAgent) carry their own loss/state that the learner
         # step would silently drop; DQNAgent rides only the replay plane
-        if type(agent) is DQNAgent:
-            if not pipeline.replay_plane:
-                raise ValueError(
-                    "DQNAgent needs the replay plane: pass PipelineConfig("
-                    "replay_plane=True) — the FIFO planes feed the on-policy "
-                    "V-trace learner")
-            raise NotImplementedError(
-                "PipelinedRL of the port: DQNAgent rides the replay plane, "
-                "which is ROADMAP Queue 1 item 10")
-        if type(agent) is not PAACAgent:
+        self._replay = pipeline.replay_plane
+        self._dqn = type(agent) is DQNAgent
+        if self._dqn and not self._replay:
+            raise ValueError(
+                "DQNAgent needs the replay plane: pass PipelineConfig("
+                "replay_plane=True) — the FIFO planes feed the on-policy "
+                "V-trace learner")
+        if not self._dqn and type(agent) is not PAACAgent:
             raise NotImplementedError(
                 f"PipelinedRL drives plain PAACAgent (got "
                 f"{type(agent).__name__}) on the FIFO planes, plus DQNAgent "
@@ -145,6 +171,7 @@ class PipelinedRL:
         if pipeline.actor_backend not in ("thread", "process"):
             raise ValueError("actor_backend must be 'thread' or 'process', "
                              f"got {pipeline.actor_backend!r}")
+        self._backend = pipeline.actor_backend
         n_actors = pipeline.num_actors
         if n_actors < 1:
             raise ValueError(f"num_actors must be >= 1, got {n_actors}")
@@ -156,8 +183,23 @@ class PipelinedRL:
             raise ValueError(f"got {len(per_actor_envs)} per-actor envs "
                              f"for num_actors={n_actors}")
         first = per_actor_envs[0] if per_actor_envs is not None else env
+        if self._backend == "process" and not all(
+                isinstance(e, HostEnvSpec) for e in per_actor_envs or [env]):
+            # the process plane rebuilds env pools inside worker
+            # subprocesses from picklable specs — live pools can't cross
+            raise ValueError(
+                "actor_backend='process' requires a HostEnvSpec (or a "
+                "per-actor list of them): worker subprocesses rebuild "
+                "their env pools from the picklable spec — a live "
+                f"{type(first).__name__} cannot be shipped to a child")
         self._host = _is_host(first)
         self._plane = self._resolve_plane(pipeline)
+        if self._replay and self._plane != "device":
+            raise ValueError(
+                "replay_plane requires a batched tensor env on the device "
+                "plane: the ReplayRing retains sampled rollouts on the "
+                "device, which host-born payloads (HostEnvPool / process "
+                "backend) cannot do")
         _refuse_unported(pipeline)
         for e in per_actor_envs or [env]:
             if _is_host(e) != self._host:
@@ -173,42 +215,64 @@ class PipelinedRL:
             if e_dev.type != dev.type:
                 raise ValueError(f"env lives on {e_dev}, PipelinedRL runs "
                                  f"on {dev}")
-        # a HostEnvSpec is sugar for the pool(s) built here, which close()
-        # closes; pools the caller hands in stay the caller's to close
+        # a HostEnvSpec on the thread backend is sugar for the pool(s) built
+        # here, which close() closes; pools the caller hands in stay the
+        # caller's to close. The process backend ships the specs instead.
         self._owned_pools: List[HostEnvPool] = []
-        if per_actor_envs is not None:
+        self._process_plane: Optional[ProcessActorPlane] = None
+        if self._backend == "thread" and per_actor_envs is not None:
             per_actor_envs = [self._own(e) for e in per_actor_envs]
-            env = per_actor_envs[0]
-        else:
+        elif self._backend == "thread":
             env = self._own(env)
+        if per_actor_envs is not None:
+            env = per_actor_envs[0]
         self.env = env
         self.agent = agent
         self.pipeline = pipeline
         self.device = dev
         self._n_actors = n_actors
+        self._seed = seed  # the ReplayRing's sample stream
         try:
             self._init_state(env, per_actor_envs, agent, optimizer,
                              lr_schedule, seed)
         except BaseException:
-            self.close()  # the pools built from specs
+            self.close()  # the pools built from specs, the workers
             raise
-        self._act = (make_host_act_step(agent.act_fn()) if self._host
-                     else None)
+        # the thread host plane's act step (process workers build their own)
+        self._act = (make_host_act_step(agent.act_fn())
+                     if self._host and self._process_plane is None else None)
+        # per-replica lifetime rollout counters: the DQN collector's ε index
+        # (persists across run() calls, like the synchronous schedule)
+        self._actor_seq = [0] * n_actors
         # the learner step: dequeue-consume + update + publish into the
         # stale ping-pong buffer, on the learner's stream
-        self._update_step = make_learner_step(
-            agent, self.optimizer, self.lr_schedule, rho_bar=pipeline.rho_bar,
-            c_bar=pipeline.c_bar, fused_publish=True)
+        if self._dqn:
+            # the target tree and the update counter are learner-private
+            # state riding the update's signature next to params/opt state;
+            # the target is a copy, as the synchronous reference keeps one
+            self._target = _copy_tree(self.params)
+            self._updates = 0
+            self._update_step = make_dqn_learner_step(
+                agent, self.optimizer, self.lr_schedule, fused_publish=True)
+        else:
+            self._update_step = make_learner_step(
+                agent, self.optimizer, self.lr_schedule,
+                rho_bar=pipeline.rho_bar, c_bar=pipeline.c_bar,
+                fused_publish=True)
         if dev.type == "cuda":
             self._learner_stream = torch.cuda.Stream(dev)
-            self._actor_streams = [torch.cuda.Stream(dev)
-                                   for _ in range(n_actors)]
+            # process actors act in their own processes, on their own streams
+            self._actor_streams = (
+                [torch.cuda.Stream(dev) for _ in range(n_actors)]
+                if self._backend == "thread" else [])
         else:
             self._learner_stream = None
             self._actor_streams = [None] * n_actors
         self.total_steps = 0
         # one learned rollout = one actor shard's n_envs·t_max timesteps
-        self._steps_per_iter = self._actor_envs[0].n_envs * agent.hp.t_max
+        shard_envs = (self._proc_specs[0].n_envs if self._proc_specs
+                      else self._actor_envs[0].n_envs)
+        self._steps_per_iter = shard_envs * agent.hp.t_max
         # (actor_id, seq) and staleness of every payload consumed by the
         # last run() — the never-drop contract the tests pin down
         self.learned_ids: List[Tuple[int, int]] = []
@@ -229,8 +293,39 @@ class PipelinedRL:
             more = seeded_generators(seed, 3 + 2 * n_actors, dev)[3:]
             gens = list(zip(more[0::2], more[1::2]))
         self._actor_keys = gens
+        if self._backend == "process":
+            # no parent-side acting or env state: each worker owns its pool,
+            # its act step and the acting generator the thread plane's
+            # replica of the same index would get
+            self._proc_specs = (per_actor_envs if per_actor_envs is not None
+                                else env.shard(n_actors) if n_actors > 1
+                                else [env])
+            if any(e.n_envs != self._proc_specs[0].n_envs
+                   for e in self._proc_specs):
+                raise ValueError("per-actor specs must have equal n_envs")
+            self._actor_envs = self._actor_obs = self._actor_env_state = None
+            self._process_plane = ProcessActorPlane(
+                self._proc_specs, agent, self.pipeline.queue_depth,
+                self.params, [generator_state(g) for g, _ in gens])
+            return
+        self._proc_specs = None
         self._actor_envs, self._actor_obs, self._actor_env_state = \
             self._split_envs(env, per_actor_envs, n_actors)
+
+    def _apply_update(self, traj, last_obs, step, publish_dst):
+        """One update through the agent family's learner step, threading
+        the learner-private state it carries; returns ``(published,
+        metrics)``."""
+        if self._dqn:
+            (self.params, self.opt_state, self._target, self._updates,
+             published, metrics) = self._update_step(
+                self.params, self.opt_state, self._target, self._updates,
+                traj, last_obs, step, publish_dst)
+        else:
+            self.params, self.opt_state, published, metrics = \
+                self._update_step(self.params, self.opt_state, traj,
+                                  last_obs, step, publish_dst)
+        return published, metrics
 
     def _own(self, env):
         if isinstance(env, HostEnvSpec):
@@ -314,6 +409,23 @@ class PipelinedRL:
 
             return collect
 
+        if self._dqn:  # the replay plane's ε-greedy collect
+            dqn_collect = make_dqn_collect_fn(self.agent, env, t_max)
+
+            def collect(params, key):
+                # the ε index: this replica's lifetime rollout count (in
+                # lockstep the learner step, as in the synchronous schedule)
+                n = self._actor_seq[i]
+                act_gen, env_gen = key
+                env_state, last_obs, traj = dqn_collect(
+                    params, self._actor_env_state[i], self._actor_obs[i],
+                    act_gen, env_gen, n)
+                self._actor_seq[i] = n + 1
+                self._actor_env_state[i] = env_state
+                self._actor_obs[i] = last_obs
+                return key, traj, last_obs, None
+
+            return collect
         collect_fn = make_collect_fn(self.agent.act_fn(), env, t_max)
         staging = None
         if self._plane == "host":
@@ -350,7 +462,14 @@ class PipelinedRL:
         n_actors, cfg = self._n_actors, self.pipeline
         hub = self.telemetry = Telemetry()
         learner_em = hub.emitter("learner")
-        if self._plane == "host":
+        if self._replay:
+            ring = ReplayRing(capacity=cfg.replay_capacity,
+                              batch_size=cfg.replay_batch,
+                              producers=n_actors,
+                              prioritized=cfg.prioritized,
+                              sample_seed=self._seed, telemetry=hub,
+                              device=self.device)
+        elif self._plane == "host":
             ring = TrajectoryQueue(cfg.queue_depth, producers=n_actors,
                                    telemetry=hub)
         else:
@@ -367,15 +486,22 @@ class PipelinedRL:
             learner_stream.wait_stream(caller)
             for s in self._actor_streams:
                 s.wait_stream(caller)
+        # the actor-plane split: thread replicas collecting in this process,
+        # or worker subprocesses behind parent-side drainers; below it the
+        # learner loop sees the same payloads and the same reserve/commit
+        # slot protocol from both
         with on_stream(learner_stream):
-            slot = PingPongParamSlot(self.params, version=0)
-        actors = [
-            ActorThread(self._make_collect(i), ring, slot,
-                        self._actor_keys[i], quota[i], lockstep=cfg.lockstep,
-                        actor_id=i, telemetry=hub,
-                        stream=self._actor_streams[i])
-            for i in range(n_actors)
-        ]
+            if self._process_plane is not None:
+                slot, actors = self._process_plane.begin_run(
+                    ring, quota, cfg.lockstep, self.params, telemetry=hub)
+            else:
+                slot = PingPongParamSlot(self.params, version=0)
+                actors = [
+                    ActorThread(self._make_collect(i), ring, slot,
+                                self._actor_keys[i], quota[i],
+                                lockstep=cfg.lockstep, actor_id=i,
+                                telemetry=hub, stream=self._actor_streams[i])
+                    for i in range(n_actors)]
         # device plane: never sync the learner loop — metric scalars are
         # stashed and read once at result(), so update i+1 is dispatched
         # while update i runs. Host plane: eager — reading the metrics back
@@ -444,10 +570,8 @@ class PipelinedRL:
                         if self._plane == "host":  # on the learner's stream
                             traj, last_obs = to_device(traj, last_obs,
                                                        self.device)
-                        self.params, self.opt_state, published, metrics = \
-                            self._update_step(self.params, self.opt_state,
-                                              traj, last_obs, step,
-                                              publish_dst)
+                        published, metrics = self._apply_update(
+                            traj, last_obs, step, publish_dst)
                     finally:
                         learner_em.end()
                     learner_em.begin(PUBLISH)
@@ -464,6 +588,15 @@ class PipelinedRL:
                     self.staleness.append(staleness)
                     metrics["staleness"] = staleness
                     hub.set_gauge("staleness", staleness)
+                    if self._replay and cfg.prioritized:
+                        # the update's |TD| as the sampled slots' new
+                        # priority: float() waits for the update, the price
+                        # of the feedback loop
+                        td = metrics.get("td_abs")
+                        pr = float(metrics["loss"].abs() if td is None
+                                   else td)
+                        ring.update_priorities(
+                            ring.last_sampled, [pr] * len(ring.last_sampled))
                     # eager (host plane): waits for the update and the copy
                     # of the staged payload; lazy (device plane): stashes
                     acc.update(metrics)
@@ -496,12 +629,28 @@ class PipelinedRL:
                     pass
                 for a in actors:
                     a.join(timeout=0.02)
+            # the actors are gone, but the ring may still hold unconsumed
+            # payloads (the learner bailed with rollouts buffered): release
+            # them — the process plane's free lists persist across runs,
+            # and a leaked index would starve the next run
+            while True:
+                try:
+                    p = ring.get(timeout=0)
+                except _stdlib_queue.Empty:
+                    break
+                if p is CLOSED:
+                    break
+                if p.release is not None:
+                    p.release()
             if learner_stream is not None:
                 caller = torch.cuda.current_stream(self.device)
                 caller.wait_stream(learner_stream)
                 for s in self._actor_streams:
                     caller.wait_stream(s)
             hub.stop()
+            # the gauge's last reading, not the ring: a hub kept on self
+            # must not keep a replay ring's rollouts alive after the run
+            hub.set_gauge("queue_depth", ring.qsize())
             if cfg.trace_path:
                 hub.write_trace(cfg.trace_path)
         errors = [a for a in actors if a.error is not None]
@@ -511,6 +660,12 @@ class PipelinedRL:
         if completed != iterations:
             raise RuntimeError(
                 f"pipeline stopped early: {completed}/{iterations} iterations")
+        if self._process_plane is not None:
+            # each worker owns its acting generator: bring its state back,
+            # so the parent's copy continues the stream the worker keeps
+            for a, (act_gen, _) in zip(actors, self._actor_keys):
+                if a.final_state is not None:
+                    set_generator_state(act_gen, a.final_state)
         per_actor_idle = [a.put_wait_s + a.wait_s for a in actors]
         # the end-of-run drain reads every stashed device scalar: the one
         # intended device-to-host sync of the run
@@ -521,9 +676,13 @@ class PipelinedRL:
 
     # -- teardown ------------------------------------------------------------
     def close(self) -> None:
-        """Release what this backend owns: the ``HostEnvPool``s it built
-        from ``HostEnvSpec``s. Live pools the caller handed in stay the
-        caller's to close. Idempotent."""
+        """Release what this backend owns: the process plane's workers and
+        their shared memory, and the ``HostEnvPool``s it built from
+        ``HostEnvSpec``s. Live pools the caller handed in stay the caller's
+        to close. Idempotent."""
+        if self._process_plane is not None:
+            self._process_plane.close()
+            self._process_plane = None
         for pool in self._owned_pools:
             pool.close()
         self._owned_pools = []

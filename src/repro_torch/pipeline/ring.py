@@ -74,19 +74,20 @@ def _on(device: torch.device, ring: torch.device) -> bool:
                                          or device.index == ring.index)
 
 
-def _assert_on_device(payload, device: torch.device) -> None:
+def _assert_on_device(payload, device: torch.device,
+                      plane: str = "DeviceTrajectoryRing") -> None:
     """Reject numpy leaves and tensors on another device. Non-tensor
     metadata (ints, callables, CUDA events) rides along untouched."""
     for leaf in _leaves(payload):
         if isinstance(leaf, (np.ndarray, np.generic)):
             raise TypeError(
-                "DeviceTrajectoryRing payloads must be tensors on the ring's "
-                f"device {device}; got a numpy {type(leaf).__name__} — a host "
+                f"{plane} payloads must be tensors on the ring's device "
+                f"{device}; got a numpy {type(leaf).__name__} — a host "
                 "staging step crept into the device plane")
         if isinstance(leaf, torch.Tensor) and not _on(leaf.device, device):
             raise TypeError(
-                "DeviceTrajectoryRing payloads must be tensors on the ring's "
-                f"device {device}; got one on {leaf.device}")
+                f"{plane} payloads must be tensors on the ring's device "
+                f"{device}; got one on {leaf.device}")
 
 
 def adopt(payload, stream) -> None:

@@ -2,7 +2,7 @@
 (``hub.Telemetry``: emitter registry, counters, gauges, reports, the JSONL
 heartbeat and the stall watchdog) and the Chrome trace export
 (``trace``)."""
-from repro_torch.telemetry.hub import Telemetry
+from repro_torch.telemetry.hub import ShippedTrack, Telemetry
 from repro_torch.telemetry.spans import (
     CATEGORIES,
     COLLECT,
@@ -23,6 +23,7 @@ __all__ = [
     "LEASE",
     "PUBLISH",
     "LEARNER_UPDATE",
+    "ShippedTrack",
     "SpanEmitter",
     "Telemetry",
     "write_chrome_trace",

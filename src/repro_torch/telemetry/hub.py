@@ -22,9 +22,12 @@ observe them:
   re-arms when progress resumes. An external env that hangs or runs slow
   shows here.
 
-Observer threads only read emitter state that tolerates torn reads (they
-feed logs, never the accounting), so the hot paths stay lock-free. The
-process backend's shipped worker rings wait for ROADMAP Queue 1 item 10.
+A process worker records its spans in its own interpreter and ships
+the ring (``SpanEmitter.ship()``) with the terminal message of each run;
+``merge_shipped`` adopts it as a ``ShippedTrack`` under the worker's own
+process track. Observer threads only read emitter state that tolerates
+torn reads (they feed logs, never the accounting), so the hot paths stay
+lock-free.
 """
 from __future__ import annotations
 
@@ -37,9 +40,36 @@ from repro_torch.telemetry.spans import CATEGORIES, SpanEmitter
 from repro_torch.telemetry.trace import write_chrome_trace
 from repro_torch.utils import get_logger
 
-__all__ = ["Telemetry"]
+__all__ = ["Telemetry", "ShippedTrack"]
 
 log = get_logger("telemetry")
+
+# a shipped clock sample further than this from our own monotonic clock
+# means the child ran on a different epoch (non-Linux perf_counter):
+# re-anchor its spans at receive time. On Linux both processes read
+# CLOCK_MONOTONIC, the offset is ~transport latency, and the timestamps
+# stay untouched.
+_EPOCH_SLACK_S = 1.0
+
+
+class ShippedTrack:
+    """Read-only emitter stand-in rebuilt from ``SpanEmitter.ship()``."""
+
+    def __init__(self, payload: dict, offset: float = 0.0):
+        self.name = payload["name"]
+        self.categories = tuple(payload["categories"])
+        self.drops = payload["drops"]
+        self._spans = [
+            (c, t0 + offset, t1 + offset)
+            for c, t0, t1 in zip(payload["cat"], payload["t0"], payload["t1"])
+        ]
+        self._totals = list(payload["totals"])
+
+    def snapshot(self) -> List[Tuple[int, float, float]]:
+        return list(self._spans)
+
+    def total(self, cat: int) -> float:
+        return self._totals[cat]
 
 
 class Telemetry:
@@ -77,6 +107,15 @@ class Telemetry:
             tid = self._next_tid.get(pid, 1)
             self._next_tid[pid] = tid + 1
             self._tracks.append((pid, tid, emitter))
+
+    def merge_shipped(self, payload: dict, pid: int) -> ShippedTrack:
+        """Adopt a worker-side ring shipped through the ready queue under
+        process track ``pid`` (``actor_id + 1``)."""
+        offset = time.perf_counter() - payload["clock"]
+        track = ShippedTrack(
+            payload, offset=offset if abs(offset) > _EPOCH_SLACK_S else 0.0)
+        self.adopt(track, pid=pid)
+        return track
 
     def tracks(self) -> List[Tuple[int, int, Any]]:
         with self._reg_lock:

@@ -35,6 +35,21 @@ def tree_leaves(tree) -> List:
     return list(_iter_leaves(tree))
 
 
+def tree_paths(tree, _prefix: tuple = ()) -> List:
+    """``(path, leaf)`` pairs in ``tree_leaves`` order; a path is the tuple
+    of dict keys and list indices from the root. Trees bridged from JAX
+    have sorted keys while the port's own keep insertion order, so
+    anything that stores or matches leaves across trees keys them by
+    path."""
+    if isinstance(tree, dict):
+        return [pl for k, v in tree.items()
+                for pl in tree_paths(v, _prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_paths(v, _prefix + (i,))]
+    return [(_prefix, tree)]
+
+
 def tree_unflatten(tree, leaves):
     """``tree``'s structure with its leaves replaced, in ``tree_leaves``
     order, by ``leaves``."""

@@ -9,7 +9,9 @@ trainer's three legs with their K1 and K2 launches; the host env plane:
 ``HostEnvPool`` snapshots on the card that never alias, page-locked
 staging sets, the sync host ``ParallelRL`` through K1 and the pipelined
 host plane through K2, lockstep ≡ sync bitwise, a NaN-poisoned release
-changing nothing, and the trainer's ``--host-env`` legs.
+changing nothing, and the trainer's ``--host-env`` legs; the process
+actor plane: one spawned worker acting on the card in lockstep ≡ the
+thread host plane bitwise, two workers through K2, nothing left behind.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one. This file imports no JAX, so it also runs on a machine that has
@@ -767,3 +769,54 @@ def test_the_trainers_host_env_legs_on_the_card(cuda, leg, kernel):
     assert dict(ops.launches) == want
     assert res.steps == 6 * 32 * 5
     assert all(math.isfinite(v) for v in res.mean_metrics.values())
+
+
+@pytest.mark.cuda
+def test_process_plane_on_the_card_is_the_thread_host_plane_bitwise(cuda):
+    """One spawned worker acting on the card (its own CUDA context), in
+    lockstep at infinite clips (K1 in the parent's learner): bitwise the
+    thread host plane's run — params, metrics and the acting generator —
+    and then at clips 1 through K2; the workers gone and their segments
+    unlinked after close()."""
+    import os
+
+    from repro_torch.configs import PipelineConfig, get_config
+    from repro_torch.core.agents import PAACAgent, PAACConfig
+    from repro_torch.envs import py_bound_spec
+    from repro_torch.pipeline import PipelinedRL
+
+    inf = float("inf")
+    agent = PAACAgent(get_config("paac_vector").replace(
+        obs_shape=(16,), num_actions=3), PAACConfig(t_max=5))
+    spec = py_bound_spec(16, obs_dim=16, spin=200, n_workers=4)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for backend in ("thread", "process"):
+            ops.reset_launches()
+            with PipelinedRL(spec, agent, seed=2, pipeline=PipelineConfig(
+                    queue_depth=1, lockstep=True, rho_bar=inf, c_bar=inf,
+                    actor_backend=backend)) as prl:
+                res = prl.run(6)
+                if backend == "process":
+                    procs = [w.proc for w in prl._process_plane._workers]
+                    segs = prl._process_plane.segment_names()
+            assert dict(ops.launches)["nstep_returns"] == 6
+            runs[backend] = (res, prl)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (r_t, p_t), (r_p, p_p) = runs["thread"], runs["process"]
+    assert r_p.mean_metrics == r_t.mean_metrics
+    for a, b in zip(tree_leaves(p_t.params), tree_leaves(p_p.params)):
+        assert torch.equal(a, b)
+    assert torch.equal(p_t._actor_keys[0][0].get_state(),
+                       p_p._actor_keys[0][0].get_state())
+    assert all(not p.is_alive() for p in procs)
+    assert not set(segs) & set(os.listdir("/dev/shm"))
+    ops.reset_launches()
+    with PipelinedRL(spec.shard(2), agent, seed=2, pipeline=PipelineConfig(
+            num_actors=2, queue_depth=2, actor_backend="process")) as prl:
+        prl.run(8)
+    assert dict(ops.launches)["vtrace_returns"] == 8
+    assert sorted(prl.learned_ids) == [(a, s) for a in range(2)
+                                       for s in range(4)]

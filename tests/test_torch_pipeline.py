@@ -26,7 +26,8 @@
   every staging set goes back once, only after its update, so a set
   overwritten with NaN on release changes nothing; a crashing external env
   propagates; the plane refusals; a run's heartbeat lines and watchdog.
-* Settings outside this slice raise ``NotImplementedError``; the entry
+* Settings outside the ported planes raise ``NotImplementedError``, and
+  ``DQNAgent`` runs on the replay plane; the entry
   point runs with ``--pipeline`` on the CPU and raises without a card
   unless the CPU is asked for.
 """
@@ -821,8 +822,6 @@ def test_host_plane_refusals_and_the_run_observers(tmp_path, caplog):
 @pytest.mark.parametrize("setting,item", [
     (dict(rollout_plane="mesh"), "item 14"),
     (dict(mesh_shape=2), "item 14"),
-    (dict(actor_backend="process"), "item 10"),
-    (dict(replay_plane=True), "item 10"),
     (dict(elastic=True), "item 10"),
     (dict(fault_plan=object()), "item 10"),
     (dict(checkpoint_dir="ckpt"), "item 10"),
@@ -845,9 +844,9 @@ def test_pipeline_config_validates_as_the_reference():
         pass
 
     # the reference's agent checks: plain PAACAgent on the FIFO planes;
-    # DQNAgent only on the replay plane, which is item 10
-    from repro_torch.core.agents import (DQNAgent, LaggedPAACAgent,
-                                         PPOAgent)
+    # DQNAgent only on the replay plane
+    from repro_torch.core.agents import (DQNAgent, DQNConfig,
+                                         LaggedPAACAgent, PPOAgent)
 
     cfg = _grid_agent().cfg
     for other in (OtherAgent(cfg), LaggedPAACAgent(cfg), PPOAgent(cfg)):
@@ -856,9 +855,10 @@ def test_pipeline_config_validates_as_the_reference():
             PipelinedRL(_grid(), other, device="cpu")
     with pytest.raises(ValueError, match="needs the replay plane"):
         PipelinedRL(_grid(), DQNAgent(cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PipelinedRL(_grid(), DQNAgent(cfg), device="cpu",
-                    pipeline=PipelineConfig(replay_plane=True))
+    res = PipelinedRL(_grid(), DQNAgent(cfg, DQNConfig(t_max=2)),
+                      device="cpu",
+                      pipeline=PipelineConfig(replay_plane=True)).run(2)
+    assert res.steps == 2 * 8 * 2 and math.isfinite(res.mean_metrics["loss"])
 
 
 def test_entry_points_raise_without_a_card_unless_the_cpu_is_asked_for():

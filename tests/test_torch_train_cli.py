@@ -12,7 +12,9 @@
 * ``--device cpu`` runs the three ported legs (PAAC synchronous,
   ``--pipeline`` and ``--algo dqn``) on the reference's ``TokenEnv``
   setting, the ``--host-env`` legs (synchronous and ``--pipeline``, with
-  the reference's pool recipe), ``--pipeline --rollout-plane host`` on the
+  the reference's pool recipe), ``--pipeline --actor-backend process``,
+  ``--pipeline --replay`` (uniform and prioritized) and ``--pipeline
+  --algo dqn --replay``, ``--pipeline --rollout-plane host`` on the
   TokenEnv, and ``--metrics-jsonl`` with ``--stall-timeout``; without a
   card and without ``--device cpu`` the trainer raises.
 * ``examples/quickstart_torch.py`` (its device and host legs bitwise equal
@@ -113,9 +115,6 @@ UNPORTED = [
     (["--arch", "qwen2-7b"], "item 11"),
     (["--arch", "mamba2-370m", "--reduced"], "item 11"),
     (["--mode", "synthetic"], "item 11"),
-    (["--pipeline", "--actor-backend", "process"], "item 10"),
-    (["--pipeline", "--replay"], "item 10"),
-    (["--pipeline", "--algo", "dqn", "--replay"], "item 10"),
     (["--pipeline", "--elastic"], "item 10"),
     (["--pipeline", "--fault-kill", "0:1"], "item 10"),
     (["--pipeline", "--fault-stall-learner", "1:0.5"], "item 10"),
@@ -193,6 +192,35 @@ def test_the_host_env_legs_run_on_the_cpu(leg, monkeypatch):
     assert all(math.isfinite(v) for v in res.mean_metrics.values())
     if leg:
         assert rl._plane == "host"
+
+
+@pytest.mark.parametrize("leg", [
+    ["--pipeline", "--actor-backend", "process", "--num-actors", "2"],
+    ["--pipeline", "--replay", "--replay-capacity", "4"],
+    ["--pipeline", "--replay", "--replay-batch", "2", "--prioritized"],
+    ["--pipeline", "--algo", "dqn", "--replay", "--num-actors", "2"],
+], ids=["process", "replay", "replay-prioritized", "dqn-replay"])
+def test_the_process_and_replay_legs_run_on_the_cpu(leg):
+    """``--actor-backend process`` implies the reference's host-env recipe
+    and runs spawned workers, which ``run_rl`` reaps; ``--replay`` runs
+    the sampled ReplayRing on the TokenEnv, PAAC or DQN."""
+    rl, (res,) = train.run_rl(train.build_parser().parse_args(
+        TINY + ["--env-spin", "20"] + leg))
+    cfg = rl.pipeline
+    n_actors = 2 if "--num-actors" in leg else 1
+    assert cfg.actor_backend == ("process" if "process" in leg
+                                 else "thread")
+    assert cfg.replay_plane == ("--replay" in leg)
+    assert cfg.prioritized == ("--prioritized" in leg)
+    assert cfg.replay_batch == (2 if "--replay-batch" in leg else 1)
+    assert res.steps == 4 * 4 * 3 // n_actors
+    assert all(math.isfinite(v) for v in res.mean_metrics.values())
+    if "process" in leg:
+        assert rl._plane == "host" and rl._process_plane is None  # closed
+        assert [s.n_envs for s in rl._proc_specs] == [2, 2]
+        assert rl.agent.cfg.obs_shape == (16,)
+    else:
+        assert isinstance(rl.env, TokenEnv) and rl._plane == "device"
 
 
 def test_the_forced_host_plane_and_the_observers_run_on_the_cpu(tmp_path):
