@@ -183,6 +183,32 @@ paths:
               sample spans, peak device memory; (c) ``launch/train.py
               --pipeline --replay`` (K2 50) and ``--pipeline --algo dqn
               --replay`` (none) on TokenEnv;
+   faults   — fault tolerance in the paper's setting (paac_nature,
+              84x84x4 fp32 frames, n_e = 32, t_max 5, RMSProp lr
+              0.0007 n_e): (a) with cuDNN deterministic, depth-1 lockstep
+              on the thread device plane, 12 updates, a checkpoint every
+              4 and an injected kill after 9 rollouts, then a resume from
+              the newest checkpoint: params, RMSProp state and total_steps
+              bitwise the uninterrupted run's and the seqs continued, at
+              clips inf (K1) and 1 (K2); (b) four actors of 8 envs,
+              elastic, an "error" kill of slot 1: the full quota, each
+              (actor_id, seq) once, one respawn, timesteps/s beside the
+              same call's run with no fault, detect -> respawn from the
+              fault.* spans; (c) restart_budget 0: the survivors absorb
+              the dead slot's quota; (d) a process plane of four workers
+              on a HostEnvSpec of 32 FrameEnvs: an "error" kill (the child
+              reused), then an "exit" kill (one fresh spawn), each timed
+              beside the un-faulted run, and after close() no worker
+              alive and no segment in /dev/shm, graveyard included; (e) a
+              dropped release and a 0.5 s learner stall on the thread
+              host plane: the run completes and the stall shows in the
+              actor's waits; (f) a pipeline checkpoint's ms and bytes,
+              its share of the learner's time at checkpoint_every = 100,
+              and its round trip on the card (each tensor on its device,
+              bitwise); (g) ``launch/train.py --pipeline --elastic
+              --fault-kill 0:3 --checkpoint-dir D --checkpoint-every 10``
+              (K2 50), then ``--resume`` on D (K2 25: the remainder) and
+              ``--checkpoint D2`` on the synchronous path (K1 50);
 6. model    — reduced qwen2-7b, minicpm3-4b (absorbed and naive decode)
               and mamba2-370m in fp32, one set of weights on the CPU
               (plain versions) and on the card (kernels): prefill and
@@ -213,8 +239,8 @@ TF32 is off for matmuls and convolutions throughout. The line before the
 last is a JSON object with each kernel's numbers and its launches on each
 main path (training, pipeline, agents, train cli, host sync, host
 pipeline, host train cli, host process, host process train cli, replay,
-replay train cli and the three serving cells, each read with the counts
-set to 0 just before it); the last line is
+replay train cli, faults, faults train cli and the three serving cells,
+each read with the counts set to 0 just before it); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
 phase fails, it exits non-zero and prints no result. ``--trace-dir DIR``
 also writes the pipeline runs' Chrome traces (actor, ring and learner
@@ -227,6 +253,7 @@ import importlib.util
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2919,6 +2946,414 @@ def phase_replay(torch, configs, core, envs, A, optim, pipeline, ops, tree,
             {k: v for k, v in cli.items() if v})
 
 
+def fault_spans(hub):
+    """``{category: [(t0, t1), ...]}`` of the supervisor's ``fault.*``
+    spans in ``hub`` (empty without a supervisor track)."""
+    out = {}
+    for _, _, em in hub.tracks():
+        if em.name == "supervisor":
+            for cat, t0, t1 in em.snapshot():
+                out.setdefault(em.categories[cat], []).append((t0, t1))
+    return out
+
+
+def first_put(hub, actor_id: int):
+    """Start of the first ``queue.put_wait`` span of replica ``actor_id``:
+    when its first payload reached the ring (None if it put nothing)."""
+    for _, _, em in hub.tracks():
+        if em.name == f"actor{actor_id}":
+            starts = [t0 for cat, t0, _ in em.snapshot()
+                      if em.categories[cat] == "queue.put_wait"]
+            return min(starts) if starts else None
+    return None
+
+
+def phase_faults(torch, np, configs, envs, A, optim, pipeline, paper_atari,
+                 ops, tree, train, ckpt, card, dev="cuda", n_envs=32,
+                 n_workers=8, lock_iters=12, every=4, kill_at=9, warmup=10,
+                 iters=100, degrade_iters=40, proc_iters=60, host_iters=30,
+                 saves=5, cli_iters=50, stall_s=0.5):
+    """Fault tolerance in the paper's setting (paac_nature, 84x84x4 fp32
+    frames, n_e = 32, t_max 5, RMSProp lr 0.0007 n_e): (a) kill and resume
+    ≡ uninterrupted, bitwise, at clips inf (K1) and 1 (K2); (b) an elastic
+    thread respawn among four actors, timed beside the un-faulted run;
+    (c) a degrade; (d) a process plane of four workers: an "error" kill
+    (the child reused) and an "exit" kill (one fresh spawn), timed beside
+    the un-faulted run, and nothing left after close(); (e) a dropped
+    release and a stalled learner on the host plane; (f) the checkpoint's
+    cost and its round trip on the card; (g) the trainer's legs. Returns
+    the launch counts of (a)-(e) and of the trainer's legs."""
+    t_phase = time.perf_counter()
+    leaves = tree.tree_leaves
+    PipelineConfig = configs.PipelineConfig
+    FaultPlan = pipeline.FaultPlan
+    inf = float("inf")
+    t_max = 5
+    lr = 0.0007 * n_envs
+    cuda = torch.device(dev).type == "cuda"
+    path = {k: 0 for k in ops.launches}
+
+    def add(counts):
+        for k, v in counts.items():
+            path[k] += v
+
+    def expect(label, counts, n, kernel="vtrace_returns"):
+        want = {k: n if k == kernel else 0 for k in counts}
+        check(counts == want, f"faults {label}: launches {counts}, "
+              f"expected {want}")
+        add(counts)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # (a) kill and resume ≡ uninterrupted, bitwise (cuDNN deterministic)
+    ck_root = tempfile.mkdtemp(prefix="faults_ckpt_")
+    lock_rows = []
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for clip, kernel in ((inf, "nstep_returns"), (1.0, "vtrace_returns")):
+            d = os.path.join(ck_root, f"clip{clip}")
+
+            def lockstep(**kw):
+                return paper_atari.build("paac_nature", n_envs, SEED, dev,
+                                         PipelineConfig(queue_depth=1,
+                                                        lockstep=True,
+                                                        rho_bar=clip,
+                                                        c_bar=clip, **kw))
+
+            a = lockstep()
+            ops.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            a.run(lock_iters)
+            sync()
+            lock_ms = 1e3 * (time.perf_counter() - t0) / lock_iters
+            expect(f"uninterrupted, clips {clip}", dict(ops.launches),
+                   lock_iters, kernel)
+            b = lockstep(checkpoint_dir=d, checkpoint_every=every,
+                         fault_plan=FaultPlan(kills=((0, kill_at, "error"),)))
+            ops.reset_launches()
+            try:
+                b.run(lock_iters)
+                check(False, "the killed run did not fail")
+            except RuntimeError as e:
+                check("pipeline actor 0 failed" in str(e)
+                      and isinstance(e.__cause__, pipeline.InjectedActorFault),
+                      f"the killed run failed otherwise: {e!r}")
+            expect(f"killed, clips {clip}", dict(ops.launches),
+                   len(b.learned_ids), kernel)
+            saved = ckpt.latest_step(d, prefix="pipe")
+            want_saved = (min(kill_at, lock_iters) // every) * every
+            check(saved == want_saved, f"newest checkpoint {saved}, "
+                  f"expected {want_saved}")
+            # the resumed run saves too (at its every-th update), so (f)
+            # has its live slot state to time
+            c = lockstep(checkpoint_dir=d, checkpoint_every=every)
+            check(c.restore() == saved, "restore() did not report the update")
+            check(all(t.device.type == torch.device(dev).type
+                      for t in leaves((c.params, c.opt_state))),
+                  "restored tensors off the card")
+            ops.reset_launches()
+            c.run(lock_iters - saved)
+            expect(f"resumed, clips {clip}", dict(ops.launches),
+                   lock_iters - saved, kernel)
+            for x, y in zip(leaves((a.params, a.opt_state)),
+                            leaves((c.params, c.opt_state))):
+                check(torch.equal(x, y), f"clips {clip}: the resumed run "
+                      "differs from the uninterrupted one")
+            check(c.total_steps == a.total_steps,
+                  f"total_steps {c.total_steps} vs {a.total_steps}")
+            check([s for _, s in c.learned_ids]
+                  == list(range(saved, lock_iters)),
+                  f"resumed seqs {c.learned_ids}")
+            lock_rows.append((clip, len(b.learned_ids), saved, lock_ms))
+            if clip == 1.0:
+                keep = c  # (f) times its saves
+            del a, b
+    finally:
+        torch.backends.cudnn.deterministic = False
+    say("faults", f"(a) depth-1 lockstep, thread device plane, "
+        f"{lock_iters} updates, a checkpoint every {every}, killed after "
+        f"{kill_at} rollouts: " + "; ".join(
+            f"clips {clip}: {n} updates before the kill, resumed from update "
+            f"{s}, params, RMSProp state and total_steps bitwise the "
+            f"uninterrupted run's, seqs continue at {s} (uninterrupted: "
+            f"{ms:.2f} ms a lockstep iteration)"
+            for clip, n, s, ms in lock_rows) + " (cuDNN deterministic)")
+
+    # (b) elastic thread respawn among four actors, and (c) a degrade
+    def four(**kw):
+        return paper_atari.build("paac_nature", n_envs, SEED, dev,
+                                 PipelineConfig(num_actors=4, queue_depth=4,
+                                                **kw))
+
+    def timed(rl, n, label):
+        rl.run(warmup)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = rl.run(n)
+        sync()
+        wall = time.perf_counter() - t0
+        expect(label, dict(ops.launches), n)
+        check(len(rl.learned_ids) == n == len(set(rl.learned_ids)),
+              f"{label}: {len(rl.learned_ids)} payloads, "
+              f"{len(set(rl.learned_ids))} distinct, of {n}")
+        check(all(math.isfinite(v) for v in res.mean_metrics.values()),
+              f"{label}: non-finite metrics")
+        return res, wall
+
+    base = four()
+    res0, _ = timed(base, iters, "four actors, no fault")
+    del base
+    el = four(elastic=True)
+    # warm up un-faulted, then arm the kill for the timed run
+    el.run(warmup)
+    el.pipeline = PipelineConfig(**{**el.pipeline.__dict__, "fault_plan":
+                                    FaultPlan(kills=((1, 3, "error"),))})
+    ops.reset_launches()
+    res1 = el.run(iters)
+    sync()
+    expect("four actors, one thread kill", dict(ops.launches), iters)
+    sup = el.supervisor
+    check(sup.episodes == [("respawn", 1, 4)], f"episodes {sup.episodes}")
+    check(len(el.learned_ids) == iters == len(set(el.learned_ids)),
+          f"thread respawn: {len(el.learned_ids)} payloads of {iters}")
+    sp = fault_spans(el.telemetry)
+    detect_s = sp["fault.detect"][0][0]
+    respawn_s = sp["fault.respawn"][0][1] - detect_s
+    first_s = first_put(el.telemetry, 4) - detect_s
+    say("faults", f"(b) four actors of {n_envs // 4} envs, depth 4, clips "
+        f"1, {iters} updates: no fault {res0.timesteps_per_sec:.1f} "
+        f"timesteps/s; elastic with an 'error' kill of slot 1 after 3 "
+        f"rollouts {res1.timesteps_per_sec:.1f} timesteps/s "
+        f"({res1.timesteps_per_sec / res0.timesteps_per_sec:.3f}x), full "
+        f"quota, each (actor_id, seq) once, episodes {sup.episodes}; "
+        f"detect -> respawned {1e3 * respawn_s:.1f} ms (backoff "
+        f"{1e3 * el.pipeline.restart_backoff_s:.0f} ms), detect -> the new "
+        f"replica's first payload {1e3 * first_s:.1f} ms ({card})")
+    del el
+    dg = four(elastic=True, restart_budget=0,
+              fault_plan=FaultPlan(kills=((2, 2, "error"),)))
+    ops.reset_launches()
+    dg.run(degrade_iters)
+    expect("degrade", dict(ops.launches), degrade_iters)
+    check(dg.supervisor.episodes == [("giveup", 2, 2)]
+          and len(dg.learned_ids) == degrade_iters
+          and len(set(dg.learned_ids)) == degrade_iters,
+          f"degrade: {dg.supervisor.episodes}, {len(dg.learned_ids)}")
+    by_slot = {a: sum(1 for b, _ in dg.learned_ids if b == a)
+               for a in range(4)}
+    say("faults", f"(c) restart_budget 0, an 'error' kill of slot 2 after 2 "
+        f"rollouts, {degrade_iters} updates: episodes "
+        f"{dg.supervisor.episodes}, payloads by slot {by_slot} (slot 2's "
+        f"quota was {degrade_iters // 4}; the survivors absorbed the rest "
+        "through the ledger)")
+    del dg
+
+    # (d) the process plane: an "error" kill, then an "exit" kill
+    spec = frame_spec(envs, np, n_envs, 0.0, n_workers, dev)
+    cfg = configs.get_config("paac_nature").replace(
+        obs_shape=FrameEnv.SHAPE, num_actions=6)
+
+    def host_rl(env, **kw):
+        return pipeline.PipelinedRL(
+            env, A.PAACAgent(cfg, A.PAACConfig(gamma=0.99, entropy_beta=0.01,
+                                               t_max=t_max)),
+            optimizer="rmsprop", lr_schedule=optim.constant(lr), seed=SEED,
+            device=dev, pipeline=PipelineConfig(**kw))
+
+    t0 = time.perf_counter()
+    pr = host_rl(spec, num_actors=4, queue_depth=4, actor_backend="process",
+                 elastic=True, restart_backoff_s=0.05)
+    plane = pr._process_plane
+    proc_rows = []
+    try:
+        pr.run(warmup)
+        start_s = time.perf_counter() - t0
+        first = [w.proc for w in plane._workers]
+        for mode in (None, "error", "exit"):
+            pr.pipeline = PipelineConfig(**{
+                **pr.pipeline.__dict__, "fault_plan":
+                None if mode is None else FaultPlan(kills=((1, 3, mode),))})
+            ops.reset_launches()
+            t1 = time.perf_counter()
+            res = pr.run(proc_iters)
+            wall = time.perf_counter() - t1
+            label = f"process, {mode or 'no'} kill"
+            expect(label, dict(ops.launches), proc_iters)
+            check(len(pr.learned_ids) == proc_iters
+                  == len(set(pr.learned_ids)),
+                  f"{label}: {len(pr.learned_ids)} payloads of {proc_iters}")
+            eps = pr.supervisor.episodes
+            row = dict(mode=mode, tps=res.timesteps_per_sec, wall=wall,
+                       eps=eps)
+            if mode is not None:
+                check(eps == [("respawn", 1, 4)], f"{label}: {eps}")
+                sp = fault_spans(pr.telemetry)
+                det = sp["fault.detect"][0][0]
+                row["respawn_s"] = sp["fault.respawn"][0][1] - det
+                row["first_s"] = first_put(pr.telemetry, 4) - det
+            proc_rows.append(row)
+        check(plane._workers[1].proc is not first[1]
+              and [w.proc for w in plane._graveyard] == [first[1]]
+              and first[1].exitcode == 17,
+              "process: the 'exit' kill did not retire slot 1's child to "
+              "the graveyard and spawn one fresh")
+        segs = plane.segment_names()
+        handles = plane._handles()
+    finally:
+        pr.close()
+    check(not any(w.proc.is_alive() for w in handles),
+          "process: a worker (or a retired one) outlived close()")
+    check(not set(segs) & set(os.listdir("/dev/shm")),
+          "process: segments left in /dev/shm (graveyard included)")
+    ok = proc_rows[0]
+    say("faults", f"(d) process plane, four workers of {n_envs // 4} "
+        f"FrameEnvs ({n_workers // 4 or 1} env threads each), depth 4, "
+        f"clips 1, {proc_iters} updates a run; the plane's start and "
+        f"{warmup} warm-up updates {start_s:.1f} s; no fault "
+        f"{ok['tps']:.1f} timesteps/s ({ok['wall']:.2f} s); " + "; ".join(
+            f"'{r['mode']}' kill of slot 1 after 3 rollouts "
+            f"({'child reused' if r['mode'] == 'error' else 'one fresh spawn'}"
+            f"): {r['tps']:.1f} timesteps/s "
+            f"({r['tps'] / ok['tps']:.3f}x, {r['wall']:.2f} s), detect -> "
+            f"respawned {1e3 * r['respawn_s']:.1f} ms, detect -> the new "
+            f"epoch's first payload {r['first_s']:.3f} s"
+            for r in proc_rows[1:]) + "; after close() no worker alive, "
+        f"graveyard included, and none of the plane's {len(segs)} "
+        f"segments left in /dev/shm ({card})")
+
+    # (e) learner-side faults on the thread host plane
+    host_rows = {}
+    for label, plan in (("none", None),
+                        ("drop+stall", FaultPlan(
+                            drop_release=(2,),
+                            stall_learner=((host_iters // 2, stall_s),)))):
+        rl = host_rl(frame_spec(envs, np, n_envs, 0.0, n_workers, dev),
+                     queue_depth=2, fault_plan=plan)
+        try:
+            rl.run(3)
+            ops.reset_launches()
+            res = rl.run(host_iters)
+        finally:
+            rl.close()
+        expect(f"host, {label}", dict(ops.launches), host_iters)
+        check(len(rl.learned_ids) == host_iters,
+              f"host {label}: {len(rl.learned_ids)} of {host_iters}")
+        host_rows[label] = res
+    put_gain = (host_rows["drop+stall"].actor_idle_s
+                - host_rows["none"].actor_idle_s)
+    check(put_gain > 0.3 * stall_s,
+          f"host: the {stall_s} s stall left the actor's waits "
+          f"{put_gain:.3f} s longer")
+    say("faults", f"(e) thread host plane, one actor on {n_envs} FrameEnvs, "
+        f"depth 2, {host_iters} updates: a dropped release at update 2 and "
+        f"a {stall_s} s learner stall at update {host_iters // 2} — the run "
+        f"completes; learner queue.get_wait "
+        f"{host_rows['none'].learner_idle_s:.3f} s -> "
+        f"{host_rows['drop+stall'].learner_idle_s:.3f} s, the actor's "
+        f"put_wait + lease {host_rows['none'].actor_idle_s:.3f} s -> "
+        f"{host_rows['drop+stall'].actor_idle_s:.3f} s; timesteps/s "
+        f"{host_rows['none'].timesteps_per_sec:.1f} -> "
+        f"{host_rows['drop+stall'].timesteps_per_sec:.1f}")
+
+    # (f) the checkpoint's cost and its round trip on the card
+    sdir = os.path.join(ck_root, "cost")
+    keep.pipeline = PipelineConfig(**{**keep.pipeline.__dict__,
+                                      "checkpoint_dir": sdir})
+    times = []
+    for _ in range(saves):  # each overwrites the file of its update
+        sync()
+        t0 = time.perf_counter()
+        p = keep._save_checkpoint(None, keep._iters_done)
+        times.append(time.perf_counter() - t0)
+    save_ms = 1e3 * sorted(times)[len(times) // 2]
+    nbytes = os.path.getsize(p)
+    raw = sum(t.numel() * t.element_size()
+              for t in leaves((keep.params, keep.opt_state)))
+    full = sum(t.numel() * t.element_size() for t in leaves(
+        keep._checkpoint_template()) if isinstance(t, torch.Tensor))
+    t0 = time.perf_counter()
+    po = ckpt.save_checkpoint(sdir, 0, {"params": keep.params,
+                                        "opt_state": keep.opt_state},
+                              prefix="params")
+    params_ms = 1e3 * (time.perf_counter() - t0)
+    iter_ms = lock_rows[-1][3]
+    share = save_ms / (100 * iter_ms + save_ms)
+    _, env_state, obs = keep._live_slot_state[0]
+    want = leaves((keep.params, keep.opt_state, env_state, obs))
+    back = ckpt.restore_checkpoint(sdir, keep._iters_done,
+                                   keep._checkpoint_template(), prefix="pipe")
+    got = leaves((back["params"], back["opt_state"],
+                  back["slots"]["0"]["env_state"], back["slots"]["0"]["obs"]))
+    check(len(got) == len(want) and all(
+        g.device == w.device and g.dtype == w.dtype and torch.equal(g, w)
+        for g, w in zip(got, want)), "checkpoint round trip on the card")
+    say("faults", f"(f) a pipeline checkpoint of paac_nature (params "
+        f"{raw / 2 / 1e6:.2f} MB and RMSProp statistics, plus the slot's "
+        f"env state and obs: {full / 1e6:.2f} MB of tensors) takes "
+        f"{save_ms:.1f} ms a save (median of {saves}, "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in times)}) and "
+        f"{nbytes / 1e6:.2f} MB on disk; params and optimizer state alone "
+        f"{params_ms:.1f} ms, {os.path.getsize(po) / 1e6:.2f} MB; at "
+        f"checkpoint_every = 100 beside (a)'s {iter_ms:.2f} ms a lockstep "
+        f"iteration that is {100 * share:.2f}% of the learner's time; "
+        f"restored on the card: {len(got)} tensors (params, RMSProp state, "
+        f"the slot's env state and obs), each on its device and bitwise "
+        f"({card})")
+    del keep
+
+    # (g) the trainer's fault-tolerance legs on TokenEnv
+    cli = {k: 0 for k in ops.launches}
+    cd = os.path.join(ck_root, "cli")
+    base = ["--arch", "paac_vector", "--n-envs", str(n_envs), "--t-max",
+            str(t_max), "--device", str(dev)]
+    legs = (
+        (["--pipeline", "--iterations", str(cli_iters), "--elastic",
+          "--fault-kill", "0:3", "--checkpoint-dir", cd,
+          "--checkpoint-every", str(max(cli_iters // 5, 1))],
+         "vtrace_returns", cli_iters),
+        (["--pipeline", "--iterations", str(cli_iters + cli_iters // 2),
+          "--checkpoint-dir", cd, "--resume"], "vtrace_returns",
+         cli_iters // 2),
+        (["--iterations", str(cli_iters), "--checkpoint",
+          os.path.join(ck_root, "sync")], "nstep_returns", cli_iters),
+    )
+    for argv, kernel, n in legs:
+        ops.reset_launches()
+        rl, res = train.run_rl(train.build_parser().parse_args(base + argv))
+        counts = dict(ops.launches)
+        want = {k: n if k == kernel else 0 for k in counts}
+        check(counts == want, f"train {' '.join(argv)}: launches {counts}, "
+              f"expected {want}")
+        check(len(res) == 1 and all(math.isfinite(v) for v in
+                                    res[0].mean_metrics.values()),
+              f"train {' '.join(argv)}: {res}")
+        for k, v in counts.items():
+            cli[k] += v
+        extra = ""
+        if "--elastic" in argv:
+            check(rl.supervisor.episodes == [("respawn", 0, 1)],
+                  f"train --elastic: {rl.supervisor.episodes}")
+            extra = f", episodes {rl.supervisor.episodes}"
+        if "--resume" in argv:
+            check(rl.total_steps == (cli_iters + cli_iters // 2) * n_envs
+                  * t_max, f"train --resume: {rl.total_steps} steps")
+        if "--checkpoint" in argv:
+            check(ckpt.latest_step(argv[-1]) == rl.total_steps,
+                  "train --checkpoint: no file at the run's steps")
+        say("faults", f"(g) python -m repro_torch.launch.train "
+            f"{' '.join(base[:-2] + argv)}: {res[0].steps} steps, K1 "
+            f"{counts['nstep_returns']} K2 {counts['vtrace_returns']}, "
+            f"{res[0].timesteps_per_sec:.1f} timesteps/s{extra}")
+    shutil.rmtree(ck_root, ignore_errors=True)
+    say("faults", f"the phase took {time.perf_counter() - t_phase:.1f} s")
+    return ({k: v for k, v in path.items() if v},
+            {k: v for k, v in cli.items() if v})
+
+
 # Each kernel's CUDA kernels as a profile names them. K4 and K5 share the
 # combine (split_combine_kernel); no serving cell runs both. decode_kernel,
 # decode_combine_kernel, mla_decode_kernel and ssd_scan_kernel (bf16) are
@@ -2980,8 +3415,8 @@ def main(argv=None) -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch import (configs, core, envs, models, optim, pipeline,
-                             serving)
+    from repro_torch import (checkpoint, configs, core, envs, models, optim,
+                             pipeline, serving)
     from repro_torch.core import agents
     from repro_torch.core.agents import paac, replay
     from repro_torch.kernels import _build, ops, ref
@@ -3043,6 +3478,11 @@ def main(argv=None) -> int:
         torch, configs, core, envs, agents, optim, pipeline, ops, tree, train,
         card)
     lap("replay")
+    torch.cuda.empty_cache()
+    by_path["faults"], by_path["faults train cli"] = phase_faults(
+        torch, np, configs, envs, agents, optim, pipeline, paper_atari, ops,
+        tree, train, checkpoint, card)
+    lap("faults")
     torch.cuda.empty_cache()
     phase_model(torch, np, configs, models, ops, tree)
     lap("model")

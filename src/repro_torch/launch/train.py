@@ -26,17 +26,23 @@ then runs the V-trace learner on stale sampled rollouts and ``--algo
 dqn`` the replay-fed TD learner. ``--trace`` writes a Chrome trace of the
 pipeline's spans, ``--metrics-jsonl`` a JSONL liveness heartbeat, and
 ``--stall-timeout`` arms the stall watchdog, which names the stage each
-party is blocked in when progress stops. The synchronous PAAC update
-computes its n-step returns through K1.
+party is blocked in when progress stops. The pipeline's fault-tolerance
+plane: ``--elastic`` supervises the replicas (respawn under
+``--restart-budget``, then degrade to the survivors), ``--fault-kill
+SLOT:AFTER[:MODE]`` and ``--fault-stall-learner ITER:SECONDS`` inject
+planned faults, ``--checkpoint-dir``/``--checkpoint-every`` save the full
+pipeline state every so many updates and ``--resume`` restores the newest
+and runs only the remaining iterations; ``--checkpoint DIR`` saves the
+final params (any backend). The synchronous PAAC update computes its
+n-step returns through K1.
 
 The parser takes every flag of the reference, with its defaults, plus
 ``--device``. Every ``SystemExit`` of the reference's flag validation comes
 in the reference's order with its text. What the port does not run yet
 raises ``NotImplementedError`` naming its ROADMAP Queue 1 item: the token
 archs and ``--mode synthetic`` (their training pass needs a backward
-through K3 and K6: item 11), ``--elastic``, ``--fault-*``,
-``--checkpoint*`` and ``--resume`` (item 10), ``--sanitize`` (item 13),
-and ``--mesh`` > 1 and ``--rollout-plane mesh`` (item 14). So
+through K3 and K6: item 11), ``--sanitize`` (item 13), and ``--mesh`` > 1
+and ``--rollout-plane mesh`` (item 14). So
 ``--arch`` defaults to ``paac_vector``, the vector policy acting on the
 raw observations (the reference's default, ``mamba2-370m``, waits for
 item 11).
@@ -53,6 +59,11 @@ Examples:
         --n-envs 32 --pipeline --actor-backend process --num-actors 4
     PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
         --algo dqn --pipeline --replay --replay-capacity 32
+    PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
+        --pipeline --elastic --fault-kill 0:3 --checkpoint-dir ck \\
+        --checkpoint-every 10
+    PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
+        --pipeline --checkpoint-dir ck --resume
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --iterations 4 --n-envs 4
 """
@@ -61,6 +72,7 @@ from __future__ import annotations
 import argparse
 from typing import List, Tuple
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import PipelineConfig, get_config
 from repro_torch.core.agents import (DQNAgent, DQNConfig, PAACAgent,
                                      PAACConfig)
@@ -68,7 +80,7 @@ from repro_torch.core.framework import ParallelRL, RunResult
 from repro_torch.device import resolve_device
 from repro_torch.envs import TokenEnv, py_bound_spec
 from repro_torch.optim import constant
-from repro_torch.pipeline import PipelinedRL
+from repro_torch.pipeline import FaultPlan, PipelinedRL
 from repro_torch.utils import get_logger
 
 log = get_logger("train")
@@ -146,12 +158,6 @@ def _refuse_unported(args) -> None:
         (args.arch != "paac_vector", f"--arch {args.arch} (the token archs' "
          "training pass, which needs a backward through K3 and K6) is item "
          "11"),
-        (args.elastic or args.fault_kill or args.fault_stall_learner,
-         "--elastic and --fault-* (the supervisor and fault injection) are "
-         "item 10"),
-        (args.checkpoint or args.checkpoint_dir or args.checkpoint_every
-         or args.resume, "--checkpoint, --checkpoint-dir, --checkpoint-every "
-         "and --resume (checkpoints) are item 10"),
         (args.sanitize, "--sanitize (the runtime sanitizers) is item 13"),
         (args.mesh > 1 or args.rollout_plane == "mesh", "--mesh > 1 and "
          "--rollout-plane mesh (the mesh plane) are item 14"),
@@ -160,6 +166,30 @@ def _refuse_unported(args) -> None:
         if hit:
             raise NotImplementedError(
                 f"repro_torch.launch.train: {what} of ROADMAP Queue 1")
+
+
+def _fault_plan(args):
+    """The ``FaultPlan`` of ``--fault-kill``/``--fault-stall-learner``
+    (``None`` without either), with the reference's exits on a malformed
+    entry."""
+    if not (args.fault_kill or args.fault_stall_learner):
+        return None
+    kills = []
+    for spec in args.fault_kill:
+        parts = spec.split(":")
+        if len(parts) not in (2, 3):
+            raise SystemExit(
+                f"--fault-kill {spec!r}: expected slot:after_rollouts[:mode]")
+        kills.append((int(parts[0]), int(parts[1]),
+                      parts[2] if len(parts) == 3 else "error"))
+    stalls = []
+    for spec in args.fault_stall_learner:
+        it, _, sec = spec.partition(":")
+        if not sec:
+            raise SystemExit(
+                f"--fault-stall-learner {spec!r}: expected iteration:seconds")
+        stalls.append((int(it), float(sec)))
+    return FaultPlan(kills=tuple(kills), stall_learner=tuple(stalls))
 
 
 def run_rl(args) -> Tuple[object, List[RunResult]]:
@@ -205,7 +235,13 @@ def run_rl(args) -> Tuple[object, List[RunResult]]:
                                     lease_timeout_s=args.lease_timeout,
                                     trace_path=args.trace,
                                     metrics_jsonl=args.metrics_jsonl,
-                                    stall_timeout_s=args.stall_timeout))
+                                    stall_timeout_s=args.stall_timeout,
+                                    elastic=args.elastic,
+                                    restart_budget=args.restart_budget,
+                                    restart_backoff_s=args.restart_backoff,
+                                    fault_plan=_fault_plan(args),
+                                    checkpoint_dir=args.checkpoint_dir,
+                                    checkpoint_every=args.checkpoint_every))
     else:
         try:
             rl = ParallelRL(env, agent, lr_schedule=constant(args.lr),
@@ -216,9 +252,20 @@ def run_rl(args) -> Tuple[object, List[RunResult]]:
             raise
     results = []
     try:
+        resume_done = 0
+        if args.pipeline and args.resume:
+            resume_done = rl.restore()
+            if resume_done:
+                log.info("resume: checkpoint covers %d update(s) — running "
+                         "the remainder", resume_done)
         for epoch in range(args.epochs):
-            res = rl.run(args.iterations,
-                         log_every=max(args.iterations // 4, 1))
+            iters = args.iterations
+            if epoch == 0 and resume_done:
+                iters = max(args.iterations - resume_done, 0)
+                if iters == 0:
+                    log.info("resume: epoch 0 fully covered by checkpoint")
+                    continue
+            res = rl.run(iters, log_every=max(args.iterations // 4, 1))
             log.info(
                 "epoch %d steps=%d mean_reward/iter=%.3f tps=%.0f%s",
                 epoch, res.steps, res.mean_metrics.get("reward_sum", 0.0),
@@ -228,6 +275,9 @@ def run_rl(args) -> Tuple[object, List[RunResult]]:
                  f" learner_idle={res.learner_idle_s:.2f}s"
                  if args.pipeline else ""))
             results.append(res)
+        if args.checkpoint:
+            save_checkpoint(args.checkpoint, rl.total_steps, rl.params)
+            log.info("checkpoint saved to %s", args.checkpoint)
     finally:
         if hasattr(rl, "close"):
             rl.close()  # the workers or the pools built from the spec
@@ -253,7 +303,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    ap.add_argument("--checkpoint", default="")
+    ap.add_argument("--checkpoint", default="",
+                    help="save the final params here (a directory) after "
+                    "the epochs")
     ap.add_argument("--pipeline", action="store_true",
                     help="use the asynchronous actor/learner pipeline backend")
     ap.add_argument("--queue-depth", type=int, default=2,
@@ -308,7 +360,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "each party's blocked stage when progress stops; "
                     "pipeline backend only")
     ap.add_argument("--elastic", action="store_true",
-                    help="supervise actor replicas (ROADMAP Queue 1 item 10)")
+                    help="supervise actor replicas: respawn crashed actors "
+                    "under --restart-budget, then degrade to fewer actors "
+                    "(default is fail-fast)")
     ap.add_argument("--restart-budget", type=int, default=1,
                     help="respawns allowed per actor slot (with --elastic)")
     ap.add_argument("--restart-backoff", type=float, default=0.05,
@@ -318,16 +372,24 @@ def build_parser() -> argparse.ArgumentParser:
                     "holding party when a lease is never released")
     ap.add_argument("--fault-kill", action="append", default=[],
                     metavar="SLOT:AFTER[:MODE]",
-                    help="fault injection (ROADMAP Queue 1 item 10)")
+                    help="deterministic fault injection: kill actor slot "
+                    "SLOT after AFTER produced rollouts; MODE is 'error' "
+                    "(raise in the replica, default) or 'exit' (hard process "
+                    "exit, process backend). Repeatable.")
     ap.add_argument("--fault-stall-learner", action="append", default=[],
                     metavar="ITER:SECONDS",
-                    help="fault injection (ROADMAP Queue 1 item 10)")
+                    help="deterministic fault injection: sleep SECONDS in "
+                    "the learner loop before update ITER. Repeatable.")
     ap.add_argument("--checkpoint-dir", default="",
-                    help="pipeline checkpoints (ROADMAP Queue 1 item 10)")
+                    help="directory for the pipeline's full-state "
+                    "checkpoints (params, opt state, generators, counters)")
     ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help="pipeline checkpoints (ROADMAP Queue 1 item 10)")
+                    help="save a pipeline checkpoint every N learner "
+                    "updates (0 = off; requires --checkpoint-dir)")
     ap.add_argument("--resume", action="store_true",
-                    help="pipeline checkpoints (ROADMAP Queue 1 item 10)")
+                    help="restore the newest checkpoint in --checkpoint-dir "
+                    "and run only the remaining iterations (bitwise "
+                    "continuation on the thread backend's FIFO planes)")
     return ap
 
 

@@ -18,8 +18,12 @@ slot (``ShmParamSlot``/``ShmParamView``). ``replay_plane=True`` swaps the
 FIFO ring for the sampled ``ReplayRing``, which feeds the V-trace learner
 or DQN's replay-fed step (``make_dqn_collect_fn``,
 ``make_dqn_learner_step``; ``SyncReplayDQN`` is its synchronous
-reference). The mesh plane, the supervisor, faults and checkpoints wait
-for ROADMAP.md Queue 1 items 10 and 14.
+reference). Fault tolerance: a ``FaultPlan`` armed a run by a
+``FaultInjector`` (planned kills raise ``InjectedActorFault``), and with
+``elastic`` an ``ActorSupervisor`` that respawns or degrades dying
+replicas over a ``QuotaLedger``; checkpoints live in
+``repro_torch.checkpoint``. The mesh plane waits for ROADMAP.md Queue 1
+item 14.
 """
 from repro_torch.configs.base import PipelineConfig
 from repro_torch.pipeline.actor import (
@@ -33,6 +37,11 @@ from repro_torch.pipeline.actor import (
     collect_host,
     make_host_act_step,
 )
+from repro_torch.pipeline.faults import (
+    FaultInjector,
+    FaultPlan,
+    InjectedActorFault,
+)
 from repro_torch.pipeline.learner import make_learner_step
 from repro_torch.pipeline.offpolicy import (
     SyncReplayDQN,
@@ -44,20 +53,26 @@ from repro_torch.pipeline.queue import CLOSED, QueueClosed, TrajectoryQueue
 from repro_torch.pipeline.replay_ring import ReplayRing
 from repro_torch.pipeline.ring import DeviceTrajectoryRing
 from repro_torch.pipeline.shm import ShmParamSlot, ShmParamView, ShmStagingSet
+from repro_torch.pipeline.supervisor import ActorSupervisor, QuotaLedger
 from repro_torch.pipeline.worker import ProcessActorDrainer, ProcessActorPlane
 
 __all__ = [
     "ActorBase",
+    "ActorSupervisor",
     "ActorThread",
     "CLOSED",
     "DeviceTrajectoryRing",
+    "FaultInjector",
+    "FaultPlan",
     "HostStagingRing",
+    "InjectedActorFault",
     "ParamSlot",
     "PingPongParamSlot",
     "PipelineConfig",
     "PipelinedRL",
     "ProcessActorDrainer",
     "ProcessActorPlane",
+    "QuotaLedger",
     "QueueClosed",
     "ReplayRing",
     "Rollout",

@@ -46,9 +46,16 @@ reference's ordering through XLA buffers becomes CUDA stream order:
   (``repro_torch.pipeline.ring.adopt``). A host-plane collect has already
   waited for its device work when it returns, so its payload carries none.
 
-The reference's supervisor, quota ledger, fault injector and checkpoint
-snapshot hooks wait for ROADMAP Queue 1 item 10: ``ActorThread`` keeps
-their arguments and refuses them.
+Fault tolerance (``repro_torch.pipeline.supervisor``, ``faults``): a
+replica that dies consults its ``supervisor`` on its own thread before it
+hard-closes the stream; ``ActorThread`` takes the run's quota ledger (it
+picks up a dead sibling's orphaned quota once its own is done), the fault
+injector (the planned kills fire before a collect) and a ``snapshot`` hook
+whose post-collect resume state the learner pops with ``consume_state`` as
+it consumes the matching payload. A torch generator advances in place
+during a collect (a JAX key is replaced only on success), so a replica
+also keeps ``boundary``: its generators' states after its last
+successful collect, from which a respawn builds fresh generators.
 """
 from __future__ import annotations
 
@@ -65,7 +72,7 @@ from repro_torch.core.rollout import (Transition, behaviour_logp,
 from repro_torch.pipeline.queue import QueueClosed
 from repro_torch.telemetry.spans import (COLLECT, LEASE, QUEUE_PUT_WAIT,
                                          SpanEmitter)
-from repro_torch.utils.sampling import categorical
+from repro_torch.utils.sampling import categorical, generator_state
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 __all__ = [
@@ -519,9 +526,16 @@ class ActorBase(threading.Thread):
         else:
             self.span_emitter = SpanEmitter(f"actor{actor_id}")
         self.error: Optional[BaseException] = None
+        # the fault-tolerance surface (repro_torch.pipeline.supervisor): the
+        # slot this replica occupies (stable across respawns, unlike
+        # actor_id), its quota accounting, and the supervisor the epilogue
+        # consults. A handled fault leaves ``error`` set (diagnostics) but
+        # marks ``fault_handled``, so the run does not treat it as fatal.
         self.slot_index = actor_id
         self.assigned = 0  # payloads this replica must produce
         self.produced = 0  # payloads successfully put so far
+        self.supervisor = None
+        self.fault_handled = False
 
     @property
     def wait_s(self) -> float:
@@ -564,7 +578,16 @@ class ActorBase(threading.Thread):
             self.error = e
         finally:
             if self.error is not None:
-                self._queue.close()  # abort: wake learner + siblings
+                # with a supervisor the dying thread *is* the recovery
+                # context: on_actor_error respawns a replacement (which
+                # inherits this replica's producer slot) or degrades by
+                # orphaning the remaining quota (checking the slot out
+                # itself). Only an unhandled death hard-aborts the stream.
+                sup = self.supervisor
+                if sup is not None and sup.on_actor_error(self):
+                    self.fault_handled = True
+                else:
+                    self._queue.close()  # abort: wake learner + siblings
             else:
                 self._queue.producer_done()
 
@@ -585,21 +608,16 @@ class ActorThread(ActorBase):
     stale); otherwise it reads the freshest available params and runs ahead
     up to the ring depth (shared across all replicas).
 
-    ``slot_index`` and ``start_seq`` are kept from the reference; its
-    ``ledger``, ``injector`` and ``snapshot`` hooks (elastic recovery,
-    fault injection, checkpoints) are ROADMAP Queue 1 item 10 and are
-    refused.
+    Quota and shutdown are ``ActorBase``'s; its process-backend twin
+    (``repro_torch.pipeline.worker.ProcessActorDrainer``) shares them.
     """
 
     def __init__(self, collect: Callable, queue, slot: ParamSlot, key,
                  iterations: int, lockstep: bool = False, actor_id: int = 0,
                  telemetry=None, slot_index: Optional[int] = None,
                  start_seq: int = 0, ledger=None, injector=None,
-                 snapshot: Optional[Callable] = None, stream=None):
-        if ledger is not None or injector is not None or snapshot is not None:
-            raise NotImplementedError(
-                "ActorThread's quota ledger, fault injector and checkpoint "
-                "snapshot are not ported yet (ROADMAP Queue 1 item 10)")
+                 snapshot: Optional[Callable] = None, stream=None,
+                 lockstep_base: int = 0):
         super().__init__(queue, actor_id, telemetry=telemetry)
         self._collect = collect
         self._slot = slot
@@ -607,15 +625,67 @@ class ActorThread(ActorBase):
         self.assigned = iterations
         self._lockstep = lockstep
         self.slot_index = actor_id if slot_index is None else slot_index
+        # the seq offset of a resumed run: local rollout index i is tagged
+        # ``start_seq + i``, so the (actor_id, seq) stream continues the
+        # checkpointed one
         self._start_seq = start_seq
+        # lockstep waits for version lockstep_base + i: a replica respawned
+        # after its predecessor produced n rollouts of this run starts at n
+        self._lockstep_base = lockstep_base
         self._stream = stream
+        # the quota ledger (supervised runs): lets this replica pick up a
+        # dead sibling's orphaned quota after finishing its own
+        self._ledger = ledger
+        # deterministic fault injection (FaultPlan), None outside tests
+        self._injector = injector
+        # checkpoint support: snapshot(key) -> the resume state after each
+        # collect; the learner calls consume_state(seq) as it consumes the
+        # matching payload, so the log holds at most the in-flight window
+        self._snapshot = snapshot
+        self._state_log: dict = {}
+        self._state_lock = threading.Lock()  # actor.state
+        # (act, env) generator states after the last successful collect (a
+        # few KB a rollout on the CPU, 16 bytes a generator on the card): a
+        # respawn starts from them, never from this replica's generators,
+        # which a failed collect leaves advanced
+        self.boundary: Optional[Tuple[bytes, ...]] = None
+
+    def consume_state(self, seq: int):
+        """Pop (and prune up to) the resume state recorded after rollout
+        ``seq``; ``None`` when snapshotting is off or seq predates it."""
+        with self._state_lock:
+            st = self._state_log.get(seq)
+            for k in [k for k in self._state_log if k <= seq]:
+                del self._state_log[k]
+            return st
+
+    def _mark_boundary(self) -> None:
+        self.boundary = tuple(generator_state(g) for g in self._key)
 
     def _produce(self) -> None:
-        for i in range(self.assigned):
+        self._mark_boundary()
+        i = 0  # local rollout index (lockstep waits on it; seq offsets it)
+        while True:
+            if i >= self.assigned:
+                if self._ledger is None:
+                    return
+                # quota done — but a sibling may have died with quota
+                # outstanding: block for orphaned work instead of checking
+                # out, until the ledger proves no work can remain
+                got = self._ledger.wait_for_work(
+                    stop=self._stop_requested.is_set)
+                if got <= 0:
+                    return
+                self.assigned += got
+                continue
+            if self._injector is not None:
+                self._injector.maybe_kill(self.slot_index, self.produced)
+                self._injector.lease_delay(self.slot_index, i)
             if self._lockstep:
                 # lease span: the stop-abort path cancels instead of ending
                 self.span_emitter.begin(LEASE)
-                while not self._slot.wait_for(i, timeout=0.1):
+                while not self._slot.wait_for(self._lockstep_base + i,
+                                              timeout=0.1):
                     if self._stop_requested.is_set():
                         self.span_emitter.cancel()
                         return
@@ -641,7 +711,18 @@ class ActorThread(ActorBase):
             finally:
                 self.span_emitter.end()
                 self._slot.release(version, holder=self.name)
+            self._mark_boundary()
+            seq = self._start_seq + i
+            if self._snapshot is not None:
+                # the post-rollout state, captured *before* the put (by the
+                # time the learner can consume seq, its resume state
+                # exists) and after the collect's device work has finished
+                with self._state_lock:
+                    self._state_log[seq] = self._snapshot(self._key)
             if not self._put(Rollout(traj, last_obs, version, self.actor_id,
-                                     self._start_seq + i, release, done)):
+                                     seq, release, done)):
                 return
             self.produced += 1
+            if self._ledger is not None:
+                self._ledger.produced()
+            i += 1

@@ -78,20 +78,38 @@ the same V-trace PAAC step (K2) correcting the sampled rollouts'
 staleness. With ``prioritized`` the update's |TD| goes back as the
 sampled slots' priority, once an update.
 
+Fault tolerance rides every plane but the mesh's (``repro_torch.pipeline.
+supervisor``, ``faults``, ``repro_torch.checkpoint``). A ``fault_plan``
+injects planned faults (actor kills, lease delays, a dropped release, a
+stalled learner), each once a run. Without ``elastic`` a killed replica
+fails the run as a real crash would; with it an ``ActorSupervisor``
+respawns the replica (a thread from its last rollout boundary, a process
+worker reused or spawned afresh) under ``restart_budget`` and past it
+degrades to the survivors, who absorb the dead replica's quota through the
+``QuotaLedger``. ``checkpoint_dir``/``checkpoint_every`` save the full
+state every so many updates (prefix ``"pipe"``), and ``restore`` loads the
+newest: on the thread backend's device and host planes (not the replay
+plane) each slot's generators, env state and obs come back at the boundary
+of its newest consumed rollout, so a lock-stepped resumed run continues the
+interrupted one bit for bit; elsewhere it is a warm restart (params,
+optimizer state and counters exact, actors carry on from their own state).
+
 It drives plain ``PAACAgent`` on every plane and ``DQNAgent`` on the
 replay plane, as the reference does; the reference's other agents are
 refused as it refuses them. The reference's mesh plane (ROADMAP Queue 1
-item 14), supervisor, faults and checkpoints (item 10) are refused with
-``NotImplementedError``.
+item 14) is refused with ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import queue as _stdlib_queue
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                    save_checkpoint)
 from repro_torch.configs.base import PipelineConfig
 from repro_torch.core.agents.dqn import DQNAgent
 from repro_torch.core.agents.paac import PAACAgent
@@ -106,18 +124,20 @@ from repro_torch.pipeline.actor import (ActorThread, HostStagingRing,
                                         _copy_tree, collect_host,
                                         make_host_act_step, on_stream,
                                         record_event, to_device)
+from repro_torch.pipeline.faults import FaultInjector, FaultPlan
 from repro_torch.pipeline.learner import make_learner_step
 from repro_torch.pipeline.offpolicy import (make_dqn_collect_fn,
                                             make_dqn_learner_step)
 from repro_torch.pipeline.queue import CLOSED, TrajectoryQueue
 from repro_torch.pipeline.replay_ring import ReplayRing
 from repro_torch.pipeline.ring import DeviceTrajectoryRing, adopt
-from repro_torch.pipeline.worker import (ProcessActorPlane, generator_state,
-                                         set_generator_state)
+from repro_torch.pipeline.supervisor import ActorSupervisor, QuotaLedger
+from repro_torch.pipeline.worker import ProcessActorPlane
 from repro_torch.telemetry import (LEARNER_UPDATE, LEASE, PUBLISH,
                                    QUEUE_GET_WAIT, Telemetry)
 from repro_torch.utils import get_logger
-from repro_torch.utils.sampling import seeded_generators
+from repro_torch.utils.sampling import (generator_state, seeded_generators,
+                                       set_generator_state)
 
 log = get_logger("pipeline")
 
@@ -134,10 +154,6 @@ def _refuse_unported(cfg: PipelineConfig) -> None:
     unported = [
         (cfg.rollout_plane == "mesh" or cfg.mesh_shape > 1, "the mesh plane "
          "(rollout_plane='mesh', mesh_shape > 1) is ROADMAP Queue 1 item 14"),
-        (cfg.elastic, "elastic recovery is ROADMAP Queue 1 item 10"),
-        (cfg.fault_plan is not None, "fault_plan is ROADMAP Queue 1 item 10"),
-        (bool(cfg.checkpoint_dir), "checkpoint_dir is ROADMAP Queue 1 item "
-         "10"),
     ]
     for hit, what in unported:
         if hit:
@@ -201,6 +217,11 @@ class PipelinedRL:
                 "device, which host-born payloads (HostEnvPool / process "
                 "backend) cannot do")
         _refuse_unported(pipeline)
+        if pipeline.fault_plan is not None and not isinstance(
+                pipeline.fault_plan, FaultPlan):
+            raise TypeError(
+                "PipelineConfig.fault_plan must be a repro_torch.pipeline."
+                f"faults.FaultPlan, got {type(pipeline.fault_plan).__name__}")
         for e in per_actor_envs or [env]:
             if _is_host(e) != self._host:
                 raise ValueError("per-actor envs must be all host or all "
@@ -278,6 +299,21 @@ class PipelinedRL:
         self.learned_ids: List[Tuple[int, int]] = []
         self.staleness: List[float] = []
         self.telemetry: Optional[Telemetry] = None
+        # -- fault tolerance and checkpoints ---------------------------------
+        # a bitwise resume needs the actors' carried state, which only the
+        # thread backend's FIFO planes hold in this process; everywhere
+        # else a checkpoint is a warm restart
+        self._ckpt_slots = (self._backend == "thread"
+                            and self._plane in ("device", "host")
+                            and not self._replay)
+        self._iters_done = 0  # cumulative completed updates (checkpoint id)
+        self._resume_step: Optional[int] = None  # set by restore()
+        self._resumed = False  # restore() put back each slot's state
+        self._consumed_seq = [0] * n_actors  # a slot's consumed rollouts
+        # slot -> (generator states, env_state, obs) after its newest
+        # *consumed* rollout
+        self._live_slot_state: Dict[int, tuple] = {}
+        self.supervisor: Optional[ActorSupervisor] = None  # the last run's
 
     def _init_state(self, env, per_actor_envs, agent, optimizer, lr_schedule,
                     seed) -> None:
@@ -306,7 +342,8 @@ class PipelinedRL:
             self._actor_envs = self._actor_obs = self._actor_env_state = None
             self._process_plane = ProcessActorPlane(
                 self._proc_specs, agent, self.pipeline.queue_depth,
-                self.params, [generator_state(g) for g, _ in gens])
+                self.params, [generator_state(g) for g, _ in gens],
+                seed=seed)
             return
         self._proc_specs = None
         self._actor_envs, self._actor_obs, self._actor_env_state = \
@@ -456,6 +493,154 @@ class PipelinedRL:
 
         return collect
 
+    # -- checkpoint / resume -------------------------------------------------
+    def _make_snapshot(self, i: int) -> Callable:
+        """Slot ``i``'s post-rollout state capture (thread backend):
+        ``snap(key) -> (generator states, env_state, obs)``.
+
+        The actor calls it right after a collect whose device work has
+        finished, and the learner keeps the snapshot of the newest
+        *consumed* rollout as the slot's resume point. The generators
+        advance in place, so their states are copied out as bytes. Tensor
+        envs: every env step builds new tensors and the collect assigns
+        them to ``_actor_env_state``/``_actor_obs`` without ever writing
+        into the old ones, so references are kept. Host pool: the env state
+        lives inside the pool (a warm restart) and the carried obs is the
+        pool's own buffer, which the next step overwrites, so it is copied.
+        """
+        if self._host:
+            def snap(key, i=i):
+                return (tuple(generator_state(g) for g in key), None,
+                        np.array(self._actor_obs[i]))
+        else:
+            def snap(key, i=i):
+                return (tuple(generator_state(g) for g in key),
+                        self._actor_env_state[i], self._actor_obs[i])
+        return snap
+
+    def _checkpoint_template(self):
+        """The checkpoint tree's *structure*: its leaves carry the dtypes,
+        shapes and devices ``restore_checkpoint`` restores into. Save and
+        restore both derive it from the live model, so a resume must run
+        under the same config (the leaves' shapes are checked)."""
+        n = self._n_actors
+        tree = {
+            "params": self.params,
+            "opt_state": self.opt_state,
+            # in place of the reference's key: each slot's generator pair
+            # as this side holds it (the process workers' own states come
+            # back only at the end of a run)
+            "generators": {str(i): {"act": a, "env": e}
+                           for i, (a, e) in enumerate(self._actor_keys)},
+            "counters": {
+                "total_steps": np.asarray(0, np.int64),
+                "step_value": np.asarray(0, np.int64),
+                "iters_done": np.asarray(0, np.int64),
+                "actor_seq": np.zeros(n, np.int64),
+                "consumed_seq": np.zeros(n, np.int64),
+                # lifetime ring tickets (issued, consumed) at save time:
+                # how many in-flight rollouts a kill dropped (re-collected
+                # on resume, never silently skipped)
+                "tickets": np.zeros(2, np.int64),
+            },
+        }
+        if self._dqn:
+            tree["dqn_target"] = self._target
+            tree["dqn_updates"] = self._updates
+        if self._ckpt_slots:
+            tree["slots"] = {str(i): self._slot_tree(
+                self._make_snapshot(i)(self._actor_keys[i]))
+                for i in range(n)}
+        return tree
+
+    def _slot_tree(self, st) -> dict:
+        gens, env_state, obs = st
+        out = {"act": np.frombuffer(gens[0], np.uint8),
+               "env": np.frombuffer(gens[1], np.uint8), "obs": obs}
+        if env_state is not None:  # a host pool keeps its own
+            out["env_state"] = env_state
+        return out
+
+    @staticmethod
+    def _ticket_counts(ring) -> Tuple[int, int]:
+        return (int(getattr(ring, "tickets_issued", 0)),
+                int(getattr(ring, "tickets_consumed", 0)))
+
+    def _save_checkpoint(self, ring, step_value: int) -> str:
+        """Save the full pipeline state after the update that just
+        committed. Runs on the learner thread, on its stream, between
+        updates, so ``self.params``/``opt_state`` are quiescent; the copies
+        to the host wait for the update that made them. On the card this
+        is the checkpoint's whole cost to the learner."""
+        tree = self._checkpoint_template()
+        issued, consumed = self._ticket_counts(ring)
+        tree["counters"] = {
+            "total_steps": np.asarray(self.total_steps, np.int64),
+            "step_value": np.asarray(step_value, np.int64),
+            "iters_done": np.asarray(self._iters_done, np.int64),
+            "actor_seq": np.asarray(self._actor_seq, np.int64),
+            "consumed_seq": np.asarray(self._consumed_seq, np.int64),
+            "tickets": np.asarray([issued, consumed], np.int64),
+        }
+        if self._ckpt_slots:
+            tree["slots"] = {str(i): self._slot_tree(self._live_slot_state[i])
+                             for i in range(self._n_actors)}
+        path = save_checkpoint(self.pipeline.checkpoint_dir,
+                               self._iters_done, tree, prefix="pipe")
+        log.info("checkpoint: saved %s (update %d, %d steps)",
+                 path, self._iters_done, self.total_steps)
+        return path
+
+    def restore(self, directory: Optional[str] = None, *,
+                prefix: str = "pipe") -> int:
+        """Restore the newest checkpoint; returns the number of learner
+        updates already done (0 = nothing to restore). The caller runs the
+        *remaining* iterations: on the thread backend's FIFO planes the
+        resumed run continues the interrupted one bitwise under lockstep;
+        elsewhere it is a warm restart. Restored tensors are new tensors,
+        made on the caller's stream; the next run's publish hands them to
+        the actors (ping-pong slot or shared-memory slot)."""
+        directory = directory or self.pipeline.checkpoint_dir
+        if not directory:
+            raise ValueError("no checkpoint directory: pass one or set "
+                             "PipelineConfig.checkpoint_dir")
+        step = latest_step(directory, prefix=prefix)
+        if step is None:
+            return 0
+        # the generators come back in place (restore_checkpoint sets the
+        # target generators' states)
+        tree = restore_checkpoint(directory, step,
+                                  self._checkpoint_template(), prefix=prefix)
+        self.params = tree["params"]
+        self.opt_state = tree["opt_state"]
+        if self._dqn:
+            self._target = tree["dqn_target"]
+            self._updates = tree["dqn_updates"]
+        c = tree["counters"]
+        self.total_steps = int(c["total_steps"])
+        self._iters_done = int(c["iters_done"])
+        self._resume_step = int(c["step_value"])
+        self._actor_seq = [int(x) for x in c["actor_seq"]]
+        self._consumed_seq = [int(x) for x in c["consumed_seq"]]
+        if self._ckpt_slots:
+            # each slot re-enters its generator/env/obs stream at the
+            # boundary of its newest consumed rollout
+            for i in range(self._n_actors):
+                slot = tree["slots"][str(i)]
+                act_gen, env_gen = self._actor_keys[i]
+                set_generator_state(act_gen, slot["act"].tobytes())
+                set_generator_state(env_gen, slot["env"].tobytes())
+                if not self._host:
+                    self._actor_env_state[i] = slot["env_state"]
+                self._actor_obs[i] = slot["obs"]
+            self._resumed = True
+        issued, consumed = (int(x) for x in c["tickets"])
+        log.info("checkpoint: restored update %d (%d steps) from %s; %d "
+                 "in-flight rollout(s) at save time will be re-collected",
+                 self._iters_done, self.total_steps, directory,
+                 max(issued - consumed, 0))
+        return self._iters_done
+
     def run(self, iterations: int, log_every: int = 0) -> RunResult:
         """Run ``iterations`` learner updates (each = one shard's n_e·t_max
         timesteps), fed by ``num_actors`` concurrent actor replicas."""
@@ -478,6 +663,26 @@ class PipelinedRL:
         quota = [iterations // n_actors + (1 if i < iterations % n_actors
                                            else 0)
                  for i in range(n_actors)]
+        # the fault harness: the injector with or without elastic (fail-
+        # fast chaos runs), the ledger and the supervisor only with it
+        injector = (FaultInjector(cfg.fault_plan)
+                    if cfg.fault_plan is not None else None)
+        ledger = QuotaLedger(sum(quota)) if cfg.elastic else None
+        ckpt_every = cfg.checkpoint_every
+        snapshots = ckpt_every > 0 and self._ckpt_slots
+        # a restore() put each slot back at its checkpointed boundary: the
+        # seq numbering continues where the consumed stream left off (the
+        # rollouts in flight at the save are collected again)
+        resumed, self._resumed = self._resumed, False
+        if resumed:
+            start_seqs = list(self._consumed_seq)
+        else:
+            start_seqs = [0] * n_actors
+            self._consumed_seq = [0] * n_actors
+        # a slot with nothing consumed yet resumes from this run's start
+        self._live_slot_state = (
+            {i: self._make_snapshot(i)(self._actor_keys[i])
+             for i in range(n_actors)} if snapshots else {})
         learner_stream = self._learner_stream
         if learner_stream is not None:
             # the params, optimizer state and env states were made on the
@@ -493,15 +698,65 @@ class PipelinedRL:
         with on_stream(learner_stream):
             if self._process_plane is not None:
                 slot, actors = self._process_plane.begin_run(
-                    ring, quota, cfg.lockstep, self.params, telemetry=hub)
+                    ring, quota, cfg.lockstep, self.params, telemetry=hub,
+                    ledger=ledger, injector=injector)
             else:
                 slot = PingPongParamSlot(self.params, version=0)
                 actors = [
                     ActorThread(self._make_collect(i), ring, slot,
                                 self._actor_keys[i], quota[i],
                                 lockstep=cfg.lockstep, actor_id=i,
-                                telemetry=hub, stream=self._actor_streams[i])
+                                telemetry=hub, start_seq=start_seqs[i],
+                                ledger=ledger, injector=injector,
+                                snapshot=(self._make_snapshot(i)
+                                          if snapshots else None),
+                                stream=self._actor_streams[i])
                     for i in range(n_actors)]
+        actors_by_id = {a.actor_id: a for a in actors}
+        sup = None
+        if cfg.elastic:
+            if self._process_plane is not None:
+                def respawner(dead, new_id, remaining):
+                    d = self._process_plane.respawn_worker(
+                        dead.slot_index, new_id, remaining, cfg.lockstep,
+                        ring, telemetry=hub, ledger=ledger)
+                    actors_by_id[new_id] = d
+                    d.start()
+                    return d
+            else:
+                def respawner(dead, new_id, remaining):
+                    # the replacement resumes the dead replica's streams at
+                    # its last rollout boundary — fresh generators from the
+                    # boundary states (the dead ones may have advanced in a
+                    # failed collect) and the carried env state, which a
+                    # collect assigns only on success — with a fresh
+                    # staging ring from _make_collect
+                    i = dead.slot_index
+                    key = tuple(torch.Generator(device=g.device)
+                                for g in dead._key)
+                    for g, st in zip(key, dead.boundary):
+                        set_generator_state(g, st)
+                    a = ActorThread(
+                        self._make_collect(i), ring, slot, key, remaining,
+                        lockstep=cfg.lockstep, actor_id=new_id,
+                        telemetry=hub, slot_index=i, ledger=ledger,
+                        injector=injector,
+                        snapshot=self._make_snapshot(i) if snapshots else None,
+                        stream=self._actor_streams[i],
+                        # lockstep resumes at the version the dead replica
+                        # would have waited for next
+                        lockstep_base=dead._lockstep_base + dead.produced)
+                    actors_by_id[new_id] = a
+                    a.start()
+                    return a
+            sup = ActorSupervisor(ring, ledger, respawner,
+                                  restart_budget=cfg.restart_budget,
+                                  backoff_s=cfg.restart_backoff_s,
+                                  telemetry=hub)
+            for a in actors:
+                sup.register(a)
+        # kept on self (like .telemetry): the run's fault episodes
+        self.supervisor = sup
         # device plane: never sync the learner loop — metric scalars are
         # stashed and read once at result(), so update i+1 is dispatched
         # while update i runs. Host plane: eager — reading the metrics back
@@ -525,12 +780,18 @@ class PipelinedRL:
                   for a in actors],
             ])
         # the schedule's step restarts at total_steps on every run, as in
-        # ParallelRL.run
-        step = self.total_steps
+        # ParallelRL.run; a restore() sets it, so a resumed run's schedule
+        # continues where the interrupted one stopped
+        step = (self._resume_step if self._resume_step is not None
+                else self.total_steps)
+        self._resume_step = None
+        step0 = step
         completed = 0
         try:
             with on_stream(learner_stream):
                 for i in range(iterations):
+                    if injector is not None:
+                        injector.stall_learner(i)
                     learner_em.begin(QUEUE_GET_WAIT)
                     try:
                         payload = ring.get()
@@ -551,7 +812,9 @@ class PipelinedRL:
                             publish_dst = slot.reserve(i + 1, timeout=1.0)
                             if publish_dst is not None:
                                 break
-                            if not any(a.is_alive() for a in actors):
+                            live = (sup.all_actors() if sup is not None
+                                    else actors)
+                            if not any(a.is_alive() for a in live):
                                 raise RuntimeError("param lease never "
                                                    "released (all actors "
                                                    "exited)")
@@ -601,7 +864,28 @@ class PipelinedRL:
                     # of the staged payload; lazy (device plane): stashes
                     acc.update(metrics)
                     if payload.release is not None:
-                        payload.release()  # consumed: the set is reusable
+                        if injector is not None and injector.drop_release(i):
+                            # the injected lease drop: the set is leaked on
+                            # purpose — the ring's queue_depth + 2 sizing
+                            # must absorb it and the run complete
+                            pass
+                        else:
+                            payload.release()  # consumed: the set is reusable
+                    self._iters_done += 1
+                    if ckpt_every:
+                        # the newest consumed rollout of each slot: its
+                        # post-collect snapshot is the slot's resume point
+                        owner = actors_by_id.get(payload.actor_id)
+                        if owner is not None:
+                            self._consumed_seq[owner.slot_index] = \
+                                payload.seq + 1
+                            st = (owner.consume_state(payload.seq)
+                                  if hasattr(owner, "consume_state")
+                                  else None)
+                            if st is not None:
+                                self._live_slot_state[owner.slot_index] = st
+                        if completed % ckpt_every == 0:
+                            self._save_checkpoint(ring, step0 + completed)
                     # drop the payload now, not at the next get: its memory
                     # returns to the allocator while the learner waits
                     del payload, publish_dst, published, traj, last_obs
@@ -614,8 +898,13 @@ class PipelinedRL:
                                  acc.cumulative_nowait("reward_sum"),
                                  acc.last("loss"))
         finally:
+            # disarm recovery first: a replica dying during teardown must
+            # not respawn a fresh one under the sweeps below
+            if sup is not None:
+                sup.shutdown()
+                actors = sup.all_actors()  # the respawned epochs too
             # reap all actors on every exit path: signal stop, then keep
-            # draining so puts blocked on a full ring can finish
+            # draining so puts blocked on a full ring can finish,
             # releasing discarded staged payloads, so no actor can wedge on
             # an empty staging ring while unwinding
             for a in actors:
@@ -653,19 +942,37 @@ class PipelinedRL:
             hub.set_gauge("queue_depth", ring.qsize())
             if cfg.trace_path:
                 hub.write_trace(cfg.trace_path)
-        errors = [a for a in actors if a.error is not None]
+        if sup is not None and sup.fatal is not None:
+            raise RuntimeError(
+                f"pipeline stopped early after faults: {completed}/"
+                f"{iterations} iterations — last live actor died"
+            ) from sup.fatal.error
+        # supervised deaths (fault_handled) were absorbed — respawned or
+        # degraded — and must not fail a run that completed its quota
+        errors = [a for a in actors
+                  if a.error is not None and not a.fault_handled]
         if errors:
             raise RuntimeError(
                 f"pipeline actor {errors[0].actor_id} failed") from errors[0].error
         if completed != iterations:
             raise RuntimeError(
                 f"pipeline stopped early: {completed}/{iterations} iterations")
-        if self._process_plane is not None:
-            # each worker owns its acting generator: bring its state back,
-            # so the parent's copy continues the stream the worker keeps
-            for a, (act_gen, _) in zip(actors, self._actor_keys):
-                if a.final_state is not None:
-                    set_generator_state(act_gen, a.final_state)
+        if sup is not None and sup.episodes:
+            log.warning("pipeline recovered from %d fault episode(s): %s",
+                        len(sup.episodes), sup.episodes)
+        for i, (act_gen, env_gen) in enumerate(self._actor_keys):
+            # with a supervisor the slot's newest epoch carries its streams
+            last = sup.slot_actor(i) if sup is not None else actors[i]
+            if self._process_plane is not None:
+                # each worker owns its acting generator: bring its state
+                # back, so the parent's copy continues the worker's stream
+                if last.final_state is not None:
+                    set_generator_state(act_gen, last.final_state)
+            elif last._key is not self._actor_keys[i]:
+                # a respawned thread replica's own generators, at the
+                # boundary of its last collect
+                set_generator_state(act_gen, last.boundary[0])
+                set_generator_state(env_gen, last.boundary[1])
         per_actor_idle = [a.put_wait_s + a.wait_s for a in actors]
         # the end-of-run drain reads every stashed device scalar: the one
         # intended device-to-host sync of the run

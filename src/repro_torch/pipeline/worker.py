@@ -1,5 +1,5 @@
 """The process actor plane: worker subprocesses for GIL-bound envs (a port
-of ``repro.pipeline.worker``, without the fault paths).
+of ``repro.pipeline.worker``).
 
 The thread plane (``ActorThread``) scales exactly as far as the emulator
 releases the GIL: a *Python-bound* emulator serializes every replica's
@@ -22,7 +22,11 @@ the V-trace update, the metrics — is the thread plane's)::
 
 Wire protocol (a worker, all ``mp.Queue``):
 
-* ``cmd_q``   parent→child: ``("run", quota, lockstep)`` | ``("stop",)``
+* ``cmd_q``   parent→child: ``("run", quota, lockstep, kills)`` |
+  ``("stop",)``; ``kills`` are the ``(after, mode)`` faults of a
+  ``FaultPlan`` the child runs itself: ``"error"`` raises (the child
+  reports it and stays at its command loop), ``"exit"`` is
+  ``os._exit(17)`` (a silent death).
 * ``ready_q`` child→parent: ``("rollout", set_idx, seq, version)`` …
   then ``("spans", SpanEmitter.ship())`` — the child's span ring (lease,
   shm.copy, staging wait and collect spans, recorded child-side), merged
@@ -51,23 +55,29 @@ be forked) once a ``PipelinedRL`` and persist across ``run()`` calls; they
 are daemonic *and* poll ``multiprocessing.parent_process().is_alive()`` in
 every blocking loop, so neither a clean parent exit nor a hard kill leaves
 orphans stepping envs. A worker that dies silently (segfault, OOM kill) is
-detected by its drainer's liveness poll and surfaced as the actor error.
+detected by its drainer's liveness poll and surfaced as the actor error;
+under a supervisor that error goes to ``on_actor_error`` instead of
+closing the stream, and ``respawn_worker`` stands the slot back up: it
+reuses the child while it lives (an ``"error"`` leaves it parked at its
+command loop) and otherwise retires the handle to a graveyard and spawns a
+fresh child with a fresh shm estate and a generator seeded from
+``SeedSequence([seed, slot, epoch])``. Retired staging sets may still back
+payloads in flight, so they are unlinked only at ``close``.
 
-The reference's supervisor path (``respawn_worker``, the graveyard of
-retired handles, the quota ledger and the fault injector, with the fourth
-element of the ``run`` command) waits for ROADMAP Queue 1 item 10's fault
-tolerance; its ``sanitize.allowed`` guard around the publish waits for
-item 13.
+The reference's ``sanitize.allowed`` guard around the publish waits for
+ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
 import atexit
 import multiprocessing as mp
+import os
 import queue as _stdlib_queue
 import traceback
 import weakref
 from typing import Any, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.envs.host_env import HostEnvSpec
@@ -75,6 +85,7 @@ from repro_torch.pipeline.actor import ActorBase, Rollout, _copy_tree
 from repro_torch.pipeline.shm import ShmParamSlot, ShmStagingSet
 from repro_torch.telemetry.spans import (COLLECT, LEASE, QUEUE_PUT_WAIT,
                                          SHM_COPY, SpanEmitter)
+from repro_torch.utils.sampling import generator_state, set_generator_state
 
 __all__ = ["ProcessActorPlane", "ProcessActorDrainer", "torch_settings"]
 
@@ -96,15 +107,6 @@ def _apply_torch_settings(s: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = s["matmul_tf32"]
     torch.backends.cudnn.allow_tf32 = s["cudnn_tf32"]
     torch.set_num_threads(s["num_threads"])
-
-
-def generator_state(gen: torch.Generator) -> bytes:
-    """A generator's state as plain bytes (what crosses to a child)."""
-    return bytes(gen.get_state().numpy())
-
-
-def set_generator_state(gen: torch.Generator, state: bytes) -> None:
-    gen.set_state(torch.frombuffer(bytearray(state), dtype=torch.uint8))
 
 
 def _parent_alive() -> bool:
@@ -182,10 +184,23 @@ def _worker_main(spec: HostEnvSpec, arch_cfg, hp, slot_handle,
                 continue
             if cmd[0] == "stop":
                 return
-            _, quota, lockstep = cmd
+            # faults: the planned (after, mode) kills this run executes in
+            # its own process
+            _, quota, lockstep, faults = cmd
             try:
                 aborted = False
                 for seq in range(quota):
+                    for after, mode in faults:
+                        if after == seq:
+                            if mode == "exit":
+                                # the segfault/OOM-kill shape: no message,
+                                # no traceback — the drainer's liveness
+                                # poll must detect the silent death
+                                os._exit(17)
+                            raise RuntimeError(
+                                f"FaultPlan: injected worker fault on actor "
+                                f"{actor_id} after {seq} rollouts "
+                                f"(mode={mode!r})")
                     if lockstep:
                         em.begin(LEASE)
                         while not slot.wait_for(seq, timeout=0.1):
@@ -283,10 +298,23 @@ class ProcessActorDrainer(ActorBase):
     state after a completed quota.
     """
 
-    def __init__(self, worker: _WorkerHandle, queue, telemetry=None):
-        super().__init__(queue, worker.actor_id, telemetry=telemetry)
+    def __init__(self, worker: _WorkerHandle, queue, telemetry=None,
+                 actor_id: Optional[int] = None, ledger=None,
+                 lockstep: bool = False):
+        # actor_id can differ from the worker's slot: a respawned replica
+        # gets a fresh epoch id while the child keeps its slot (which is
+        # also its shm reader_id)
+        super().__init__(queue,
+                         worker.actor_id if actor_id is None else actor_id,
+                         telemetry=telemetry)
         self._worker = worker
         self._telemetry = telemetry
+        self.slot_index = worker.actor_id
+        self._ledger = ledger
+        self._lockstep = lockstep
+        # the seq offset of a ledger continuation: the child restarts its
+        # local seq at 0 a run command, the stream must not
+        self._seq_base = 0
         self.final_state: Optional[bytes] = None
 
     def stop(self) -> None:
@@ -318,12 +346,15 @@ class ProcessActorDrainer(ActorBase):
                     continue
                 s = self._worker.sets[idx]
                 if not self._put(Rollout(
-                        s.traj, s.last_obs, version, self.actor_id, seq,
+                        s.traj, s.last_obs, version, self.actor_id,
+                        self._seq_base + seq,
                         release=(lambda i=idx: free_q.put(i)))):
                     free_q.put(idx)
                     discard = True  # drain to the terminal message
                 else:
                     self.produced += 1
+                    if self._ledger is not None:
+                        self._ledger.produced()
             elif kind == "spans":
                 # the child's span ring, shipped just before its terminal
                 # message: a trace track of its own process
@@ -332,6 +363,19 @@ class ProcessActorDrainer(ActorBase):
                                                   pid=self.slot_index + 1)
             elif kind == "done":
                 self.final_state = msg[1]
+                if self._ledger is not None and not discard \
+                        and not self._stop_requested.is_set():
+                    # quota done — a dead sibling may have orphaned more:
+                    # claim it and send the idle child another run command
+                    got = self._ledger.wait_for_work(
+                        stop=self._stop_requested.is_set)
+                    if got > 0:
+                        extra = got + self._ledger.claim()
+                        self._seq_base = self.produced
+                        self.assigned += extra
+                        self._worker.cmd_q.put(
+                            ("run", int(extra), self._lockstep, ()))
+                        continue
                 return  # graceful checkout (ActorBase -> producer_done)
             elif kind == "aborted":
                 return
@@ -392,35 +436,44 @@ class ProcessActorPlane:
     worker its quota, and returns the learner-side slot bridge plus one
     ``ProcessActorDrainer`` a worker; ``close`` is the orderly teardown
     (stop command, bounded join, terminate stragglers, unlink shm).
-    ``gen_states`` holds each worker's acting-generator state (bytes).
+    ``gen_states`` holds each worker's acting-generator state (bytes);
+    a respawned worker's comes from ``SeedSequence([seed, slot, epoch])``.
     """
 
     def __init__(self, specs: Sequence[HostEnvSpec], agent, queue_depth: int,
-                 params: Any, gen_states: Sequence[bytes]) -> None:
+                 params: Any, gen_states: Sequence[bytes],
+                 seed: int = 0) -> None:
         if len(gen_states) != len(specs):
             raise ValueError("one generator state a worker spec required")
         self._ctx = mp.get_context("spawn")
         self._closed = False
         self._workers: List[_WorkerHandle] = []
+        # retired handles of dead workers: their staging sets may still back
+        # payloads in flight (and their free_q still receives those
+        # payloads' release()s), so their estate is torn down only at close
+        self._graveyard: List[_WorkerHandle] = []
         self._slot = ShmParamSlot(params, self._ctx,
                                   max_readers=max(len(specs), 1))
         self._n_sets = queue_depth + 2  # the HostStagingRing sizing contract
         self._specs = list(specs)
         self._agent = agent
         self._settings = torch_settings()
+        self._seed = int(seed)
+        self._epochs = [0] * len(specs)  # respawn generation a slot
         _LIVE_PLANES.add(self)
         try:
             for i, spec in enumerate(specs):
                 spec.validate_picklable()
-                self._spawn(i, gen_states[i])
+                self._workers.append(self._spawn(i, gen_states[i]))
         except BaseException:
             self.close()
             raise
 
-    def _spawn(self, slot_idx: int, gen_state: bytes) -> None:
-        """Allocate one worker's estate (staging sets, queues, stop event)
-        and start its process. The child's actor_id is its slot index —
-        also its shm param reader_id and its trace track."""
+    def _spawn(self, slot_idx: int, gen_state: bytes) -> _WorkerHandle:
+        """Allocate one worker's estate (staging sets, queues, stop event),
+        start its process and return its handle. The child's actor_id is
+        its slot index — also its shm param reader_id and its trace
+        track."""
         spec = self._specs[slot_idx]
         sets = [ShmStagingSet(self._agent.hp.t_max, spec.n_envs,
                               spec.obs_shape, spec.obs_dtype)
@@ -431,26 +484,52 @@ class ProcessActorPlane:
         for j in range(self._n_sets):
             free_q.put(j)
         stop_evt = self._ctx.Event()
+        epoch = self._epochs[slot_idx]
         proc = self._ctx.Process(
             target=_worker_main,
             args=(spec, self._agent.cfg, self._agent.hp, self._slot.handle(),
                   [s.name for s in sets], gen_state, self._settings,
                   cmd_q, ready_q, free_q, stop_evt, slot_idx),
-            name=f"pipeline-worker-{slot_idx}",
+            name=(f"pipeline-worker-{slot_idx}" if epoch == 0
+                  else f"pipeline-worker-{slot_idx}e{epoch}"),
             daemon=True,  # orphan reaping: die with the parent
         )
-        # registered before the start: close() tears down a failed one too
-        self._workers.append(_WorkerHandle(slot_idx, proc, cmd_q, ready_q,
-                                           free_q, stop_evt, sets))
-        proc.start()
+        handle = _WorkerHandle(slot_idx, proc, cmd_q, ready_q, free_q,
+                               stop_evt, sets)
+        try:
+            proc.start()
+        except BaseException:
+            self._graveyard.append(handle)  # close() tears its estate down
+            raise
+        return handle
+
+    def _respawn_state(self, slot_idx: int) -> bytes:
+        """A fresh acting-generator state for slot ``slot_idx``'s current
+        epoch, on its spec's device: deterministic a (seed, slot, epoch),
+        never a replay of an earlier epoch's draws."""
+        ss = np.random.SeedSequence([self._seed, slot_idx,
+                                     self._epochs[slot_idx]])
+        g = torch.Generator(device=self._specs[slot_idx].device)
+        g.manual_seed(int(ss.generate_state(1, np.uint64)[0]))
+        return generator_state(g)
 
     def segment_names(self) -> List[str]:
-        """Every shm segment of this plane (staging sets and param slot)."""
-        return ([s.name for w in self._workers for s in w.sets]
+        """Every shm segment of this plane: the staging sets of the live
+        workers and of the graveyard, and the param slot."""
+        return ([s.name for w in self._handles() for s in w.sets]
                 + list(self._slot.segment_names))
 
+    def _handles(self) -> List[_WorkerHandle]:
+        """The live workers' handles and the graveyard's, each once (a slot
+        whose fresh spawn failed keeps its retired handle in both)."""
+        out: List[_WorkerHandle] = []
+        for w in self._workers + self._graveyard:
+            if all(w is not o for o in out):
+                out.append(w)
+        return out
+
     def begin_run(self, queue, quota: Sequence[int], lockstep: bool,
-                  params: Any, telemetry=None):
+                  params: Any, telemetry=None, ledger=None, injector=None):
         """Start one ``run()``'s worth of collection on every worker.
 
         Returns ``(slot, drainers)`` with ``slot`` speaking the learner
@@ -459,7 +538,9 @@ class ProcessActorPlane:
         stale lease across the reset) — like the thread plane building a
         fresh ``PingPongParamSlot`` a run. With a ``telemetry`` hub the
         drainers merge each worker's shipped span ring into it and the
-        slot bridge spans its D2H publish copy an update.
+        slot bridge spans its D2H publish copy an update. A ``ledger`` goes
+        to the drainers (supervised runs); an ``injector`` ships each worker
+        its planned kills in its run command.
         """
         if self._closed:
             raise RuntimeError("begin_run() on a closed ProcessActorPlane")
@@ -467,34 +548,69 @@ class ProcessActorPlane:
         drainers = []
         for w, q in zip(self._workers, quota):
             w.stop_evt.clear()
-            w.cmd_q.put(("run", int(q), bool(lockstep)))
-            d = ProcessActorDrainer(w, queue, telemetry=telemetry)
+            faults = (injector.kills_for_worker(w.actor_id)
+                      if injector is not None else ())
+            w.cmd_q.put(("run", int(q), bool(lockstep), faults))
+            d = ProcessActorDrainer(w, queue, telemetry=telemetry,
+                                    ledger=ledger, lockstep=bool(lockstep))
             d.assigned = int(q)
             drainers.append(d)
         publish_em = (telemetry.emitter("shm.publish")
                       if telemetry is not None else None)
         return _ShmSlotBridge(params, self._slot, emitter=publish_em), drainers
 
+    def respawn_worker(self, slot_idx: int, actor_id: int, quota: int,
+                       lockstep: bool, queue, telemetry=None, ledger=None):
+        """Stand a dead slot back up mid-run (the supervisor's path).
+
+        Clears the dead replica's leaked param lease, then either reuses
+        the child while it lives (an injected or in-child error leaves it
+        parked at its command loop) or retires its handle to the graveyard
+        and spawns a fresh process with a fresh shm estate and a generator
+        state derived from (seed, slot, epoch). Returns a
+        ``ProcessActorDrainer`` under the fresh epoch ``actor_id``, not
+        started: the caller starts it.
+        """
+        if self._closed:
+            raise RuntimeError("respawn_worker() on a closed plane")
+        self._slot.revoke(slot_idx)
+        self._epochs[slot_idx] += 1
+        w = self._workers[slot_idx]
+        if not w.proc.is_alive():
+            w.proc.join(timeout=1.0)
+            self._graveyard.append(w)
+            w = self._spawn(slot_idx, self._respawn_state(slot_idx))
+            self._workers[slot_idx] = w
+        w.stop_evt.clear()
+        w.cmd_q.put(("run", int(quota), bool(lockstep), ()))
+        d = ProcessActorDrainer(w, queue, telemetry=telemetry,
+                                actor_id=actor_id, ledger=ledger,
+                                lockstep=bool(lockstep))
+        d.assigned = int(quota)
+        return d
+
     def close(self, join_timeout: float = 10.0) -> None:
-        """Stop workers (politely, then hard) and release the shm estate.
-        Idempotent; safe with workers already dead."""
+        """Stop workers (politely, then hard) and release the shm estate —
+        the graveyard's included. Idempotent; safe with workers already
+        dead."""
         if self._closed:
             return
         self._closed = True
         _LIVE_PLANES.discard(self)
-        for w in self._workers:
+        handles = self._handles()
+        for w in handles:
             w.stop_evt.set()
             try:
                 w.cmd_q.put(("stop",))
             except (ValueError, OSError):  # queue already torn down
                 pass
-        for w in self._workers:
+        for w in handles:
             if w.proc.pid is not None:
                 w.proc.join(timeout=join_timeout)
                 if w.proc.is_alive():  # hung child: reap it hard
                     w.proc.terminate()
                     w.proc.join(timeout=join_timeout)
-        for w in self._workers:
+        for w in handles:
             for q in (w.cmd_q, w.ready_q, w.free_q):
                 q.cancel_join_thread()
                 q.close()

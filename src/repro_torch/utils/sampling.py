@@ -38,6 +38,17 @@ def seeded_generators(seed: int, n: int, device) -> Tuple[torch.Generator, ...]:
     return tuple(gens)
 
 
+def generator_state(gen: torch.Generator) -> bytes:
+    """A generator's state as plain bytes (what crosses to a spawned child
+    or into a checkpoint snapshot)."""
+    return bytes(gen.get_state().numpy())
+
+
+def set_generator_state(gen: torch.Generator, state: bytes) -> None:
+    """Put ``generator_state``'s bytes back into ``gen`` (any device)."""
+    gen.set_state(torch.frombuffer(bytearray(state), dtype=torch.uint8))
+
+
 def _gumbel_max(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return (logits.float() - torch.log(-torch.log(u))).argmax(dim=-1)
 

@@ -11,7 +11,10 @@ staging sets, the sync host ``ParallelRL`` through K1 and the pipelined
 host plane through K2, lockstep ≡ sync bitwise, a NaN-poisoned release
 changing nothing, and the trainer's ``--host-env`` legs; the process
 actor plane: one spawned worker acting on the card in lockstep ≡ the
-thread host plane bitwise, two workers through K2, nothing left behind.
+thread host plane bitwise, two workers through K2, nothing left behind;
+fault tolerance: kill and resume ≡ uninterrupted, bitwise, through K1 and
+through K2, and a process worker's hard exit respawned with the run's
+quota complete.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one. This file imports no JAX, so it also runs on a machine that has
@@ -820,3 +823,78 @@ def test_process_plane_on_the_card_is_the_thread_host_plane_bitwise(cuda):
     assert dict(ops.launches)["vtrace_returns"] == 8
     assert sorted(prl.learned_ids) == [(a, s) for a in range(2)
                                        for s in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip,kernel", [(float("inf"), "nstep_returns"),
+                                         (1.0, "vtrace_returns")])
+def test_kill_and_resume_on_the_card_is_uninterrupted_bitwise(
+        cuda, tmp_path, clip, kernel):
+    """Depth-1 lockstep on the card: a run killed by an injected fault after
+    its checkpoint at update 3 and resumed from it ends bitwise where an
+    uninterrupted run ends (params, optimizer state, steps, seq numbering),
+    every update through the clips' kernel; the restored tensors are on the
+    card."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import PipelineConfig, get_config
+    from repro_torch.core.agents import PAACAgent, PAACConfig
+    from repro_torch.envs import GridWorld
+    from repro_torch.pipeline import FaultPlan, PipelinedRL
+
+    def rl(**kw):
+        env = GridWorld(16, size=5, max_steps=20, device=cuda)
+        agent = PAACAgent(get_config("paac_vector").replace(
+            obs_shape=env.obs_shape, num_actions=env.num_actions),
+            PAACConfig(t_max=5))
+        return PipelinedRL(env, agent, seed=4, pipeline=PipelineConfig(
+            queue_depth=1, lockstep=True, rho_bar=clip, c_bar=clip, **kw))
+
+    a = rl()
+    a.run(8)
+    b = rl(checkpoint_dir=str(tmp_path), checkpoint_every=3,
+           fault_plan=FaultPlan(kills=((0, 5, "error"),)))
+    with pytest.raises(RuntimeError, match="pipeline actor"):
+        b.run(8)
+    assert latest_step(str(tmp_path), prefix="pipe") == 3
+    c = rl(checkpoint_dir=str(tmp_path))
+    assert c.restore() == 3
+    assert all(t.is_cuda for t in tree_leaves(c.params))
+    ops.reset_launches()
+    c.run(5)
+    assert dict(ops.launches)[kernel] == 5
+    for x, y in zip(tree_leaves((a.params, a.opt_state)),
+                    tree_leaves((c.params, c.opt_state))):
+        assert torch.equal(x, y)
+    assert c.total_steps == a.total_steps
+    assert [s for _, s in c.learned_ids] == [3, 4, 5, 6, 7]
+
+
+@pytest.mark.cuda
+def test_process_exit_respawn_on_the_card_completes_its_quota(cuda):
+    """A worker acting on the card hard-exits after one rollout: the
+    supervisor spawns a fresh one, the run completes every update through
+    K2, and after close() no worker lives and no segment is left."""
+    import os
+
+    from repro_torch.configs import PipelineConfig, get_config
+    from repro_torch.core.agents import PAACAgent, PAACConfig
+    from repro_torch.envs import py_bound_spec
+    from repro_torch.pipeline import FaultPlan, PipelinedRL
+
+    agent = PAACAgent(get_config("paac_vector").replace(
+        obs_shape=(16,), num_actions=3), PAACConfig(t_max=5))
+    spec = py_bound_spec(16, obs_dim=16, spin=200, n_workers=4)
+    ops.reset_launches()
+    with PipelinedRL(spec.shard(2), agent, seed=2, pipeline=PipelineConfig(
+            num_actors=2, queue_depth=2, actor_backend="process",
+            elastic=True, restart_backoff_s=0.01,
+            fault_plan=FaultPlan(kills=((1, 1, "exit"),)))) as prl:
+        prl.run(8)
+        plane = prl._process_plane
+        segs = plane.segment_names()
+    assert dict(ops.launches)["vtrace_returns"] == 8
+    assert len(prl.learned_ids) == 8 == len(set(prl.learned_ids))
+    assert prl.supervisor.episodes == [("respawn", 1, 2)]
+    assert len(plane._graveyard) == 1
+    assert not any(w.proc.is_alive() for w in plane._handles())
+    assert not set(segs) & set(os.listdir("/dev/shm"))

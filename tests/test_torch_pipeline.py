@@ -26,8 +26,9 @@
   every staging set goes back once, only after its update, so a set
   overwritten with NaN on release changes nothing; a crashing external env
   propagates; the plane refusals; a run's heartbeat lines and watchdog.
-* Settings outside the ported planes raise ``NotImplementedError``, and
-  ``DQNAgent`` runs on the replay plane; the entry
+* Settings outside the ported planes raise ``NotImplementedError``, a
+  ``fault_plan`` that is not a ``FaultPlan`` the reference's
+  ``TypeError``, and ``DQNAgent`` runs on the replay plane; the entry
   point runs with ``--pipeline`` on the CPU and raises without a card
   unless the CPU is asked for.
 """
@@ -822,13 +823,16 @@ def test_host_plane_refusals_and_the_run_observers(tmp_path, caplog):
 @pytest.mark.parametrize("setting,item", [
     (dict(rollout_plane="mesh"), "item 14"),
     (dict(mesh_shape=2), "item 14"),
-    (dict(elastic=True), "item 10"),
-    (dict(fault_plan=object()), "item 10"),
-    (dict(checkpoint_dir="ckpt"), "item 10"),
 ], ids=lambda x: next(iter(x)) if isinstance(x, dict) else x)
 def test_unported_settings_raise(setting, item):
     with pytest.raises(NotImplementedError, match=item):
         _pipelined(**setting)
+
+
+def test_a_fault_plan_that_is_not_one_raises_the_references_type_error():
+    with pytest.raises(TypeError, match="fault_plan must be a .*FaultPlan, "
+                       "got object"):
+        _pipelined(fault_plan=object())
 
 
 def test_pipeline_config_validates_as_the_reference():

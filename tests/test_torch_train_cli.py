@@ -8,7 +8,7 @@
   reference's order with the reference's text: each case below goes
   through both ``run_rl``s, several with more than one fault at once.
 * Each flag the port does not run raises ``NotImplementedError`` naming
-  its ROADMAP Queue 1 item.
+  its ROADMAP Queue 1 item (11, 13 or 14).
 * ``--device cpu`` runs the three ported legs (PAAC synchronous,
   ``--pipeline`` and ``--algo dqn``) on the reference's ``TokenEnv``
   setting, the ``--host-env`` legs (synchronous and ``--pipeline``, with
@@ -17,6 +17,12 @@
   --algo dqn --replay``, ``--pipeline --rollout-plane host`` on the
   TokenEnv, and ``--metrics-jsonl`` with ``--stall-timeout``; without a
   card and without ``--device cpu`` the trainer raises.
+* The fault-tolerance legs: ``--pipeline --elastic --fault-kill`` (and
+  ``--fault-stall-learner``) completes its quota through a respawn;
+  ``--checkpoint-dir``/``--checkpoint-every`` then ``--resume`` runs only
+  the remainder and ends where an uninterrupted run ends; ``--checkpoint
+  DIR`` saves the synchronous run's params; a malformed ``--fault-kill``
+  or ``--fault-stall-learner`` exits with the reference's text.
 * ``examples/quickstart_torch.py`` (its device and host legs bitwise equal
   to the synchronous run) and ``examples/compare_baselines_torch.py`` run
   at a tiny size on the CPU.
@@ -115,13 +121,6 @@ UNPORTED = [
     (["--arch", "qwen2-7b"], "item 11"),
     (["--arch", "mamba2-370m", "--reduced"], "item 11"),
     (["--mode", "synthetic"], "item 11"),
-    (["--pipeline", "--elastic"], "item 10"),
-    (["--pipeline", "--fault-kill", "0:1"], "item 10"),
-    (["--pipeline", "--fault-stall-learner", "1:0.5"], "item 10"),
-    (["--checkpoint", "ck.npz"], "item 10"),
-    (["--pipeline", "--checkpoint-dir", "ck", "--checkpoint-every", "2"],
-     "item 10"),
-    (["--pipeline", "--checkpoint-dir", "ck", "--resume"], "item 10"),
     (["--pipeline", "--sanitize", "locks"], "item 13"),
     (["--pipeline", "--mesh", "2"], "item 14"),
     (["--pipeline", "--rollout-plane", "mesh"], "item 14"),
@@ -244,6 +243,64 @@ def test_epochs_and_the_pipeline_trace(tmp_path):
     events = json.loads(path.read_text())["traceEvents"]
     assert {"collect", "learner.update"} <= {e["name"] for e in events
                                              if e["ph"] == "X"}
+
+
+FAULT_LEGS = ["elastic", "resume", "sync checkpoint", "bad kill",
+              "bad stall"]
+
+
+@pytest.mark.parametrize("leg", FAULT_LEGS)
+def test_the_fault_tolerance_legs_run_on_the_cpu(leg, tmp_path):
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.utils.tree import tree_leaves
+
+    pipe = TINY + ["--pipeline"]
+    if leg == "elastic":
+        rl, (res,) = train.run_rl(train.build_parser().parse_args(
+            pipe + ["--num-actors", "2", "--elastic", "--restart-backoff",
+                    "0.01", "--fault-kill", "0:1", "--fault-stall-learner",
+                    "1:0.2"]))
+        assert rl.pipeline.fault_plan.kills == ((0, 1, "error"),)
+        assert rl.pipeline.fault_plan.stall_learner == ((1, 0.2),)
+        assert rl.supervisor.episodes == [("respawn", 0, 2)]
+        assert res.steps == 4 * 2 * 3 and len(rl.learned_ids) == 4
+    elif leg == "resume":
+        ck = str(tmp_path / "ck")
+        iters = ["--iterations", "6"]
+        full, _ = train.run_rl(train.build_parser().parse_args(
+            pipe + iters + ["--queue-depth", "1"]))
+        with pytest.raises(RuntimeError, match="pipeline actor"):
+            train.run_rl(train.build_parser().parse_args(
+                pipe + iters + ["--queue-depth", "1", "--checkpoint-dir", ck,
+                                "--checkpoint-every", "2", "--fault-kill",
+                                "0:5"]))
+        assert latest_step(ck, prefix="pipe") in (2, 4)
+        done = latest_step(ck, prefix="pipe")
+        rl, (res,) = train.run_rl(train.build_parser().parse_args(
+            pipe + iters + ["--queue-depth", "1", "--checkpoint-dir", ck,
+                            "--resume"]))
+        assert res.steps == rl.total_steps == full.total_steps == 6 * 4 * 3
+        assert len(rl.learned_ids) == 6 - done
+        assert all(math.isfinite(v) for v in res.mean_metrics.values())
+    elif leg == "sync checkpoint":
+        ck = str(tmp_path / "params")
+        rl, (res,) = train.run_rl(train.build_parser().parse_args(
+            TINY + ["--checkpoint", ck]))
+        assert latest_step(ck) == rl.total_steps == 4 * 4 * 3
+        back = restore_checkpoint(ck, rl.total_steps,
+                                  {k: v for k, v in rl.params.items()})
+        for a, b in zip(tree_leaves(rl.params), tree_leaves(back)):
+            assert torch.equal(a, b)
+    else:  # the reference's exits on a malformed entry, with its text
+        argv = pipe + (["--fault-kill", "0"] if leg == "bad kill"
+                       else ["--fault-stall-learner", "3"])
+        with pytest.raises(SystemExit) as want:
+            ref_train.run_rl(train.build_parser().parse_args(
+                argv + ["--arch", "paac_vector"]))
+        with pytest.raises(SystemExit) as got:
+            train.main(argv)
+        assert str(got.value) == str(want.value)
+        assert "expected" in str(got.value)
 
 
 def test_the_trainer_raises_without_a_card_unless_the_cpu_is_asked_for():
