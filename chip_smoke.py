@@ -209,6 +209,35 @@ paths:
               --fault-kill 0:3 --checkpoint-dir D --checkpoint-every 10``
               (K2 50), then ``--resume`` on D (K2 25: the remainder) and
               ``--checkpoint D2`` on the synchronous path (K1 50);
+   analysis — the analysis plane (``repro_torch.analysis``) in the same
+              setting: (a) ``python -m repro_torch.analysis.lint`` and the
+              reference's ``python -m repro.analysis.lint`` (run as a file
+              tool) over ``src/repro_torch``, both clean; (b) four thread
+              actors of 8 envs at depth 4, clips 1, 100 timed updates under
+              ``locks,transfers`` in turns with the same run unsanitized
+              (off, on, on, off): K2 100 a run, the learner's 99 guarded
+              iterations and the guarded collects, 200 in-place probes, a
+              clean lock-order report, timesteps/s on and off; depth-1
+              lockstep sanitized ≡ unsanitized bitwise at clips 1 (K2)
+              and (c) at clips inf (K1), cuDNN deterministic; a process
+              plane of four ``FrameEnv`` workers, sanitized, 60 updates
+              (K2), the shm slot's ``mp`` condition wrapped; (d) pipelined
+              replay DQN, capacity 16, batch 2, 50 updates, no kernel;
+              ``launch/train.py --pipeline --sanitize locks,transfers`` at
+              the reference CI's shape for PAAC (K2 8) and replay DQN; (e)
+              the sync mode read on another thread, which host-sync forms
+              torch reports inside a guard, a guarded thread's ``.item()``
+              refused while another thread's ``.cpu()`` passes at once,
+              the thread host plane's learner guarded while its actor reads
+              back, a stray ``.item()`` in the learner step raising on the
+              learner, and a lock inversion between two sites on two
+              threads flagged as a cycle; every ``allowed`` edge that fired
+              with its count; (f) ``launch/serve.py --arch qwen2-7b
+              --continuous --requests 8 --slots 4 --prompt-len 512 --gen
+              32`` with and without ``--trace``/``--metrics-jsonl`` in
+              turns (K3, K4): tokens bitwise equal, the trace's admit,
+              prefill and decode spans, at least 2 heartbeat lines with
+              ``serve_queue_depth``, tok/s and p50/p99 on and off;
 6. model    — reduced qwen2-7b, minicpm3-4b (absorbed and naive decode)
               and mamba2-370m in fp32, one set of weights on the CPU
               (plain versions) and on the card (kernels): prefill and
@@ -239,8 +268,9 @@ TF32 is off for matmuls and convolutions throughout. The line before the
 last is a JSON object with each kernel's numbers and its launches on each
 main path (training, pipeline, agents, train cli, host sync, host
 pipeline, host train cli, host process, host process train cli, replay,
-replay train cli, faults, faults train cli and the three serving cells,
-each read with the counts set to 0 just before it); the last line is
+replay train cli, faults, faults train cli, the analysis legs and the
+three serving cells, each read with the counts set to 0 just before it);
+the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
 phase fails, it exits non-zero and prints no result. ``--trace-dir DIR``
 also writes the pipeline runs' Chrome traces (actor, ring and learner
@@ -3354,6 +3384,524 @@ def phase_faults(torch, np, configs, envs, A, optim, pipeline, paper_atari,
             {k: v for k, v in cli.items() if v})
 
 
+def sync_forms(torch, dev):
+    """Each host-sync form beside whether torch's sync debug mode reports
+    it: (label, thunk) pairs, each run once inside a guard."""
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    pageable = torch.ones(8)
+    pinned = torch.ones(8).pin_memory()
+    stream = torch.cuda.Stream(dev)
+    event = torch.cuda.current_stream(dev).record_event()
+    return (
+        (".item()", lambda: x.sum().item()),
+        (".cpu()", lambda: x.cpu()),
+        (".tolist()", lambda: x.tolist()),
+        ("float(t)", lambda: float(x[0])),
+        ("torch.tensor(v, device=cuda)", lambda: torch.tensor(1.0,
+                                                              device=dev)),
+        ("pageable .to(cuda)", lambda: pageable.to(dev)),
+        ("pageable .to(cuda, non_blocking)",
+         lambda: pageable.to(dev, non_blocking=True)),
+        ("pinned .to(cuda, non_blocking)",
+         lambda: pinned.to(dev, non_blocking=True)),
+        (".nonzero()", lambda: x.nonzero()),
+        ("torch.cuda.synchronize()", lambda: torch.cuda.synchronize(dev)),
+        ("Stream.synchronize()", stream.synchronize),
+        ("Event.synchronize()", event.synchronize),
+    )
+
+
+# the forms the sanitizer's docstring says torch reports; the others of
+# sync_forms pass (the linter's hot-path-sync rule flags the waits)
+REPORTED = {".item()", ".cpu()", ".tolist()", "float(t)",
+            "torch.tensor(v, device=cuda)", "pageable .to(cuda)",
+            ".nonzero()", "Stream.synchronize()"}
+
+
+def sync_probes(torch, san, dev):
+    """Torch's sync debug mode is process-wide (set here, read on
+    another thread), which of ``sync_forms`` it reports inside a guard,
+    and a guarded thread refused while another thread's syncs pass at
+    the same time."""
+    import threading
+
+    seen = {}
+
+    def read_mode():
+        seen["mode"] = torch.cuda.get_sync_debug_mode()
+
+    th = threading.Thread(target=read_mode)
+    th.start()
+    th.join(timeout=30)
+    check(seen.get("mode") == 1, f"another thread reads sync mode {seen}")
+    reported = {}
+    for label, fn in sync_forms(torch, dev):
+        with san.guard():
+            try:
+                fn()
+                reported[label] = False
+            except san.HostSyncViolation:
+                reported[label] = True
+    check({k for k, v in reported.items() if v} == REPORTED,
+          f"torch reports {reported}")
+    say("analysis", "(e) sync debug mode 'warn' set on the main thread reads "
+        f"{seen['mode']} on another thread (process-wide); inside a guard "
+        "torch reports: " + ", ".join(k for k, v in reported.items() if v)
+        + "; and lets pass: " + ", ".join(k for k, v in reported.items()
+                                          if not v))
+    san.reset_stats()
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    gate = threading.Barrier(2, timeout=30)
+    out = {"refused": 0, "passed": 0}
+
+    def guarded():
+        with san.guard():
+            gate.wait()
+            for _ in range(20):
+                try:
+                    x.sum().item()
+                except san.HostSyncViolation:
+                    out["refused"] += 1
+            gate.wait()
+
+    def reader():
+        gate.wait()
+        for _ in range(20):
+            x.cpu()
+            out["passed"] += 1
+        gate.wait()
+
+    threads = [threading.Thread(target=f, name=n) for f, n in
+               ((guarded, "guarded"), (reader, "reader"))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        check(not t.is_alive(), "the two-thread probe hung")
+    check(out == {"refused": 20, "passed": 20}
+          and san.host_syncs["refused"] == 20
+          and san.host_syncs["unguarded"] >= 20, f"two threads: {out} "
+          f"{san.host_syncs}")
+    say("analysis", f"(e) two threads at once: 20 .item() on the guarded "
+        f"one all refused, 20 .cpu() on the other all passed; host syncs "
+        f"{dict(san.host_syncs)}")
+
+
+
+def phase_analysis(torch, np, configs, envs, A, optim, pipeline, paper_atari,
+                   ops, tree, train, serve, analysis, san, lockcheck, card,
+                   dev="cuda", n_envs=32, n_workers=8, warmup=10, iters=100,
+                   lock_iters=20, proc_iters=60, replay_iters=50,
+                   host_iters=20, cli_iters=8, serve_argv=None):
+    """The analysis plane (``repro_torch.analysis``) in the paper's setting
+    (paac_nature fp32 on FrameStack(AtariLike(32)), t_max 5): (a) both
+    linters over the port; (b) four thread actors of 8 envs at depth 4
+    (K2) under locks,transfers, timed beside the same run unsanitized in
+    turns, and lockstep sanitized ≡ unsanitized bitwise at clips 1 (K2);
+    (c) the same at clips inf (K1), and a process plane of four FrameEnv
+    workers (K2), sanitized; (d) pipelined replay DQN (no kernel); the
+    trainer's two sanitized legs at CI's shape; (e) the sanitizers catch
+    what they exist for: which sync forms torch reports, a guarded thread
+    refused while another passes, a stray ``.item()`` in the learner step
+    raising on the learner while the host plane's actor reads back, and a
+    lock inversion between two sites on two threads; (f) ``launch/serve.py
+    --continuous --trace --metrics-jsonl`` on qwen2-7b at full width and
+    depth (K3, K4), timed beside the same call without the observers in
+    turns, tokens bitwise equal. Returns the launch counts of each leg."""
+    import threading
+    import warnings
+
+    t_phase = time.perf_counter()
+    PipelineConfig = configs.PipelineConfig
+    inf = float("inf")
+    cuda = torch.device(dev).type == "cuda"
+    paths = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def arm(modes):
+        analysis.disable_sanitizers()
+        if modes:
+            analysis.enable_sanitizers(modes)
+        lockcheck.monitor().reset()
+        san.reset_stats()
+
+    def clean_verdict(rl, label):
+        rep = rl.telemetry.reports["lockcheck"]
+        check(rep["cycles"] == [] and rep["hazards"] == [],
+              f"{label}: lockcheck {rep['cycles']} {rep['hazards']}")
+        return len(rep["edges"])
+
+    def edges():
+        return ", ".join(f"{k!r} entered {n} absorbing {s} syncs"
+                         for k, (n, s) in sorted(san.edge_stats.items()))
+
+    def launches(label, want):
+        counts = dict(ops.launches)
+        full = {k: want.get(k, 0) for k in counts}
+        check(counts == full, f"analysis {label}: launches {counts}, "
+              f"expected {full}")
+        return {k: v for k, v in counts.items() if v}
+
+    # (a) the two linters over the port, each as a file tool
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    for mod in ("repro_torch.analysis.lint", "repro.analysis.lint"):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", mod, "src/repro_torch"],
+                           cwd=root, env=env, capture_output=True, text=True,
+                           timeout=300)
+        check(r.returncode == 0, f"python -m {mod} src/repro_torch exited "
+              f"{r.returncode}: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+        say("analysis", f"(a) python -m {mod} src/repro_torch: exit 0, "
+            f"{r.stderr.strip().splitlines()[-1]} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    # (b) four thread actors of 8 envs at depth 4, sanitized and not
+    def four():
+        return paper_atari.build("paac_nature", n_envs, SEED, dev,
+                                 PipelineConfig(num_actors=4, queue_depth=4))
+
+    rows = {"": [], "locks,transfers": []}
+    for modes in ("", "locks,transfers", "locks,transfers", ""):
+        arm(modes)
+        rl = four()
+        rl.run(warmup)
+        san.reset_stats()
+        ops.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        res = rl.run(iters)
+        sync()
+        wall = time.perf_counter() - t0
+        got = launches("pipeline", {"vtrace_returns": iters})
+        check(all(math.isfinite(res.mean_metrics[k]) for k in
+                  ("loss", "entropy")), f"four actors: {res.mean_metrics}")
+        check(len(rl.learned_ids) == iters == len(set(rl.learned_ids)),
+              "four actors: a payload lost or learned twice")
+        tps = iters * rl._steps_per_iter / wall
+        if modes:
+            paths["analysis pipeline"] = got
+            g, p = san.stats["guarded"], san.stats["probed"]
+            check(g >= (iters - 1) + (iters - 4),
+                  f"four actors: {g} guarded scopes")
+            check(p == 2 * iters, f"four actors: {p} probes")
+            check(san.host_syncs["refused"] == 0, "four actors: refused")
+            n_edges = clean_verdict(rl, "four actors")
+            rows[modes].append((tps, g, p, n_edges, edges(),
+                                dict(san.host_syncs)))
+        else:
+            rows[modes].append((tps,))
+        del rl
+    on, off = rows["locks,transfers"], rows[""]
+    tps_on = [r[0] for r in on]
+    tps_off = [r[0] for r in off]
+    _, g, p, n_edges, e, hs = on[-1]
+    say("analysis", f"(b) four thread actors of 8 envs, depth 4, clips 1: "
+        f"{iters} updates after {warmup} warm-up in turns off, on, on, off: "
+        f"timesteps/s off {tps_off[0]:.1f}, {tps_off[1]:.1f}; on "
+        f"{tps_on[0]:.1f}, {tps_on[1]:.1f} (on/off "
+        f"{sum(tps_on) / sum(tps_off):.3f}); K2 {iters} a run; sanitized: "
+        f"{g} guarded scopes ({iters - 1} learner iterations and the "
+        f"collects after each actor's first), {p} probes, lockcheck "
+        f"{n_edges} lock-order edges, no cycle, no hazard; host syncs {hs}; "
+        f"edges: {e} ({card})")
+
+    # (b), (c) lockstep sanitized ≡ unsanitized, bitwise, at clips 1 (K2)
+    # and inf (K1), cuDNN deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    lock_rows = []
+    try:
+        for clip, kernel in ((1.0, "vtrace_returns"), (inf, "nstep_returns")):
+            pair = []
+            for modes in ("", "locks,transfers"):
+                arm(modes)
+                rl = paper_atari.build(
+                    "paac_nature", n_envs, SEED, dev,
+                    PipelineConfig(queue_depth=1, lockstep=True,
+                                   rho_bar=clip, c_bar=clip))
+                ops.reset_launches()
+                res = rl.run(lock_iters)
+                got = launches(f"lockstep clips {clip}",
+                               {kernel: lock_iters})
+                pair.append((res, rl))
+            (ra, a), (rb, b) = pair
+            check_bitwise(torch, tree, ra, a, rb, b,
+                          f"lockstep clips {clip}, sanitized vs not")
+            check(san.stats["guarded"] == 2 * (lock_iters - 1)
+                  and san.stats["probed"] == 2 * lock_iters,
+                  f"lockstep clips {clip}: {san.stats}")
+            clean_verdict(b, f"lockstep clips {clip}")
+            if clip == inf:
+                paths["analysis lockstep"] = got
+            lock_rows.append((clip, kernel, dict(san.stats), edges()))
+            del pair, a, b
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for clip, kernel, st, e in lock_rows:
+        say("analysis", f"(b)/(c) depth-1 lockstep, one actor, clips {clip}, "
+            f"{lock_iters} updates ({kernel} {lock_iters}): sanitized ≡ "
+            f"unsanitized bitwise in every metric and parameter (cuDNN "
+            f"deterministic); {st}; edges: {e}")
+
+    # (c) a process plane of four FrameEnv workers, sanitized
+    arm("locks,transfers")
+    t0 = time.perf_counter()
+    rl = pipeline.PipelinedRL(
+        frame_spec(envs, np, n_envs, 0.0, n_workers, dev),
+        _frame_agent(configs, A), optimizer="rmsprop",
+        lr_schedule=optim.constant(0.0007 * n_envs), seed=SEED, device=dev,
+        pipeline=PipelineConfig(num_actors=4, queue_depth=4,
+                                actor_backend="process"))
+    try:
+        spawn_s = time.perf_counter() - t0
+        shm_cond = rl._process_plane._slot._cond
+        check(isinstance(shm_cond, lockcheck.SanitizedCondition)
+              and shm_cond._name == "shm.param_slot",
+              f"the shm slot's condition is {shm_cond!r}")
+        rl.run(warmup)  # the workers' first steps
+        san.reset_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = rl.run(proc_iters)
+        wall = time.perf_counter() - t0
+        paths["analysis process"] = launches("process",
+                                             {"vtrace_returns": proc_iters})
+        st, hs = dict(san.stats), dict(san.host_syncs)
+        check(st["guarded"] == proc_iters - 1 and
+              st["probed"] == 2 * proc_iters, f"process plane: {st}")
+        check(san.edge_stats.get("shm param publish", [0])[0] == proc_iters,
+              f"process plane edges {san.edge_stats}")
+        n_edges = clean_verdict(rl, "process plane")
+        say("analysis", f"(c) process plane, four FrameEnv workers of "
+            f"{n_envs // 4} envs, depth 4, sanitized (built in {spawn_s:.1f} "
+            f"s): {proc_iters} updates after {warmup} warm-up, K2 "
+            f"{proc_iters}, "
+            f"{proc_iters * rl._steps_per_iter / wall:.1f} timesteps/s; "
+            f"{st}; host syncs {hs}; lockcheck {n_edges} edges (the shm "
+            f"slot's mp condition wrapped as 'shm.param_slot'), no cycle, "
+            f"no hazard; edges: {edges()} ({card})")
+    finally:
+        rl.close()
+    del rl
+
+    # (d) pipelined replay DQN, capacity 16, batch 2: no kernel
+    arm("locks,transfers")
+    env_ = envs.FrameStack(envs.AtariLike(n_envs, device=dev), 4)
+    cfg = configs.get_config("paac_nature").replace(
+        obs_shape=env_.obs_shape, num_actions=env_.num_actions)
+    rl = pipeline.PipelinedRL(
+        env_, A.DQNAgent(cfg, A.DQNConfig(t_max=5)), optimizer="rmsprop",
+        lr_schedule=optim.constant(0.0007 * n_envs), seed=SEED, device=dev,
+        pipeline=PipelineConfig(num_actors=2, queue_depth=2,
+                                replay_plane=True, replay_capacity=16,
+                                replay_batch=2))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = rl.run(replay_iters)
+    wall = time.perf_counter() - t0
+    launches("replay", {})
+    st = dict(san.stats)
+    check(st["guarded"] >= (replay_iters - 1) + (replay_iters - 2)
+          and st["probed"] == 2 * replay_iters, f"replay DQN: {st}")
+    check(san.edge_stats["replay sample draw"][0] == replay_iters
+          and san.host_syncs["refused"] == 0, f"replay DQN: {edges()}")
+    check(math.isfinite(res.mean_metrics["loss"]), "replay DQN loss")
+    n_edges = clean_verdict(rl, "replay DQN")
+    say("analysis", f"(d) pipelined replay DQN, two actors, capacity 16, "
+        f"batch 2, sanitized: {replay_iters} updates, no kernel launched, "
+        f"{replay_iters * rl._steps_per_iter / wall:.1f} timesteps/s; {st}; "
+        f"host syncs {dict(san.host_syncs)}; lockcheck {n_edges} edges, no "
+        f"cycle, no hazard; edges: {edges()} ({card})")
+    del rl, env_
+
+    # the trainer's sanitized legs at CI's shape (TokenEnv, paac_vector)
+    cli = {k: 0 for k in ops.launches}
+    base = ["--arch", "paac_vector", "--iterations", str(cli_iters),
+            "--pipeline", "--num-actors", "2", "--n-envs", "8", "--device",
+            str(dev), "--sanitize", "locks,transfers"]
+    for leg, kernel in (([], "vtrace_returns"),
+                        (["--algo", "dqn", "--replay", "--replay-capacity",
+                          "16", "--replay-batch", "2"], None)):
+        arm("")
+        ops.reset_launches()
+        rl, (res,) = train.run_rl(train.build_parser().parse_args(base + leg))
+        got = launches(f"train {' '.join(leg)}",
+                       {kernel: cli_iters} if kernel else {})
+        for k, v in got.items():
+            cli[k] += v
+        st = dict(san.stats)
+        check(st["guarded"] >= 2 * (cli_iters - 2) and
+              st["probed"] == 2 * cli_iters, f"train {leg}: {st}")
+        check(san.host_syncs["refused"] == 0, f"train {leg}: refused")
+        n_edges = clean_verdict(rl, f"train {leg}")
+        say("analysis", f"python -m repro_torch.launch.train "
+            f"{' '.join(base + leg)}: {res.steps} steps, launches {got}, "
+            f"{st}, lockcheck {n_edges} edges and no finding, edges: "
+            f"{edges()}")
+        del rl
+    paths["analysis train cli"] = {k: v for k, v in cli.items() if v}
+
+    # (e) each sanitizer catches what it exists for (the probes of
+    # torch's own syncs need the card; a CPU rehearsal skips them)
+    arm("transfers")
+    with san.guard():  # arms the process-wide mode on this thread
+        pass
+    if cuda:
+        sync_probes(torch, san, dev)
+
+    # the host plane: the learner guarded while its actor reads back; then
+    # a stray .item() in the guarded learner step
+    def host_rl():
+        pool = frame_spec(envs, np, n_envs, 0.0, n_workers, dev)
+        return pipeline.PipelinedRL(
+            pool, _frame_agent(configs, A), optimizer="rmsprop",
+            lr_schedule=optim.constant(0.0007 * n_envs), seed=SEED,
+            device=dev, pipeline=PipelineConfig(queue_depth=2))
+
+    arm("transfers")
+    with host_rl() as rl:
+        with san.guard():  # armed before the actor's first step
+            pass
+        ops.reset_launches()
+        rl.run(host_iters)
+        launches("host plane", {"vtrace_returns": host_iters})
+        hs = dict(san.host_syncs)
+        check(hs["refused"] == 0
+              and hs["unguarded"] >= (5 * host_iters if cuda else 0)
+              and san.stats["guarded"] == 1 + host_iters - 1,
+              f"host plane: {hs} {san.stats}")
+        say("analysis", f"(e) thread host plane on {n_envs} FrameEnvs, one "
+            f"actor: "
+            f"{host_iters} updates, the learner guarded from iteration 1 "
+            f"while the actor's collect reads back each step: host syncs "
+            f"{hs}")
+        step, calls = rl._update_step, []
+
+        def stray(*a):
+            out = step(*a)
+            calls.append(1)
+            if len(calls) == 4:
+                out[-1]["loss"].item()  # the deliberate stray sync
+                if not cuda:  # a CPU rehearsal: the card's report of it
+                    warnings.warn(san.SYNC_MESSAGE, UserWarning)
+            return out
+
+        rl._update_step = stray
+        san.reset_stats()
+        try:
+            rl.run(host_iters)
+            check(False, "the stray .item() was not caught")
+        except san.HostSyncViolation as e:
+            where = threading.current_thread().name
+            check(repr(where) in str(e), f"violation not on the learner: {e}")
+            msg = str(e)
+        check(len(calls) == 4 and san.host_syncs["refused"] == 1
+              and (san.host_syncs["unguarded"] > 0 or not cuda),
+              f"stray sync: {len(calls)} updates, {san.host_syncs}")
+        say("analysis", f"(e) a stray .item() in the 4th learner update "
+            f"raised on the learner thread while the actor kept reading "
+            f"back ({san.host_syncs}): {msg[:160]}")
+
+    arm("locks")
+    a = lockcheck.make_lock("supervisor.lock")
+    b = lockcheck.make_condition("quota_ledger.cond")
+
+    def nest(first, second):
+        with first:
+            with second:
+                pass
+
+    for order in ((a, b), (b, a)):
+        t = threading.Thread(target=nest, args=order)
+        t.start()
+        t.join(timeout=30)
+    rep = lockcheck.monitor().report()
+    check([c for c in rep["cycles"]
+           if set(c) == {"supervisor.lock", "quota_ledger.cond"}],
+          f"the inversion was not flagged: {rep['cycles']}")
+    say("analysis", f"(e) supervisor.lock -> quota_ledger.cond on one "
+        f"thread and the reverse on another: cycle {rep['cycles'][0]}")
+    arm("")
+
+    # (f) the serving CLI with and without its observers, qwen2-7b
+    torch.cuda.empty_cache()
+    base = serve_argv or ["--arch", "qwen2-7b", "--continuous", "--requests",
+                          "8", "--slots", "4", "--prompt-len", "512",
+                          "--gen", "32", "--device", str(dev)]
+    obs_dir = tempfile.mkdtemp(prefix="serve_obs_")
+    serve_cfg = configs.get_config(base[base.index("--arch") + 1])
+    if "--reduced" in base:
+        serve_cfg = serve_cfg.reduced()
+    n_layers = serve_cfg.num_layers
+    warm = list(base)
+    warm[warm.index("--requests") + 1] = "2"
+    serve.main(warm)
+    runs = {"off": [], "on": []}
+    for k, label in enumerate(("off", "on", "on", "off")):
+        argv = list(base)
+        if label == "on":
+            tr = os.path.join(obs_dir, f"trace{k}.json")
+            hb = os.path.join(obs_dir, f"beat{k}.jsonl")
+            argv += ["--trace", tr, "--metrics-jsonl", hb]
+        ops.reset_launches()
+        res = serve.main(argv)
+        counts = launches(f"serve {label}", {
+            "flash_attention": n_layers * res["admitted"],
+            "decode_attention": n_layers * res["steps"]})
+        reqs = sorted(res["requests"], key=lambda r: r.rid)
+        check(len(reqs) == 8 and all(r.status == "done" for r in reqs),
+              f"serve {label}: {[(r.rid, r.status) for r in reqs]}")
+        runs[label].append((res, counts, [r.tokens for r in reqs]))
+        if label == "on":
+            events = json.load(open(tr))["traceEvents"]
+            names = {e["name"] for e in events if e.get("ph") == "X"}
+            check({"admit", "prefill", "decode"} <= names,
+                  f"serve trace spans {names}")
+            lines = [json.loads(x) for x in open(hb)]
+            served = [x for x in lines if "serve_queue_depth" in x]
+            check(len(served) >= 2, f"{len(served)} heartbeat lines carry "
+                  "serve_queue_depth")
+            paths["analysis serving"] = counts
+            spans = sum(1 for e in events if e.get("ph") == "X")
+        del res
+        torch.cuda.empty_cache()
+    ref_tokens = runs["off"][0][2]
+    for label in ("off", "on"):
+        for _, _, toks in runs[label]:
+            check(all(np.array_equal(x, y) for x, y in zip(toks, ref_tokens)),
+                  f"serve {label}: tokens differ from the first plain run")
+    shutil.rmtree(obs_dir, ignore_errors=True)
+
+    def fmt(r):
+        return (f"{r['tok_s']:.1f} tok/s, p50 {r['p50_ms']:.1f} ms, p99 "
+                f"{r['p99_ms']:.1f} ms")
+
+    say("analysis", f"(f) python -m repro_torch.launch.serve "
+        f"{' '.join(base)} [--trace T --metrics-jsonl M], in turns off, on, "
+        f"on, off: off {fmt(runs['off'][0][0])}; on {fmt(runs['on'][0][0])}; "
+        f"on {fmt(runs['on'][1][0])}; off {fmt(runs['off'][1][0])}; tokens "
+        f"bitwise equal across the four; launches of the first observed "
+        f"call {paths['analysis serving']} (K3 a layer a prefill, K4 a "
+        f"layer a decode step); "
+        f"the trace holds {spans} spans (admit, prefill, decode), the "
+        f"heartbeat {len(lines)} lines, {len(served)} with serve_queue_depth "
+        f"({card})")
+    say("analysis", f"the phase took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+def _frame_agent(configs, A):
+    """paac_nature on 84x84x4 frames, 6 actions: the FrameEnv pools'."""
+    cfg = configs.get_config("paac_nature").replace(
+        obs_shape=FrameEnv.SHAPE, num_actions=6)
+    return A.PAACAgent(cfg, A.PAACConfig(gamma=0.99, entropy_beta=0.01,
+                                         t_max=5))
+
+
 # Each kernel's CUDA kernels as a profile names them. K4 and K5 share the
 # combine (split_combine_kernel); no serving cell runs both. decode_kernel,
 # decode_combine_kernel, mla_decode_kernel and ssd_scan_kernel (bf16) are
@@ -3415,8 +3963,9 @@ def main(argv=None) -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch import (checkpoint, configs, core, envs, models, optim,
-                             pipeline, serving)
+    from repro_torch import (analysis, checkpoint, configs, core, envs,
+                             models, optim, pipeline, serving)
+    from repro_torch.analysis import lockcheck, sanitize
     from repro_torch.core import agents
     from repro_torch.core.agents import paac, replay
     from repro_torch.kernels import _build, ops, ref
@@ -3483,6 +4032,11 @@ def main(argv=None) -> int:
         torch, np, configs, envs, agents, optim, pipeline, paper_atari, ops,
         tree, train, checkpoint, card)
     lap("faults")
+    torch.cuda.empty_cache()
+    by_path.update(phase_analysis(
+        torch, np, configs, envs, agents, optim, pipeline, paper_atari, ops,
+        tree, train, serve, analysis, sanitize, lockcheck, card))
+    lap("analysis")
     torch.cuda.empty_cache()
     phase_model(torch, np, configs, models, ops, tree)
     lap("model")

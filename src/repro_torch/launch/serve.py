@@ -18,8 +18,16 @@ config's naive decode, or K5 when a caller serves
 mamba2-370m (SSM: K6 prefill, recurrent decode; a prompt longer than one
 128-token chunk must be a whole number of chunks). Runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given; without
-a CUDA device the default raises. The reference's ``--trace`` and
-``--metrics-jsonl`` wait for the port's telemetry slice.
+a CUDA device the default raises.
+
+``--trace`` records phase spans (lockstep: ``prefill``/``decode``;
+continuous: ``admit``/``prefill``/``decode``/``evict``) and writes a
+Chrome trace-event JSON at exit, also when the run fails.
+``--metrics-jsonl`` streams the heartbeat every 0.25 s; in continuous
+mode it carries the ``serve_queue_depth`` and ``serve_active_slots``
+gauges. Neither adds a host sync to the decode step: the spans record
+host time around the dispatch, and the heartbeat reads host counters on
+its own thread.
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
@@ -28,6 +36,8 @@ Examples:
         --continuous --requests 8 --slots 4 --prompt-len 512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \\
         --reduced --device cpu --continuous --requests 16 --slots 4 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
+        --continuous --trace serve_trace.json --metrics-jsonl serve.jsonl
 """
 from __future__ import annotations
 
@@ -42,10 +52,13 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import build_serve_step
 from repro_torch.models import init_policy, policy_prefill
+from repro_torch.telemetry import SpanEmitter, Telemetry
 from repro_torch.utils import get_logger
 from repro_torch.utils.sampling import seeded_generators
 
 log = get_logger("serve")
+
+_PREFILL, _DECODE = 0, 1  # the lockstep demo's span categories
 
 
 def demo_generators(seed: int, device):
@@ -67,19 +80,27 @@ def _sync(device: torch.device) -> None:
 
 
 def run_lockstep(cfg, params, *, batch: int, prompt_len: int, gen: int,
-                 prompt_gen, decode_gen, device) -> dict:
+                 prompt_gen, decode_gen, device, telemetry=None) -> dict:
     """Batched prefill of ``batch`` random prompts, then ``gen`` decode
     steps at the shared positions prompt_len, prompt_len + 1, ...
-    Returns the tokens (batch, gen + 1) and the phase times."""
+    Returns the tokens (batch, gen + 1) and the phase times. With a
+    ``telemetry`` hub each phase is a span on its ``serve`` track."""
     dev = resolve_device(device)
+    cats = ("prefill", "decode")
+    em = (telemetry.emitter("serve", categories=cats)
+          if telemetry is not None else SpanEmitter("serve", categories=cats))
     B, S = batch, prompt_len
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=prompt_gen,
                             device=dev)
     t0 = time.perf_counter()
-    logits, _values, cache = policy_prefill(params, cfg, prompts,
-                                            max_len=S + gen)
-    token = logits[:, -1].argmax(dim=-1)[:, None]
-    _sync(dev)
+    em.begin(_PREFILL)
+    try:
+        logits, _values, cache = policy_prefill(params, cfg, prompts,
+                                                max_len=S + gen)
+        token = logits[:, -1].argmax(dim=-1)[:, None]
+        _sync(dev)
+    finally:
+        em.end()
     t_prefill = time.perf_counter() - t0
     finite = bool(torch.isfinite(logits[:, -1]).all())
     log.info("prefill %.3fs (%.0f tok/s)", t_prefill, B * S / t_prefill)
@@ -88,8 +109,12 @@ def run_lockstep(cfg, params, *, batch: int, prompt_len: int, gen: int,
     toks = [token]
     t0 = time.perf_counter()
     for i in range(gen):
-        token, _value, cache = serve_step(params, cache, token, S + i,
-                                          decode_gen)
+        em.begin(_DECODE)  # the step's dispatch, not its execution
+        try:
+            token, _value, cache = serve_step(params, cache, token, S + i,
+                                              decode_gen)
+        finally:
+            em.end()
         toks.append(token)
     out = torch.cat(toks, dim=1).cpu().numpy()
     dt = time.perf_counter() - t0
@@ -102,17 +127,19 @@ def run_lockstep(cfg, params, *, batch: int, prompt_len: int, gen: int,
 
 def serve_continuous(cfg, params, *, requests: int, slots: int, max_len: int,
                      prompt_lens: Sequence[int], gen_range: Tuple[int, int],
-                     rate_hz: float, seed: int, device) -> dict:
+                     rate_hz: float, seed: int, device,
+                     telemetry=None) -> dict:
     """Serve ``requests`` open-loop requests through the continuous
     scheduler. Returns the requests, the decode step count and the
-    aggregate numbers."""
+    aggregate numbers. With a ``telemetry`` hub the admission queue and
+    the scheduler record onto it (tracks, gauges, the ``steps`` counter)."""
     from repro_torch.pipeline.queue import TrajectoryQueue
     from repro_torch.serving import DecodeEngine, OpenLoopTraffic, Scheduler
 
     engine = DecodeEngine(cfg, params, max_slots=slots, max_len=max_len,
                           device=device)
-    queue = TrajectoryQueue(depth=max(2, 2 * slots))
-    sched = Scheduler(engine, queue, continuous=True)
+    queue = TrajectoryQueue(depth=max(2, 2 * slots), telemetry=telemetry)
+    sched = Scheduler(engine, queue, continuous=True, telemetry=telemetry)
     traffic = OpenLoopTraffic(
         queue, requests, seed=seed, rate_hz=rate_hz, prompt_lens=prompt_lens,
         gen_range=gen_range, vocab=cfg.vocab_size)
@@ -165,27 +192,41 @@ def main(argv=None) -> dict:
     ap.add_argument("--rate", type=float, default=0.0,
                     help="[--continuous] open-loop arrival rate in Hz "
                     "(0 = burst)")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome trace-event JSON of serving spans "
+                    "here (open in Perfetto)")
+    ap.add_argument("--metrics-jsonl", default="",
+                    help="append a JSONL metrics heartbeat here")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    params_gen, prompt_gen, decode_gen = demo_generators(args.seed, device)
-    params = init_policy(cfg, generator=params_gen, device=device)
-
-    if args.continuous:
-        lo = max(1, args.prompt_len // 2)
-        return serve_continuous(
-            cfg, params, requests=args.requests, slots=args.slots,
-            max_len=args.prompt_len + args.gen,
-            prompt_lens=(lo, args.prompt_len),
-            gen_range=(max(1, args.gen // 2), args.gen), rate_hz=args.rate,
-            seed=args.seed, device=device)
-    return run_lockstep(cfg, params, batch=args.batch,
-                        prompt_len=args.prompt_len, gen=args.gen,
-                        prompt_gen=prompt_gen, decode_gen=decode_gen,
-                        device=device)
+    hub = Telemetry()
+    if args.metrics_jsonl:
+        hub.heartbeat_start(args.metrics_jsonl, interval=0.25)
+    try:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+        params_gen, prompt_gen, decode_gen = demo_generators(args.seed,
+                                                             device)
+        params = init_policy(cfg, generator=params_gen, device=device)
+        if args.continuous:
+            lo = max(1, args.prompt_len // 2)
+            return serve_continuous(
+                cfg, params, requests=args.requests, slots=args.slots,
+                max_len=args.prompt_len + args.gen,
+                prompt_lens=(lo, args.prompt_len),
+                gen_range=(max(1, args.gen // 2), args.gen),
+                rate_hz=args.rate, seed=args.seed, device=device,
+                telemetry=hub)
+        return run_lockstep(cfg, params, batch=args.batch,
+                            prompt_len=args.prompt_len, gen=args.gen,
+                            prompt_gen=prompt_gen, decode_gen=decode_gen,
+                            device=device, telemetry=hub)
+    finally:
+        hub.heartbeat_stop()
+        if args.trace:
+            hub.write_trace(args.trace)
 
 
 if __name__ == "__main__":

@@ -33,16 +33,20 @@ SLOT:AFTER[:MODE]`` and ``--fault-stall-learner ITER:SECONDS`` inject
 planned faults, ``--checkpoint-dir``/``--checkpoint-every`` save the full
 pipeline state every so many updates and ``--resume`` restores the newest
 and runs only the remaining iterations; ``--checkpoint DIR`` saves the
-final params (any backend). The synchronous PAAC update computes its
-n-step returns through K1.
+final params (any backend). ``--sanitize locks,transfers`` arms the
+runtime sanitizers (``repro_torch.analysis``) for a ``--pipeline`` run:
+the lock-order monitor, whose cycle or hazard fails the launch, and the
+host-sync guard over the learner's and the device collects' steady
+state. The synchronous PAAC update computes its n-step returns through
+K1.
 
 The parser takes every flag of the reference, with its defaults, plus
 ``--device``. Every ``SystemExit`` of the reference's flag validation comes
 in the reference's order with its text. What the port does not run yet
 raises ``NotImplementedError`` naming its ROADMAP Queue 1 item: the token
 archs and ``--mode synthetic`` (their training pass needs a backward
-through K3 and K6: item 11), ``--sanitize`` (item 13), and ``--mesh`` > 1
-and ``--rollout-plane mesh`` (item 14). So
+through K3 and K6: item 11), and ``--mesh`` > 1 and ``--rollout-plane
+mesh`` (item 14). So
 ``--arch`` defaults to ``paac_vector``, the vector policy acting on the
 raw observations (the reference's default, ``mamba2-370m``, waits for
 item 11).
@@ -64,6 +68,8 @@ Examples:
         --checkpoint-every 10
     PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
         --pipeline --checkpoint-dir ck --resume
+    PYTHONPATH=src python -m repro_torch.launch.train --iterations 100 \\
+        --pipeline --sanitize locks,transfers
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --iterations 4 --n-envs 4
 """
@@ -72,6 +78,9 @@ from __future__ import annotations
 import argparse
 from typing import List, Tuple
 
+from repro_torch.analysis import (disable_sanitizers, enable_sanitizers,
+                                  parse_modes)
+from repro_torch.analysis.lockcheck import monitor
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import PipelineConfig, get_config
 from repro_torch.core.agents import (DQNAgent, DQNConfig, PAACAgent,
@@ -118,6 +127,11 @@ def _refuse_invalid(args) -> None:
         raise SystemExit(
             "--sanitize arms the pipeline backend's runtime sanitizers "
             "(repro.analysis): add --pipeline")
+    if args.sanitize:
+        try:
+            parse_modes(args.sanitize)
+        except ValueError as e:
+            raise SystemExit(f"--sanitize: {e}")
     if args.replay and not args.pipeline:
         raise SystemExit(
             "--replay selects the pipeline's sampled ReplayRing plane: add "
@@ -158,7 +172,6 @@ def _refuse_unported(args) -> None:
         (args.arch != "paac_vector", f"--arch {args.arch} (the token archs' "
          "training pass, which needs a backward through K3 and K6) is item "
          "11"),
-        (args.sanitize, "--sanitize (the runtime sanitizers) is item 13"),
         (args.mesh > 1 or args.rollout_plane == "mesh", "--mesh > 1 and "
          "--rollout-plane mesh (the mesh plane) are item 14"),
     ]
@@ -194,9 +207,39 @@ def _fault_plan(args):
 
 def run_rl(args) -> Tuple[object, List[RunResult]]:
     """Build and run the backend ``args`` select. Returns the backend and
-    one ``RunResult`` an epoch."""
+    one ``RunResult`` an epoch. ``--sanitize`` arms its modes for this
+    call only; with ``locks`` a lock-order cycle or hazard in the run
+    exits non-zero after it."""
     _refuse_invalid(args)
     _refuse_unported(args)
+    modes = parse_modes(args.sanitize)
+    if not modes:
+        return _run_rl(args)
+    enable_sanitizers(modes)
+    monitor().reset()  # the verdict covers this launch
+    log.info("sanitizers armed: %s", ",".join(sorted(modes)))
+    try:
+        out = _run_rl(args)
+    finally:
+        disable_sanitizers(modes)
+    if "locks" in modes:
+        rep = monitor().report()
+        if rep["cycles"] or rep["hazards"]:
+            for cyc in rep["cycles"]:
+                log.error("lockcheck: lock-order cycle %s", " -> ".join(cyc))
+            for h in rep["hazards"]:
+                log.error("lockcheck: %s waited on %s while holding %s",
+                          h["thread"], h["waiting_on"],
+                          ", ".join(h["holding"]))
+            raise SystemExit(
+                f"lockcheck: {len(rep['cycles'])} cycle(s), "
+                f"{len(rep['hazards'])} hazard(s) — see log")
+        log.info("lockcheck: %d lock-order edge(s), no cycles, no hazards",
+                 len(rep["edges"]))
+    return out
+
+
+def _run_rl(args) -> Tuple[object, List[RunResult]]:
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -354,7 +397,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="append a JSONL metrics heartbeat line here every "
                     "tick; pipeline backend only")
     ap.add_argument("--sanitize", default="",
-                    help="runtime sanitizers (ROADMAP Queue 1 item 13)")
+                    help="arm runtime sanitizers (comma-separated: 'locks' "
+                    "= lock-order cycle/hazard detector, 'transfers' = "
+                    "host-sync guard over the steady state and the "
+                    "in-place publish probe); pipeline backend only")
     ap.add_argument("--stall-timeout", type=float, default=0.0,
                     help="stall watchdog window in seconds (0 = off): log "
                     "each party's blocked stage when progress stops; "

@@ -67,6 +67,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.lockcheck import make_condition, make_lock
 from repro_torch.core.rollout import (Transition, behaviour_logp,
                                       make_collect_fn)
 from repro_torch.pipeline.queue import QueueClosed
@@ -126,7 +127,7 @@ class ParamSlot:
     def __init__(self, params: Any, version: int = 0):
         self._params = params
         self._version = version
-        self._cond = threading.Condition()
+        self._cond = make_condition("param_slot.cond")
 
     def publish(self, params: Any, version: int) -> None:
         with self._cond:
@@ -403,7 +404,7 @@ class HostStagingRing:
             for _ in range(n_sets)
         ]
         self.n_sets = n_sets
-        self._cond = threading.Condition()
+        self._cond = make_condition("staging_ring.cond")
 
     def acquire(self, timeout: float = 60.0) -> StagingSet:
         with self._cond:
@@ -551,6 +552,7 @@ class ActorBase(threading.Thread):
         """Ask the actor to exit at its next blocking point (learner died)."""
         self._stop_requested.set()
 
+    # hot-path
     def _put(self, rollout: Rollout) -> bool:
         """Bounded put, interruptible by stop()/close(). Returns False when
         the actor should exit instead of producing more."""
@@ -643,7 +645,7 @@ class ActorThread(ActorBase):
         # matching payload, so the log holds at most the in-flight window
         self._snapshot = snapshot
         self._state_log: dict = {}
-        self._state_lock = threading.Lock()  # actor.state
+        self._state_lock = make_lock("actor.state")
         # (act, env) generator states after the last successful collect (a
         # few KB a rollout on the CPU, 16 bytes a generator on the card): a
         # respawn starts from them, never from this replica's generators,

@@ -91,10 +91,10 @@ def make_dqn_collect_fn(agent, env, t_max: int) -> Callable:
                 rand = draws.rand[t].to(greedy.device, torch.int64)
             action = torch.where(u < eps, rand, greedy)
             value = q.amax(dim=-1)
-            logp = torch.where(
-                action == greedy,
-                torch.tensor(1.0 - eps + eps / n_actions, device=q.device),
-                torch.tensor(eps / n_actions, device=q.device)).log()
+            # Python scalars, not tensors built from them: a tensor made
+            # from a host value on the card is a blocking copy a step
+            logp = torch.where(action == greedy, 1.0 - eps + eps / n_actions,
+                               eps / n_actions).log()
             env_state, next_obs, reward, done = env.step(env_state, action,
                                                          env_generator)
             steps.append((obs, action, reward, done, value, logp))

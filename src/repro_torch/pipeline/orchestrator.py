@@ -94,6 +94,18 @@ of its newest consumed rollout, so a lock-stepped resumed run continues the
 interrupted one bit for bit; elsewhere it is a warm restart (params,
 optimizer state and counters exact, actors carry on from their own state).
 
+The runtime sanitizers ride every run when armed (``repro_torch.
+analysis``, ``REPRO_SANITIZE`` or the trainer's ``--sanitize``): the lock
+sites report to the lock-order monitor, whose verdict the run attaches to
+its hub as the report ``"lockcheck"``; and from iteration 1 the learner's
+get → reserve → update → commit block runs inside ``sanitize.guard`` on
+every plane, as do the device-plane collects from their second call (a
+host sync there raises on the guarded thread), while probes check after
+each update that the publish went into the reserved buffer in place. The
+reference exempts the host plane's learner, whose staged payload is a
+transfer; in torch a copy from page-locked memory is asynchronous, no
+sync, so the port guards it too.
+
 It drives plain ``PAACAgent`` on every plane and ``DQNAgent`` on the
 replay plane, as the reference does; the reference's other agents are
 refused as it refuses them. The reference's mesh plane (ROADMAP Queue 1
@@ -108,6 +120,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize
+from repro_torch.analysis.lockcheck import locks_enabled, monitor
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.configs.base import PipelineConfig
@@ -446,6 +460,9 @@ class PipelinedRL:
 
             return collect
 
+        # the device-plane collects run guarded from their second call (the
+        # first builds kernels and lets cuDNN choose its algorithms)
+        warm = [False]
         if self._dqn:  # the replay plane's ε-greedy collect
             dqn_collect = make_dqn_collect_fn(self.agent, env, t_max)
 
@@ -454,9 +471,11 @@ class PipelinedRL:
                 # lockstep the learner step, as in the synchronous schedule)
                 n = self._actor_seq[i]
                 act_gen, env_gen = key
-                env_state, last_obs, traj = dqn_collect(
-                    params, self._actor_env_state[i], self._actor_obs[i],
-                    act_gen, env_gen, n)
+                with sanitize.guard(active=warm[0]):
+                    env_state, last_obs, traj = dqn_collect(
+                        params, self._actor_env_state[i], self._actor_obs[i],
+                        act_gen, env_gen, n)
+                warm[0] = True
                 self._actor_seq[i] = n + 1
                 self._actor_env_state[i] = env_state
                 self._actor_obs[i] = last_obs
@@ -474,9 +493,12 @@ class PipelinedRL:
 
         def collect(params, key):
             act_gen, env_gen = key
-            env_state, last_obs, traj = collect_fn(
-                params, self._actor_env_state[i], self._actor_obs[i], act_gen,
-                env_gen)
+            # the forced host plane stages to the host below, unguarded
+            with sanitize.guard(active=warm[0] and staging is None):
+                env_state, last_obs, traj = collect_fn(
+                    params, self._actor_env_state[i], self._actor_obs[i],
+                    act_gen, env_gen)
+            warm[0] = True
             self._actor_env_state[i] = env_state
             self._actor_obs[i] = last_obs
             if staging is None:
@@ -787,61 +809,79 @@ class PipelinedRL:
         self._resume_step = None
         step0 = step
         completed = 0
+        # the transfer sanitizer: from iteration 1 (iteration 0 builds the
+        # kernels and lets cuDNN choose) the get → reserve → update → commit
+        # block takes no host sync but at named edges; the bookkeeping
+        # after it (metrics, priorities, checkpoints) reads on the host by
+        # design and stays outside
+        san = sanitize.transfers_enabled()
         try:
             with on_stream(learner_stream):
                 for i in range(iterations):
                     if injector is not None:
                         injector.stall_learner(i)
-                    learner_em.begin(QUEUE_GET_WAIT)
-                    try:
-                        payload = ring.get()
-                    finally:
-                        learner_em.end()
-                    if payload is CLOSED:  # an actor died early
-                        break
-                    assert isinstance(payload, Rollout)
-                    adopt(payload, learner_stream)
-                    # claim the stale ping-pong buffer; bounded by one
-                    # in-flight collect (actors release before blocking on
-                    # the ring), so a long wait means an actor died holding
-                    # its lease: raise, naming the holder, instead of hanging
-                    learner_em.begin(LEASE)
-                    try:
-                        deadline = time.monotonic() + cfg.lease_timeout_s
-                        while True:
-                            publish_dst = slot.reserve(i + 1, timeout=1.0)
-                            if publish_dst is not None:
-                                break
-                            live = (sup.all_actors() if sup is not None
-                                    else actors)
-                            if not any(a.is_alive() for a in live):
-                                raise RuntimeError("param lease never "
-                                                   "released (all actors "
-                                                   "exited)")
-                            if time.monotonic() >= deadline:
-                                held = ", ".join(slot.holders((i + 1) % 2))
-                                raise RuntimeError(
-                                    f"param buffer {(i + 1) % 2} still "
-                                    f"leased after lease_timeout_s="
-                                    f"{cfg.lease_timeout_s:g}s — held by "
-                                    f"{held or 'an unknown party'}")
-                    finally:
-                        learner_em.end()
-                    learner_em.begin(LEARNER_UPDATE)
-                    try:
-                        traj, last_obs = payload.traj, payload.last_obs
-                        if self._plane == "host":  # on the learner's stream
-                            traj, last_obs = to_device(traj, last_obs,
-                                                       self.device)
-                        published, metrics = self._apply_update(
-                            traj, last_obs, step, publish_dst)
-                    finally:
-                        learner_em.end()
-                    learner_em.begin(PUBLISH)
-                    try:
-                        slot.commit(published, i + 1)
-                    finally:
-                        learner_em.end()
+                    with sanitize.guard(active=san and i > 0):
+                        learner_em.begin(QUEUE_GET_WAIT)
+                        try:
+                            payload = ring.get()
+                        finally:
+                            learner_em.end()
+                        if payload is CLOSED:  # an actor died early
+                            break
+                        assert isinstance(payload, Rollout)
+                        adopt(payload, learner_stream)
+                        # claim the stale ping-pong buffer; bounded by one
+                        # in-flight collect (actors release before blocking
+                        # on the ring), so a long wait means an actor died
+                        # holding its lease: raise, naming the holder,
+                        # instead of hanging
+                        learner_em.begin(LEASE)
+                        try:
+                            deadline = time.monotonic() + cfg.lease_timeout_s
+                            while True:
+                                publish_dst = slot.reserve(i + 1, timeout=1.0)
+                                if publish_dst is not None:
+                                    break
+                                live = (sup.all_actors() if sup is not None
+                                        else actors)
+                                if not any(a.is_alive() for a in live):
+                                    raise RuntimeError(
+                                        "param lease never released (all "
+                                        "actors exited)")
+                                if time.monotonic() >= deadline:
+                                    held = ", ".join(slot.holders((i + 1) % 2))
+                                    raise RuntimeError(
+                                        f"param buffer {(i + 1) % 2} still "
+                                        f"leased after lease_timeout_s="
+                                        f"{cfg.lease_timeout_s:g}s — held by "
+                                        f"{held or 'an unknown party'}")
+                        finally:
+                            learner_em.end()
+                        prev_params = self.params
+                        learner_em.begin(LEARNER_UPDATE)
+                        try:
+                            traj, last_obs = payload.traj, payload.last_obs
+                            if self._plane == "host":  # the learner's stream
+                                traj, last_obs = to_device(traj, last_obs,
+                                                           self.device)
+                            published, metrics = self._apply_update(
+                                traj, last_obs, step, publish_dst)
+                        finally:
+                            learner_em.end()
+                        learner_em.begin(PUBLISH)
+                        try:
+                            slot.commit(published, i + 1)
+                        finally:
+                            learner_em.end()
+                    if san:
+                        # the in-place probes: the publish is the reserved
+                        # buffer itself, leaf by leaf; the learner's own
+                        # params are replaced wholesale (never half)
+                        sanitize.assert_deleted(
+                            publish_dst, "reserved publish buffer",
+                            into=published)
+                        sanitize.assert_uniformly_deleted(
+                            prev_params, "learner params", into=self.params)
                     step += 1
                     self.total_steps += self._steps_per_iter
                     completed += 1
@@ -888,7 +928,8 @@ class PipelinedRL:
                             self._save_checkpoint(ring, step0 + completed)
                     # drop the payload now, not at the next get: its memory
                     # returns to the allocator while the learner waits
-                    del payload, publish_dst, published, traj, last_obs
+                    del (payload, publish_dst, published, traj, last_obs,
+                         prev_params)
                     if log_every and (i + 1) % log_every == 0:
                         # fold only the already-executed updates: never sync
                         # the learner for a log line
@@ -936,6 +977,10 @@ class PipelinedRL:
                 caller.wait_stream(learner_stream)
                 for s in self._actor_streams:
                     caller.wait_stream(s)
+            # the run's lock-order verdict, attached to the hub (and so to
+            # the trace) on every exit path, for the trainer to fail on
+            if locks_enabled():
+                hub.report("lockcheck", monitor().report())
             hub.stop()
             # the gauge's last reading, not the ring: a hub kept on self
             # must not keep a replay ring's rollouts alive after the run
@@ -976,10 +1021,11 @@ class PipelinedRL:
         per_actor_idle = [a.put_wait_s + a.wait_s for a in actors]
         # the end-of-run drain reads every stashed device scalar: the one
         # intended device-to-host sync of the run
-        return acc.result(self.total_steps, self._steps_per_iter,
-                          actor_idle_s=sum(per_actor_idle),
-                          learner_idle_s=ring.get_wait_s,
-                          per_actor_idle_s=per_actor_idle)
+        with sanitize.allowed("metrics drain"):
+            return acc.result(self.total_steps, self._steps_per_iter,
+                              actor_idle_s=sum(per_actor_idle),
+                              learner_idle_s=ring.get_wait_s,
+                              per_actor_idle_s=per_actor_idle)
 
     # -- teardown ------------------------------------------------------------
     def close(self) -> None:

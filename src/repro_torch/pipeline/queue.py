@@ -17,18 +17,19 @@ stdlib ``queue.Queue``:
   raises ``QueueClosed`` promptly, and the consumer sees ``CLOSED`` after
   draining.
 
-The reference's lock-order sanitizer (``make_condition``) and its check
-that no mesh-sharded JAX array rides the host queue have no counterpart
-here: this queue uses a plain ``threading.Condition``.
+The condition is the lock-order sanitizer's site ``queue.cond``
+(``repro_torch.analysis.lockcheck``). The reference's check that no
+mesh-sharded JAX array rides the host queue waits with the mesh plane
+(ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 
 import queue as _queue
-import threading
 import time
 from collections import deque
 from typing import Any, Optional
 
+from repro_torch.analysis.lockcheck import make_condition
 from repro_torch.telemetry.spans import (QUEUE_GET_WAIT, QUEUE_PUT_WAIT,
                                          SpanEmitter)
 
@@ -56,7 +57,7 @@ class TrajectoryQueue:
             raise ValueError(f"producers must be >= 1, got {producers}")
         self.depth = depth
         self._items: deque = deque()
-        self._cond = threading.Condition()
+        self._cond = make_condition("queue.cond")
         self._producers_left = producers
         self._closed = False
         # span-derived idle accounting, registered with the run's hub when

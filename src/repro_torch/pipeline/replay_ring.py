@@ -56,20 +56,21 @@ feeds TD errors back for the tickets ``last_sampled`` reports.
 On the card, a part of a concatenated batch was written on its actor's
 stream: ``get`` makes the consumer's stream wait for it and
 ``record_stream``s it there (``adopt``) before the concatenation. The
-reference guards its condition with the lock-order sanitizer and its draw
-with ``sanitize.allowed``; the port uses a plain ``threading.Condition``
-until those are ported.
+condition is the lock-order sanitizer's site ``replay_ring.cond``, and the
+draw is the sanitizer's named edge ``"replay sample draw"``
+(``repro_torch.analysis``).
 """
 from __future__ import annotations
 
 import queue as _queue
-import threading
 import time
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize
+from repro_torch.analysis.lockcheck import make_condition
 from repro_torch.core.rollout import Transition
 from repro_torch.pipeline.queue import CLOSED, QueueClosed
 from repro_torch.pipeline.ring import _assert_on_device, adopt
@@ -133,7 +134,7 @@ class ReplayRing:
         self._tail = 0  # next ticket to issue (total accepted puts)
         self._evict_head = 0  # oldest resident ticket (evictions advance it)
         self._consumed = 0  # tickets consumed by get() (pacing counter)
-        self._cond = threading.Condition()
+        self._cond = make_condition("replay_ring.cond")
         self._producers_left = producers
         self._closed = False
         # tickets drawn by the most recent get()/sample(): the learner's
@@ -179,6 +180,7 @@ class ReplayRing:
             return list(range(self._evict_head, self._tail))
 
     # -- producer side -------------------------------------------------------
+    # hot-path
     def put(self, item: Any, timeout: Optional[float] = None) -> None:
         """Deposit a rollout on the ring's device; never blocks.
 
@@ -230,21 +232,25 @@ class ReplayRing:
         residents = [self._slots[t % self.capacity]
                      for t in range(self._evict_head, self._tail)]
         n = len(residents)
-        if idx is not None:
-            idx = [int(i) for i in idx]
-            if any(not 0 <= i < n for i in idx):
-                raise IndexError(f"replay draw {idx} outside the {n} "
-                                 "resident slots")
-        elif self.prioritized:
-            prios = torch.tensor([s.priority for s in residents],
-                                 dtype=torch.float64)
-            if float(prios.sum()) <= 0.0:  # all-zero degrades to uniform
-                prios = torch.ones(n, dtype=torch.float64)
-            idx = torch.multinomial(prios, batch_size, replacement=True,
+        # the intended host edge of a sampled get: the indices are drawn and
+        # land on the host, where the slot table lives (and the sample
+        # path's one named edge: get and sample both draw here)
+        with sanitize.allowed("replay sample draw"):
+            if idx is not None:
+                idx = [int(i) for i in idx]
+                if any(not 0 <= i < n for i in idx):
+                    raise IndexError(f"replay draw {idx} outside the {n} "
+                                     "resident slots")
+            elif self.prioritized:
+                prios = torch.tensor([s.priority for s in residents],
+                                     dtype=torch.float64)
+                if float(prios.sum()) <= 0.0:  # all-zero: uniform
+                    prios = torch.ones(n, dtype=torch.float64)
+                idx = torch.multinomial(prios, batch_size, replacement=True,
+                                        generator=generator).tolist()
+            else:
+                idx = torch.randint(0, n, (batch_size,),
                                     generator=generator).tolist()
-        else:
-            idx = torch.randint(0, n, (batch_size,),
-                                generator=generator).tolist()
         return [residents[i] for i in idx]
 
     def sample(self, generator: torch.Generator,

@@ -31,13 +31,13 @@ The reference's ``MeshTrajectoryRing`` waits for ROADMAP Queue 1 item 14.
 from __future__ import annotations
 
 import queue as _queue
-import threading
 import time
 from typing import Any, Iterator, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.analysis.lockcheck import make_condition
 from repro_torch.pipeline.queue import CLOSED, QueueClosed
 from repro_torch.telemetry.spans import (QUEUE_GET_WAIT, QUEUE_PUT_WAIT,
                                          SpanEmitter)
@@ -127,7 +127,7 @@ class DeviceTrajectoryRing:
         self._slots: List[_Slot] = [_Slot() for _ in range(depth)]
         self._tail = 0  # next ticket to issue (producer side)
         self._head = 0  # next ticket to consume (learner side)
-        self._cond = threading.Condition()
+        self._cond = make_condition("ring.cond")
         self._producers_left = producers
         self._closed = False
         # span-derived idle accounting: every put/get records its full
@@ -148,6 +148,7 @@ class DeviceTrajectoryRing:
         return self.span_emitter.total(QUEUE_GET_WAIT)
 
     # -- producer side -------------------------------------------------------
+    # hot-path
     def put(self, item: Any, timeout: Optional[float] = None) -> None:
         """Deposit a payload that lives on the ring's device into the next
         free slot.
@@ -180,6 +181,7 @@ class DeviceTrajectoryRing:
             self.span_emitter.record(QUEUE_PUT_WAIT, t0)
 
     # -- consumer side -------------------------------------------------------
+    # hot-path
     def get(self, timeout: Optional[float] = None) -> Any:
         """Take the oldest full slot's payload, transferring ownership.
 

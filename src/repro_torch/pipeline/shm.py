@@ -40,9 +40,10 @@ attach by name and only ever ``close`` their mappings. Attach-side
 mappings are untracked (``_attach``) so a child's exit cannot tear down
 segments the parent still serves from.
 
-The reference guards its condition with the lock-order sanitizer
-(``make_condition("shm.param_slot")``); the port uses the plain
-``ctx.Condition()`` until that sanitizer is ported.
+The slot's ``mp`` condition is the lock-order sanitizer's site
+``shm.param_slot`` (``make_condition`` with ``inner=ctx.Condition()``):
+the parent's acquisitions land in its graph, and a wrapper shipped to a
+child feeds the child's own, unreported monitor.
 """
 from __future__ import annotations
 
@@ -54,6 +55,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.lockcheck import make_condition
 from repro_torch.core.rollout import Transition
 from repro_torch.device import resolve_device
 from repro_torch.pipeline.actor import staging_fields
@@ -224,7 +226,7 @@ class ShmParamSlot:
         self._shms = [shared_memory.SharedMemory(create=True, size=nbytes)
                       for _ in range(2)]
         self._bufs = [_views(s, fields, self._offsets) for s in self._shms]
-        self._cond = ctx.Condition()
+        self._cond = make_condition("shm.param_slot", inner=ctx.Condition())
         self._version = ctx.Value("q", version, lock=False)
         self._readers = [ctx.Value("i", 0, lock=False) for _ in range(2)]
         # lease counts a reader, parallel to _readers: lease slot j is

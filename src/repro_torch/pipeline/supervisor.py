@@ -39,18 +39,16 @@ subsequent globally-sharded batch unassemblable, so respawn-into-a-fresh-
 epoch cannot preserve its semantics. ``PipelineConfig`` rejects the
 combination; the mesh plane stays fail-fast (see docs/fault_tolerance.md).
 
-The reference builds its condition and lock with
-``repro.analysis.lockcheck``'s ``make_condition``/``make_lock``; until the
-port has that module (ROADMAP Queue 1 item 13) they are plain
-``threading.Condition()``/``Lock()`` (the sites ``quota_ledger.cond`` and
-``supervisor.lock``).
+The ledger's condition and the supervisor's lock are the lock-order
+sanitizer's sites ``quota_ledger.cond`` and ``supervisor.lock``
+(``repro_torch.analysis.lockcheck``).
 """
 from __future__ import annotations
 
-import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from repro_torch.analysis.lockcheck import make_condition, make_lock
 from repro_torch.pipeline.faults import InjectedActorFault
 from repro_torch.telemetry.spans import (FAULT_DETECT, FAULT_GIVEUP,
                                          FAULT_RESPAWN)
@@ -74,7 +72,7 @@ class QuotaLedger:
     """
 
     def __init__(self, total: int):
-        self._cond = threading.Condition()  # quota_ledger.cond
+        self._cond = make_condition("quota_ledger.cond")
         self._outstanding = int(total)
         self._unassigned = 0
         self._aborted = False
@@ -150,7 +148,7 @@ class ActorSupervisor:
         # locked: episodes can fire from several dying threads at once
         self._em = (telemetry.emitter("supervisor", locked=True)
                     if telemetry is not None else None)
-        self._lock = threading.Lock()  # supervisor.lock
+        self._lock = make_lock("supervisor.lock")
         self._actors: List = []
         self._attempts: Dict[int, int] = {}  # slot -> respawns so far
         self._next_id = 0

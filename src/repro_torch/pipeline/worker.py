@@ -64,8 +64,8 @@ fresh child with a fresh shm estate and a generator seeded from
 ``SeedSequence([seed, slot, epoch])``. Retired staging sets may still back
 payloads in flight, so they are unlinked only at ``close``.
 
-The reference's ``sanitize.allowed`` guard around the publish waits for
-ROADMAP Queue 1 item 13.
+The publish's copy to shared memory is the transfer sanitizer's named
+edge ``"shm param publish"`` (``repro_torch.analysis.sanitize``).
 """
 from __future__ import annotations
 
@@ -80,6 +80,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.envs.host_env import HostEnvSpec
 from repro_torch.pipeline.actor import ActorBase, Rollout, _copy_tree
 from repro_torch.pipeline.shm import ShmParamSlot, ShmStagingSet
@@ -415,13 +416,16 @@ class _ShmSlotBridge:
     def commit(self, published: Any, version: int) -> None:
         self._bufs[version % 2] = published
         if self._emitter is None:
-            self._shm.commit(published, version)
+            with sanitize.allowed("shm param publish"):
+                self._shm.commit(published, version)
             return
         # the one D2H param copy an update the process plane costs: its
-        # own shm.copy span on the publish track
+        # own shm.copy span on the publish track, and an intended host sync,
+        # so it escapes the learner loop's guard
         self._emitter.begin(SHM_COPY)
         try:
-            self._shm.commit(published, version)
+            with sanitize.allowed("shm param publish"):
+                self._shm.commit(published, version)
         finally:
             self._emitter.end()
 

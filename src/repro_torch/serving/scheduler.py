@@ -24,9 +24,12 @@ deferred into the request's ``_free`` closure (the ring's
 request.
 
 Telemetry: the scheduler's emitter uses the serving category table
-``("admit", "prefill", "decode", "evict")``; the reference's hub gauges
-and trace export wait for the port's telemetry slice. The decode step is ``# hot-path``: no host syncs between
-steps (completion is length-based; tokens materialize only at retire).
+``("admit", "prefill", "decode", "evict")`` — same ``SpanEmitter``
+machinery as the pipeline, custom vocabulary — and, given a ``Telemetry``
+hub, registers ``serve_queue_depth`` / ``serve_active_slots`` gauges on
+the hub's heartbeat and counts decode ``steps``. The decode step is
+``# hot-path``: no host syncs between steps (completion is length-based;
+tokens materialize only at retire), which the linter holds.
 """
 from __future__ import annotations
 
@@ -52,12 +55,22 @@ class Scheduler:
     """Drive one engine from one admission queue until both drain."""
 
     def __init__(self, engine, queue, *, continuous: bool = True,
-                 name: str = "serve"):
+                 telemetry=None, name: str = "serve"):
         self.engine = engine
         self.queue = queue
         self.continuous = continuous
         self.slots = KVSlotCache(engine.max_slots)
-        self.em = SpanEmitter(name, categories=SERVE_CATEGORIES)
+        self._hub = telemetry
+        if telemetry is not None:
+            self.em = telemetry.emitter(name, categories=SERVE_CATEGORIES)
+            telemetry.set_gauge("serve_queue_depth", queue.qsize)
+            # the gauge holds the slot cache, not the scheduler: a hub kept
+            # past the run must not keep the engine and its params alive
+            slots = self.slots
+            telemetry.set_gauge("serve_active_slots",
+                                lambda: slots.active_count)
+        else:
+            self.em = SpanEmitter(name, categories=SERVE_CATEGORIES)
         self._active: Dict[int, Request] = {}  # slot -> request
         self.completed: List[Request] = []
         self.admit_order: List[int] = []  # rids, FIFO-fairness pin
@@ -152,6 +165,8 @@ class Scheduler:
                 self.slots.assert_owner(slot, req.rid)
                 req.n_live += 1
             self.steps += 1
+            if self._hub is not None:
+                self._hub.counter_add("steps", 1)
         finally:
             self.em.end()
 

@@ -33,9 +33,10 @@ never implicitly.
 """
 from __future__ import annotations
 
-import threading
 from collections import deque
 from typing import Any, Deque, List, Optional
+
+from repro_torch.analysis.lockcheck import make_condition
 
 
 class SlotError(RuntimeError):
@@ -58,7 +59,7 @@ class KVSlotCache:
         if capacity < 1:
             raise ValueError(f"slot capacity must be >= 1, got {capacity}")
         self.capacity = capacity
-        self._cond = threading.Condition()
+        self._cond = make_condition("slots.cond")
         self._owner: List[Optional[Any]] = [None] * capacity
         self._free: Deque[int] = deque(range(capacity))
         self._closed = False

@@ -14,7 +14,10 @@ actor plane: one spawned worker acting on the card in lockstep ≡ the
 thread host plane bitwise, two workers through K2, nothing left behind;
 fault tolerance: kill and resume ≡ uninterrupted, bitwise, through K1 and
 through K2, and a process worker's hard exit respawned with the run's
-quota complete.
+quota complete; the analysis plane: a guarded thread's host sync refused
+while another thread's passes, the sanitized lockstep pipeline sync-free
+and bitwise the unsanitized one through K1 and K2, and ``serve --trace
+--metrics-jsonl`` through K3 and K4.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one. This file imports no JAX, so it also runs on a machine that has
@@ -898,3 +901,113 @@ def test_process_exit_respawn_on_the_card_completes_its_quota(cuda):
     assert len(plane._graveyard) == 1
     assert not any(w.proc.is_alive() for w in plane._handles())
     assert not set(segs) & set(os.listdir("/dev/shm"))
+
+
+@pytest.fixture
+def sanitizers():
+    """The sanitizers off and their state clean before and after."""
+    from repro_torch.analysis import disable_sanitizers, sanitize
+    from repro_torch.analysis.lockcheck import monitor
+
+    disable_sanitizers()
+    monitor().reset()
+    sanitize.reset_stats()
+    yield sanitize
+    disable_sanitizers()
+    monitor().reset()
+    sanitize.reset_stats()
+
+
+@pytest.mark.cuda
+def test_a_guarded_threads_sync_raises_while_anothers_passes(cuda,
+                                                            sanitizers):
+    """Torch's sync mode is one setting of the process; the guard's verdict
+    is per thread: a guarded ``.item()`` raises at its line while another
+    thread's ``.cpu()`` passes; ``allowed`` absorbs it; off is free."""
+    import threading
+
+    from repro_torch.analysis import disable_sanitizers, enable_sanitizers
+
+    san = sanitizers
+    x = torch.arange(8.0, device=cuda)
+    with san.guard():
+        x.sum().item()  # off: a no-op scope
+    enable_sanitizers("transfers")
+    with pytest.raises(san.HostSyncViolation, match="[Dd]isallow"):
+        with san.guard():
+            x.sum().item()
+    with san.guard():
+        with san.allowed("test edge"):
+            x.cpu()
+    seen = {}
+    t = threading.Thread(target=lambda: seen.update(
+        mode=torch.cuda.get_sync_debug_mode(), host=x.cpu()))
+    t.start()
+    t.join(timeout=30)
+    assert seen["mode"] == 1 and torch.equal(seen["host"], x.cpu())
+    assert san.host_syncs["refused"] == 1 and san.edge_stats["test edge"][1]
+    disable_sanitizers()
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip,kernel", [(1.0, "vtrace_returns"),
+                                         (float("inf"), "nstep_returns")])
+def test_the_sanitized_pipeline_on_the_card_is_sync_free_and_bitwise(
+        cuda, sanitizers, clip, kernel, monkeypatch):
+    """Lockstep at depth 1 under ``locks,transfers`` on the card: no host
+    sync in the guarded steady state, a probe of every update, a clean
+    lock-order report, and bitwise the unsanitized run (cuDNN
+    deterministic)."""
+    from repro_torch.analysis import disable_sanitizers, enable_sanitizers
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    san = sanitizers
+    runs = []
+    for modes in ("", "locks,transfers"):
+        disable_sanitizers()
+        if modes:
+            enable_sanitizers(modes)
+        prl, res, launches, _ = _pipelined(cuda, 6, queue_depth=1,
+                                           lockstep=True, rho_bar=clip,
+                                           c_bar=clip)
+        assert launches[kernel] == 6
+        runs.append((res, prl))
+    (ra, a), (rb, b) = runs
+    assert ra.mean_metrics == rb.mean_metrics
+    for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        assert torch.equal(x, y)
+    assert san.stats["guarded"] == 5 + 5 and san.stats["probed"] == 12
+    assert san.host_syncs["refused"] == 0
+    rep = b.telemetry.reports["lockcheck"]
+    assert rep["cycles"] == [] and rep["hazards"] == []
+
+
+@pytest.mark.cuda
+def test_serve_trace_on_the_card(cuda, tmp_path):
+    """``serve --trace --metrics-jsonl`` on the card: the serving spans and
+    gauges, K3 a layer a prefill and K4 a layer a decode step, and the
+    tokens of the same call without the observers."""
+    import json
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "qwen2-7b", "--reduced", "--continuous", "--requests",
+            "4", "--slots", "2", "--prompt-len", "32", "--gen", "8"]
+    plain = serve.main(argv)
+    ops.reset_launches()
+    res = serve.main(argv + ["--trace", str(tmp_path / "t.json"),
+                             "--metrics-jsonl", str(tmp_path / "m.jsonl")])
+    L = get_config("qwen2-7b").reduced().num_layers
+    assert ops.launches["flash_attention"] == L * res["admitted"]
+    assert ops.launches["decode_attention"] == L * res["steps"]
+    assert [r.tokens.tolist() for r in sorted(res["requests"],
+                                              key=lambda r: r.rid)] == [
+        r.tokens.tolist() for r in sorted(plain["requests"],
+                                          key=lambda r: r.rid)]
+    events = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+    assert {"admit", "prefill", "decode"} <= {e["name"] for e in events}
+    assert any("serve_queue_depth" in json.loads(x) for x in
+               (tmp_path / "m.jsonl").read_text().splitlines())

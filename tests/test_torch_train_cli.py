@@ -8,7 +8,8 @@
   reference's order with the reference's text: each case below goes
   through both ``run_rl``s, several with more than one fault at once.
 * Each flag the port does not run raises ``NotImplementedError`` naming
-  its ROADMAP Queue 1 item (11, 13 or 14).
+  its ROADMAP Queue 1 item (11 or 14). ``--sanitize`` runs
+  (``tests/test_torch_analysis.py`` holds its legs).
 * ``--device cpu`` runs the three ported legs (PAAC synchronous,
   ``--pipeline`` and ``--algo dqn``) on the reference's ``TokenEnv``
   setting, the ``--host-env`` legs (synchronous and ``--pipeline``, with
@@ -121,7 +122,6 @@ UNPORTED = [
     (["--arch", "qwen2-7b"], "item 11"),
     (["--arch", "mamba2-370m", "--reduced"], "item 11"),
     (["--mode", "synthetic"], "item 11"),
-    (["--pipeline", "--sanitize", "locks"], "item 13"),
     (["--pipeline", "--mesh", "2"], "item 14"),
     (["--pipeline", "--rollout-plane", "mesh"], "item 14"),
 ]
