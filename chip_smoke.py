@@ -44,28 +44,32 @@ paths:
               one-actor pipeline's, (5, 8), (5, 256), (64, 4096) and
               (4096, 256);
 3. kernels  — K3 and K4 against their plain versions on the card, at the
-              serving path's shapes and at the widths the TPU kernels
+              serving paths' shapes and at the widths the TPU kernels
               take (K3 q/k and v 112/112 and 192/128, causal, ragged S,
-              windowed; K4 at D = 112, v narrower and wider than k,
-              per-row pos from 0 to S - 1, S not a multiple of K4's split),
-              in fp32 (atol 1e-4) and bf16
-              (|err| <= 2e-2 + 2e-2 |ref| against the plain version in
-              fp32 on the same bf16 inputs), with CUDA-event times of the
-              kernel, the plain version and scaled_dot_product_attention
-              (a yardstick only) for K3 at qwen2-7b's prefill and K4 at
-              W=8 S=1024 and at the serving decode step (W=4 S=544, pos
-              256-264); then K3 at MLA prefill's shape (B=1
-              S=512 H=40, q/k 96 wide, v 64), K5 at minicpm3-4b's decode
-              shape (W=4 S=544 H=40 R=256 Rr=32, per-row and scalar pos;
-              yardstick: SDPA on (q_lat || q_rope) against (c || kr) with
-              v = c) and at the split design's edges (K5_EDGES: R = 512
-              with H = 128, H = 1 and 17, S = 1, 63, 65, pos past the
-              capacity, negative pos giving zeros), and K6 at mamba2-370m's
-              prefill shape (B=1 S=512 H=32 P=64 N=128, chunk 128; y and
-              the final state, fp32 within 1e-4 + 1e-4 |ref|; no single
-              PyTorch call computes it) and at K6_EDGES (every N, chunks
-              7, 32, 100, 128, two rows), with the same tolerances and
-              times;
+              windowed, dbrx-132b's 48/8 heads and deepseek-v2-236b's
+              full 128 MLA heads; K4 at D = 112, v narrower and wider
+              than k, per-row pos from 0 to S - 1, S not a multiple of
+              K4's split, 16 (glm4-9b, K4's GMAX), 6 (dbrx-132b) and 7
+              (deepseek-coder-33b) query heads a KV head), in fp32 (atol
+              1e-4) and bf16 (|err| <= 2e-2 + 2e-2 |ref| against the
+              plain version in fp32 on the same bf16 inputs), with
+              CUDA-event times of the kernel, the plain version and
+              scaled_dot_product_attention (a yardstick only) for K3 at
+              the 512-token prefills of qwen2-7b, dbrx-132b and
+              deepseek-v2-236b and K4 at W=8 S=1024 and at the serving
+              decode steps of qwen2-7b and dbrx-132b (W=4 S=544, pos
+              256-264); then K3 at MLA prefill's shape (B=1 S=512 H=40,
+              q/k 96 wide, v 64), K5 at the decode shapes of minicpm3-4b
+              (W=4 S=544 H=40 R=256 Rr=32) and deepseek-v2-236b (H=128
+              R=512 Rr=64), per-row and scalar pos (yardstick: SDPA on
+              (q_lat || q_rope) against (c || kr) with v = c), and at the
+              split design's edges (K5_EDGES: R = 512 with H = 128, H = 1
+              and 17, S = 1, 63, 65, pos past the capacity, negative pos
+              giving zeros), and K6 at mamba2-370m's prefill shape (B=1
+              S=512 H=32 P=64 N=128, chunk 128; y and the final state,
+              fp32 within 1e-4 + 1e-4 |ref|; no single PyTorch call
+              computes it) and at K6_EDGES (every N, chunks 7, 32, 100,
+              128, two rows), with the same tolerances and times;
 4. rl_model — paac_nature at full size in fp32, one set of weights on the
               CPU and on the card: logits and values of 32 frames agree
               within 1e-4, and one PAAC update on the same replayed
@@ -238,38 +242,54 @@ paths:
               turns (K3, K4): tokens bitwise equal, the trace's admit,
               prefill and decode spans, at least 2 heartbeat lines with
               ``serve_queue_depth``, tok/s and p50/p99 on and off;
-6. model    — reduced qwen2-7b, minicpm3-4b (absorbed and naive decode)
-              and mamba2-370m in fp32, one set of weights on the CPU
+6. model    — reduced qwen2-7b, glm4-9b, deepseek-coder-33b, minicpm3-4b
+              (absorbed and naive decode), mamba2-370m, dbrx-132b and
+              deepseek-v2-236b (absorbed and naive; both MoE trunks at
+              capacity factor 16) in fp32, one set of weights on the CPU
               (plain versions) and on the card (kernels): prefill and
               four decode steps (per-row and scalar pos) must agree within
               1e-4 on the logits, and each kernel of the path must launch
               once a layer a call, every other kernel never;
-7. serving  — three cells, each at full width and depth with random bf16
-              weights from a seed: qwen2-7b (28 layers, d_model 3584;
-              K3 prefill, K4 decode), minicpm3-4b with the absorbed decode
+7. serving  — five cells, each at full width with random bf16 weights
+              from a seed: qwen2-7b (28 layers, d_model 3584; K3
+              prefill, K4 decode), minicpm3-4b with the absorbed decode
               (62 layers, d_model 2560, MLA; K3 prefill with q/k 96 and v
-              64 wide, K5 decode) and mamba2-370m (48 layers, d_model
-              1024; K6 prefill, recurrent decode in plain PyTorch). Each:
-              8 requests over 4 slots, prompts of 128 to 512 tokens (whole
-              128-token chunks for mamba2), 16 to 32 new tokens each,
-              burst arrival, through the port's continuous-batching entry
-              point after a warm-up; every request must finish with tokens
-              in [0, vocab), the prefill kernel must launch once a layer
-              per admitted request, the decode kernel once a layer per
-              decode step and every other kernel never, and one request
-              rerun alone on a fresh engine must give bitwise the same
-              tokens; a torch.profiler window of 8 decode steps gives the
-              device-busy share of a step and the decode kernel's share
-              of it, one of 3 prefills of 512 tokens the prefill's device
-              time and the prefill kernel's share; then the lockstep
-              demo, whose decode runs with a scalar position.
+              64 wide, K5 decode), mamba2-370m (48 layers, d_model 1024;
+              K6 prefill, recurrent decode in plain PyTorch), and the MoE
+              cells at the depth one card holds: deepseek-v2-236b (8 of
+              60 layers: the dense first layer and 7 MoE layers of 160
+              experts, top-6, 2 shared; MLA with the absorbed decode; K3
+              with q/k 192 and v 128, K5 at R 512) and dbrx-132b (8 of 40
+              layers, 16 experts, top-4; K3, K4). Each: the peak memory
+              of the init beside the parameters' bytes (at most 12 GB
+              over), 8 requests over 4 slots, prompts of 128 to 512
+              tokens (whole 128-token chunks for mamba2), 16 to 32 new
+              tokens each, burst arrival, through the port's
+              continuous-batching entry point after a warm-up; every
+              request must finish with tokens in [0, vocab), the prefill
+              kernel must launch once a layer per admitted request, the
+              decode kernel once a layer per decode step and every other
+              kernel never, and one request rerun alone on a fresh engine
+              must give bitwise the same tokens (an MoE cell: on a second
+              continuous call at capacity factor E / k, where no
+              assignment can drop, after the timed one at the published
+              1.25; and an admit and a decode step under the transfers
+              guard with no host sync, and the share of a step's
+              assignments dropped at 1.25); a torch.profiler window of 8
+              decode steps gives the device-busy share of a step and the
+              decode kernel's share of it (an MoE cell: also its MoE
+              layers alone, CUDA events, beside the bound of reading
+              their weights), one of 3 prefills of 512 tokens the
+              prefill's device time and the prefill kernel's share; then
+              the lockstep demo, whose decode runs with a scalar
+              position.
 
 TF32 is off for matmuls and convolutions throughout. The line before the
 last is a JSON object with each kernel's numbers and its launches on each
 main path (training, pipeline, agents, train cli, host sync, host
 pipeline, host train cli, host process, host process train cli, replay,
 replay train cli, faults, faults train cli, the analysis legs and the
-three serving cells, each read with the counts set to 0 just before it);
+five serving cells, each read with the counts set to 0 just before it);
 the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
 phase fails, it exits non-zero and prints no result. ``--trace-dir DIR``
@@ -547,26 +567,39 @@ def sass_loads(build, name: str, kernel: str) -> None:
     say("card", f"{name} SASS {kernel} LDG -> first reader: " + "; ".join(consumers))
 
 
-FLASH_SWEEP = (  # (B, S, H, Hkv, D, Dv, window), causal
-    (1, 512, 28, 4, 128, 128, 0),  # qwen2-7b's prefill (timed in bf16)
-    (1, 77, 28, 4, 128, 128, 0),   # ragged S
-    (1, 512, 28, 4, 128, 128, 100),
-    (1, 333, 16, 4, 112, 112, 0),  # zamba2-7b's width, ragged S
-    (1, 200, 16, 4, 112, 112, 64),
-    (1, 130, 16, 16, 192, 128, 0),  # deepseek-v2's MLA prefill, ragged S
-    (1, 300, 16, 16, 192, 128, 90),
+FLASH_SWEEP = (  # (B, S, H, Hkv, D, Dv, window, timed in bf16 as), causal
+    (1, 512, 28, 4, 128, 128, 0, "qwen2-7b prefill"),
+    (1, 77, 28, 4, 128, 128, 0, ""),   # ragged S
+    (1, 512, 28, 4, 128, 128, 100, ""),
+    (1, 333, 16, 4, 112, 112, 0, ""),  # zamba2-7b's width, ragged S
+    (1, 200, 16, 4, 112, 112, 64, ""),
+    (1, 130, 16, 16, 192, 128, 0, ""),  # deepseek-v2's MLA prefill, ragged S
+    (1, 300, 16, 16, 192, 128, 90, ""),
+    # the MoE serving cells' prefills: dbrx-132b's GQA heads and
+    # deepseek-v2-236b's full MLA heads (q/k 192, v 128)
+    (1, 512, 48, 8, 128, 128, 0, "dbrx-132b prefill"),
+    (1, 333, 48, 8, 128, 128, 0, ""),
+    (1, 512, 128, 128, 192, 128, 0, "deepseek-v2-236b prefill"),
 )
-DECODE_SWEEP = (  # (W, S, H, Hkv, D, Dv, pos, timed in bf16)
-    (8, 1024, 28, 4, 128, 128, [0, 1, 63, 64, 300, 777, 1000, 1023], True),
-    (8, 1024, 28, 4, 128, 128, 600, False),
+DECODE_SWEEP = (  # (W, S, H, Hkv, D, Dv, pos, timed in bf16 as)
+    (8, 1024, 28, 4, 128, 128, [0, 1, 63, 64, 300, 777, 1000, 1023],
+     "qwen2-7b W=8"),
+    (8, 1024, 28, 4, 128, 128, 600, ""),
     # qwen2-7b's serving decode step: 4 rows at pos 256-264 of a cache of
     # max_len = 512 + 32 slots, as phase 7's engine allocates it
-    (4, 544, 28, 4, 128, 128, [256, 259, 262, 264], True),
-    (4, 544, 28, 4, 128, 128, [127, 250, 399, 543], False),
-    (4, 300, 16, 4, 112, 112, [0, 63, 64, 299], False),  # S % SPLIT != 0
-    (4, 300, 16, 4, 112, 64, [299, 0, 150, 65], False),  # v narrower than k
-    (3, 100, 16, 2, 64, 112, [99, 0, 40], False),  # v wider than k
-    (2, 40, 16, 4, 112, 128, 39, False),  # S below one split, scalar pos
+    (4, 544, 28, 4, 128, 128, [256, 259, 262, 264],
+     "qwen2-7b serving decode step"),
+    (4, 544, 28, 4, 128, 128, [127, 250, 399, 543], ""),
+    (4, 300, 16, 4, 112, 112, [0, 63, 64, 299], ""),  # S % SPLIT != 0
+    (4, 300, 16, 4, 112, 64, [299, 0, 150, 65], ""),  # v narrower than k
+    (3, 100, 16, 2, 64, 112, [99, 0, 40], ""),  # v wider than k
+    (2, 40, 16, 4, 112, 128, 39, ""),  # S below one split, scalar pos
+    # 16 query heads a KV head (glm4-9b, K4's GMAX), 6 (dbrx-132b's
+    # serving decode step) and 7 (deepseek-coder-33b)
+    (4, 544, 32, 2, 128, 128, [127, 250, 399, 543], ""),
+    (4, 544, 48, 8, 128, 128, [256, 259, 262, 264],
+     "dbrx-132b serving decode step"),
+    (4, 544, 56, 8, 128, 128, [0, 250, 399, 543], ""),
 )
 
 
@@ -583,7 +616,7 @@ def phase_kernels(torch, np, F, ref, fa, da):
 
     rows = {}
     for dtype in ("float32", "bfloat16"):
-        for B, S, H, Hkv, D, Dv, window in FLASH_SWEEP:
+        for B, S, H, Hkv, D, Dv, window, timed in FLASH_SWEEP:
             q = randn(B, S, H, D, dtype=dtype)
             k = randn(B, S, Hkv, D, dtype=dtype)
             v = randn(B, S, Hkv, Dv, dtype=dtype)
@@ -597,19 +630,24 @@ def phase_kernels(torch, np, F, ref, fa, da):
                 f"{err:.3g} ({tolerance(dtype)})")
             row = rows.setdefault("flash_attention", {"max_abs_err": 0.0})
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            if dtype == "bfloat16" and (S, D, window) == (512, 128, 0):
+            if dtype == "bfloat16" and timed:
                 ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v), flush)
                 plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v), flush)
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
                 lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True), flush)
                 nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
-                flops = 4 * D * flash_pairs(np, S, S, True, 0) * H * B
+                flops = 2 * (D + Dv) * flash_pairs(np, S, S, True, 0) * H * B
                 b_ms, b_by = bound(nbytes, flops, dtype)
-                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=b_ms, bound_by=b_by,
-                           shape=f"bf16 B={B} S={S} H={H} Hkv={Hkv} D={D} causal")
-                say("kernels", f"K3 timed ({row['shape']}): kernel {ms:.4f} ms, "
+                t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         shape=f"bf16 B={B} S={S} H={H} Hkv={Hkv} D={D} "
+                         f"Dv={Dv} causal ({timed})")
+                if "ms" in row:  # a later timed shape, beside the first
+                    row.setdefault("other", []).append(t)
+                else:
+                    row.update(t)
+                say("kernels", f"K3 timed ({t['shape']}): kernel {ms:.4f} ms, "
                     f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                     f"{b_ms:.4f} ms ({b_by})")
 
@@ -642,9 +680,9 @@ def phase_kernels(torch, np, F, ref, fa, da):
                 b_ms, b_by = bound(nbytes, flops, dtype)
                 t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by,
-                         shape=f"bf16 W={W} S={S} H={H} Hkv={Hkv} D={D} pos={pos}")
-                if "ms" in row:  # the serving step's shape, beside the first
-                    t["shape"] += " (the serving decode step)"
+                         shape=f"bf16 W={W} S={S} H={H} Hkv={Hkv} D={D} "
+                         f"pos={pos} ({timed})")
+                if "ms" in row:  # a later timed shape, beside the first
                     row.setdefault("other", []).append(t)
                 else:
                     row.update(t)
@@ -718,28 +756,67 @@ def phase_latent_kernels(torch, np, F, ref, fa, mk, sk, rows, dev="cuda"):
     say("kernels", f"K3 timed ({shape}): kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
-    # K5 at minicpm3-4b's decode shape, scalar and per-row pos
-    W, S, H, R, Rr = 4, 544, 40, 256, 32
-    scale = 1.0 / math.sqrt(64 + 32)
+    # K5 at the serving decode shapes, scalar and per-row pos: minicpm3-4b's
+    # (the main row) and deepseek-v2-236b's (R = 512, Rr = 64, H = 128)
     row = {"max_abs_err": 0.0}
-    per_row = [127, 250, 399, 543]
-    for dtype in ("float32", "bfloat16"):
-        ql, qr = randn(W, H, R, dtype=dtype), randn(W, H, Rr, dtype=dtype)
-        c, kr = randn(W, S, R, dtype=dtype), randn(W, S, Rr, dtype=dtype)
-        for pos in (per_row, 300):
-            p = (torch.tensor(pos, dtype=torch.int32, device=dev)
-                 if isinstance(pos, list) else pos)
-            out = mk.mla_decode_attention_cuda(ql, qr, c, kr, p, scale)
-            plain = ref.mla_decode_attention_ref(ql.float(), qr.float(),
-                                                 c.float(), kr.float(), p, scale)
-            err = within(torch, out, plain, dtype)
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            say("kernels", f"K5 mla_decode_attention {dtype} W={W} S={S} H={H} "
-                f"R={R} Rr={Rr} pos={pos}: max_abs_err {err:.3g} "
-                f"({tolerance(dtype)})")
+
+    def k5_at(W, S, H, R, Rr, scale, per_row, label):
+        """K5 against its plain version in fp32 and bf16, then timed in
+        bf16 beside the plain version and masked SDPA."""
+        for dtype in ("float32", "bfloat16"):
+            ql, qr = randn(W, H, R, dtype=dtype), randn(W, H, Rr, dtype=dtype)
+            c, kr = randn(W, S, R, dtype=dtype), randn(W, S, Rr, dtype=dtype)
+            for pos in (per_row, 300):
+                p = (torch.tensor(pos, dtype=torch.int32, device=dev)
+                     if isinstance(pos, list) else pos)
+                out = mk.mla_decode_attention_cuda(ql, qr, c, kr, p, scale)
+                plain = ref.mla_decode_attention_ref(
+                    ql.float(), qr.float(), c.float(), kr.float(), p, scale)
+                err = within(torch, out, plain, dtype)
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                say("kernels", f"K5 mla_decode_attention {dtype} W={W} S={S} "
+                    f"H={H} R={R} Rr={Rr} pos={pos}: max_abs_err {err:.3g} "
+                    f"({tolerance(dtype)})")
+        p = torch.tensor(per_row, dtype=torch.int32, device=dev)
+        ms = time_ms(torch, lambda: mk.mla_decode_attention_cuda(
+            ql, qr, c, kr, p, scale), flush)
+        plain_ms = time_ms(torch, lambda: ref.mla_decode_attention_ref(
+            ql, qr, c, kr, p, scale), flush)
+        # SDPA on (q_lat || q_rope) against (c || kr) with v = c: one KV
+        # head shared by the H query heads, the per-row bound as a mask; the
+        # concatenations are made once, outside the timed call
+        qcat = torch.cat([ql, qr], dim=-1)[:, :, None]
+        kcat = torch.cat([c, kr], dim=-1)[:, None]
+        mask = (torch.arange(S, device=dev)[None, :]
+                <= p[:, None])[:, None, None, :]
+        lib = F.scaled_dot_product_attention(qcat, kcat, c[:, None],
+                                             attn_mask=mask, scale=scale,
+                                             enable_gqa=True)
+        lib_err = (lib[:, :, 0].float() - ref.mla_decode_attention_ref(
+            ql.float(), qr.float(), c.float(), kr.float(), p,
+            scale)).abs().max().item()
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qcat, kcat, c[:, None], attn_mask=mask, scale=scale,
+            enable_gqa=True), flush)
+        keys = sum(min(x + 1, S) for x in per_row)
+        nbytes = (2 * (ql.numel() + qr.numel() + out.numel()
+                       + keys * (R + Rr)) + 4 * W)
+        flops = 2 * H * keys * (R + Rr) + 2 * H * keys * R
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                 bound_by=b_by, shape=f"bf16 W={W} S={S} H={H} R={R} Rr={Rr} "
+                 f"pos={per_row} ({label})")
+        say("kernels", f"K5 timed ({t['shape']}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (max |sdpa - plain| "
+            f"{lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
+        return t
+
+    row.update(k5_at(4, 544, 40, 256, 32, 1.0 / math.sqrt(64 + 32),
+                     [127, 250, 399, 543], "minicpm3-4b serving decode step"))
     # the split design's edges: deepseek-v2's widths, H % 16 != 0, S below
     # and just past one split, one slot, pos past the capacity, and a row
     # with a negative pos (no slot: zeros)
+    scale = 1.0 / math.sqrt(64 + 32)
     for dtype in ("float32", "bfloat16"):
         for W2, S2, H2, R2, Rr2, pos in K5_EDGES:
             a, a_r = randn(W2, H2, R2, dtype=dtype), randn(W2, H2, Rr2, dtype=dtype)
@@ -757,35 +834,10 @@ def phase_latent_kernels(torch, np, F, ref, fa, mk, sk, rows, dev="cuda"):
             say("kernels", f"K5 mla_decode_attention {dtype} W={W2} S={S2} "
                 f"H={H2} R={R2} Rr={Rr2} pos={pos}: max_abs_err {err:.3g} "
                 f"({tolerance(dtype)}; negative pos: zeros)")
-    p = torch.tensor(per_row, dtype=torch.int32, device=dev)
-    ms = time_ms(torch, lambda: mk.mla_decode_attention_cuda(ql, qr, c, kr, p,
-                                                             scale), flush)
-    plain_ms = time_ms(torch, lambda: ref.mla_decode_attention_ref(
-        ql, qr, c, kr, p, scale), flush)
-    # SDPA on (q_lat || q_rope) against (c || kr) with v = c: one KV head
-    # shared by the H query heads, the per-row bound as a mask; the
-    # concatenations are made once, outside the timed call
-    qcat = torch.cat([ql, qr], dim=-1)[:, :, None]
-    kcat = torch.cat([c, kr], dim=-1)[:, None]
-    mask = (torch.arange(S, device=dev)[None, :] <= p[:, None])[:, None, None, :]
-    lib = F.scaled_dot_product_attention(qcat, kcat, c[:, None], attn_mask=mask,
-                                         scale=scale, enable_gqa=True)
-    lib_err = (lib[:, :, 0].float() - ref.mla_decode_attention_ref(
-        ql.float(), qr.float(), c.float(), kr.float(), p, scale)).abs().max().item()
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qcat, kcat, c[:, None], attn_mask=mask, scale=scale, enable_gqa=True),
-        flush)
-    keys = sum(min(x + 1, S) for x in per_row)
-    nbytes = 2 * (ql.numel() + qr.numel() + out.numel() + keys * (R + Rr)) + 4 * W
-    flops = 2 * H * keys * (R + Rr) + 2 * H * keys * R
-    b_ms, b_by = bound(nbytes, flops, "bfloat16")
-    row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-               bound_by=b_by, shape=f"bf16 W={W} S={S} H={H} R={R} Rr={Rr} "
-               f"pos={per_row}")
+    row["other"] = [k5_at(4, 544, 128, 512, 64, 1.0 / math.sqrt(128 + 64),
+                          [256, 259, 262, 264],
+                          "deepseek-v2-236b serving decode step")]
     rows["mla_decode_attention"] = row
-    say("kernels", f"K5 timed ({row['shape']}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (max |sdpa - plain| "
-        f"{lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
 
     # K6 at mamba2-370m's prefill shape: y and the final state
     B, S, H, P, N, Q = 1, 512, 32, 64, 128, 128
@@ -1819,13 +1871,23 @@ MODEL_CASES = (  # (arch, config changes, prompt length, prefill, decode kernel)
      "mla_decode_attention"),
     ("minicpm3-4b", {"mla_absorb": False}, 37, "flash_attention", None),
     ("mamba2-370m", {}, 64, "ssd_scan", None),  # two chunks of 32
+    ("glm4-9b", {}, 37, "flash_attention", "decode_attention"),
+    ("deepseek-coder-33b", {}, 37, "flash_attention", "decode_attention"),
+    # the MoE trunks at capacity factor 16, as the reference's decode
+    # consistency test runs them: no token drops on either side
+    ("dbrx-132b", {"moe_capacity_factor": 16.0}, 37, "flash_attention",
+     "decode_attention"),
+    ("deepseek-v2-236b", {"mla_absorb": True, "moe_capacity_factor": 16.0},
+     37, "flash_attention", "mla_decode_attention"),
+    ("deepseek-v2-236b", {"mla_absorb": False, "moe_capacity_factor": 16.0},
+     37, "flash_attention", None),
 )
 
 
 def phase_model(torch, np, configs, models, ops, tree, dev="cuda"):
-    """Reduced qwen2-7b, minicpm3-4b (absorbed and naive decode) and
-    mamba2-370m, fp32: CPU (plain versions) against the card (kernels),
-    prefill and four decode steps with per-row and scalar positions."""
+    """Each of ``MODEL_CASES`` reduced, fp32: CPU (plain versions) against
+    the card (kernels), prefill and four decode steps with per-row and
+    scalar positions."""
     for arch, change, S, pre, dec in MODEL_CASES:
         cfg = configs.get_config(arch).reduced().replace(**change)
         cpu = models.init_policy(
@@ -1883,31 +1945,74 @@ SERVING_CELLS = (
      # whole 128-token chunks: a longer prompt must be a multiple
      "prompt_lens": (128, 256, 384, 512), "prefill": "ssd_scan",
      "decode": None},
+    # the MoE cells: every published width, the depth cut to what one card
+    # holds beside the cache and the init's transients (the dense first
+    # layer and 7 MoE layers, ~58 GB of bf16 parameters; 8 of dbrx's, ~55
+    # GB)
+    {"arch": "deepseek-v2-236b", "change": {"num_layers": 8,
+                                            "mla_absorb": True},
+     "reduced": "num_layers 60 -> 8 (the dense first layer + 7 MoE layers)",
+     "full": {"d_model": 5120, "num_heads": 128, "q_lora_rank": 1536,
+              "kv_lora_rank": 512, "qk_nope_dim": 128, "qk_rope_dim": 64,
+              "v_head_dim": 128, "num_experts": 160, "num_experts_per_tok": 6,
+              "num_shared_experts": 2, "moe_d_ff": 1536,
+              "first_dense_layers": 1, "dense_d_ff": 12288,
+              "vocab_size": 102400, "moe_capacity_factor": 1.25,
+              "param_dtype": "bfloat16"},
+     "prompt_lens": (128, 200, 333, 512), "prefill": "flash_attention",
+     "decode": "mla_decode_attention"},
+    {"arch": "dbrx-132b", "change": {"num_layers": 8},
+     "reduced": "num_layers 40 -> 8",
+     "full": {"d_model": 6144, "num_heads": 48, "num_kv_heads": 8,
+              "head_dim": 128, "num_experts": 16, "num_experts_per_tok": 4,
+              "moe_d_ff": 10752, "vocab_size": 100352,
+              "moe_capacity_factor": 1.25, "param_dtype": "bfloat16"},
+     "prompt_lens": (128, 200, 333, 512), "prefill": "flash_attention",
+     "decode": "decode_attention"},
 )
 
 
 def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
-                  card, cell, dev="cuda"):
-    """One serving cell at full width and depth: the continuous entry point
-    on 8 requests over 4 slots, a solo rerun, a profiled decode step and the
-    lockstep demo. Returns the launch counts of the continuous run."""
+                  card, cell, analysis, sanitize, dev="cuda"):
+    """One serving cell at full width: the continuous entry point on 8
+    requests over 4 slots, a solo rerun, a profiled decode step and the
+    lockstep demo. An MoE cell runs the timed call at the published
+    capacity factor, where a decode step's rows compete for expert slots,
+    and the bitwise solo pin on a second continuous call at capacity factor
+    E / k, where none can drop; it also runs an admit and a decode step
+    under the transfers guard, counts the step's dropped assignments and
+    times its MoE layers alone. Returns the launch counts of the
+    continuous run at the published factor."""
     from repro_torch.pipeline.queue import TrajectoryQueue
 
     arch = cell["arch"]
     cfg = configs.get_config(arch).replace(**cell["change"])
     check(all(getattr(cfg, k) == v for k, v in cell["full"].items()),
           f"not the full {arch} config: {cfg}")
+    moe = bool(cfg.num_experts)
     L = cfg.num_layers
     pre, dec = cell["prefill"], cell["decode"]
-    t0 = time.perf_counter()
+    t_cell = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     params = models.init_policy(
         cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
         device=dev)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree.tree_leaves(params))
-    say("serving", f"{arch} full size {cell['change'] or ''}: "
-        f"{n_params / 1e9:.2f} B parameters (bf16) initialised on the card "
-        f"from seed {SEED} in {time.perf_counter() - t0:.1f} s")
+    leaves = tree.tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    p_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    peak = torch.cuda.max_memory_allocated() - base
+    say("serving", f"{arch} {cell['change'] or ''}: "
+        f"{n_params / 1e9:.2f} B parameters (bf16, {p_bytes / 1e9:.2f} GB) "
+        f"initialised on the card from seed {SEED} in "
+        f"{time.perf_counter() - t_cell:.1f} s; peak allocated during the "
+        f"init {peak / 1e9:.2f} GB, {(peak - p_bytes) / 1e9:.2f} GB over the "
+        "parameters (<= 12)"
+        + (f"; reduced: {cell['reduced']}, every width as published"
+           if "reduced" in cell else ""))
+    check(peak <= p_bytes + 12e9, f"{arch}: the init's peak {peak / 1e9:.2f} "
+          f"GB is more than 12 GB over the parameters' {p_bytes / 1e9:.2f}")
 
     def expected(n_prefill, n_steps):
         want = {name: 0 for name in ops.launches}
@@ -1922,38 +2027,55 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
               gen_range=gen_range, rate_hz=0.0, device=dev)
     serve.serve_continuous(cfg, params, requests=2, seed=SEED + 1, **kw)  # warm-up
 
-    ops.reset_launches()
-    res = serve.serve_continuous(cfg, params, requests=8, seed=SEED, **kw)
-    counts = dict(ops.launches)
-    reqs = res["requests"]
-    check(len(reqs) == 8, f"{len(reqs)} of 8 requests came back")
-    for r in reqs:
-        check(r.status == "done", f"request {r.rid} {r.status}: {r.error}")
-        check(len(r.tokens) == r.max_new_tokens,
-              f"request {r.rid}: {len(r.tokens)} of {r.max_new_tokens} tokens")
-        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()),
-              f"request {r.rid}: token out of [0, {cfg.vocab_size})")
-    check(res["admitted"] == 8, f"{res['admitted']} requests admitted")
-    check(counts == expected(res["admitted"], res["steps"]),
-          f"{arch}: launches {counts} for {res['admitted']} prefills and "
-          f"{res['steps']} decode steps of {L} layers; expected "
-          f"{expected(res['admitted'], res['steps'])}")
-    say("serving", f"{arch} continuous: 8/8 requests done, {res['tokens']} "
-        f"tokens, {res['steps']} decode steps, launches {pre} {counts[pre]} "
-        f"(= {L} x {res['admitted']} prefills)"
-        + (f" {dec} {counts[dec]} (= {L} x {res['steps']} steps)" if dec else
-           " (decode runs no kernel)") + ", every other kernel 0")
-    say("serving", f"{arch} bf16, {slots} slots, burst of 8: "
-        f"{res['tok_s']:.1f} tok/s aggregate, latency p50 {res['p50_ms']:.1f} ms "
-        f"p99 {res['p99_ms']:.1f} ms, wall {res['wall_s']:.3f} s ({card})")
+    def continuous(c, what):
+        ops.reset_launches()
+        res = serve.serve_continuous(c, params, requests=8, seed=SEED, **kw)
+        counts = dict(ops.launches)
+        reqs = res["requests"]
+        check(len(reqs) == 8, f"{len(reqs)} of 8 requests came back")
+        for r in reqs:
+            check(r.status == "done", f"request {r.rid} {r.status}: {r.error}")
+            check(len(r.tokens) == r.max_new_tokens,
+                  f"request {r.rid}: {len(r.tokens)} of {r.max_new_tokens} "
+                  "tokens")
+            check(bool(((r.tokens >= 0) & (r.tokens < c.vocab_size)).all()),
+                  f"request {r.rid}: token out of [0, {c.vocab_size})")
+        check(res["admitted"] == 8, f"{res['admitted']} requests admitted")
+        check(counts == expected(res["admitted"], res["steps"]),
+              f"{arch}: launches {counts} for {res['admitted']} prefills and "
+              f"{res['steps']} decode steps of {L} layers; expected "
+              f"{expected(res['admitted'], res['steps'])}")
+        say("serving", f"{arch} continuous{what}: 8/8 requests done, "
+            f"{res['tokens']} tokens, {res['steps']} decode steps, launches "
+            f"{pre} {counts[pre]} (= {L} x {res['admitted']} prefills)"
+            + (f" {dec} {counts[dec]} (= {L} x {res['steps']} steps)" if dec
+               else " (decode runs no kernel)") + ", every other kernel 0")
+        say("serving", f"{arch} bf16{what}, {slots} slots, burst of 8: "
+            f"{res['tok_s']:.1f} tok/s aggregate, latency p50 "
+            f"{res['p50_ms']:.1f} ms p99 {res['p99_ms']:.1f} ms, wall "
+            f"{res['wall_s']:.3f} s ({card})")
+        return res, counts
 
-    probe = max(reqs, key=lambda r: (r.t_admit, r.rid))  # joined mid-flight
+    cf_what = (f" at capacity factor {cfg.moe_capacity_factor}" if moe
+               else "")
+    res, counts = continuous(cfg, cf_what)
+    solo_cfg = cfg
+    if moe:
+        moe_probe(torch, np, serving, models, analysis, sanitize, cfg,
+                  params, slots, max_len, dev)
+        # capacity = ceil(W k (E / k) / E) = W: every row keeps its experts
+        solo_cfg = cfg.replace(moe_capacity_factor=cfg.num_experts
+                               / cfg.num_experts_per_tok)
+        res, _ = continuous(solo_cfg, " at capacity factor E / k = "
+                            f"{solo_cfg.moe_capacity_factor:.4g} (no drop)")
+
+    probe = max(res["requests"], key=lambda r: (r.t_admit, r.rid))  # joined mid-flight
     solo = serving.Request(rid=probe.rid, prompt=probe.prompt.copy(),
                            max_new_tokens=probe.max_new_tokens, seed=probe.seed)
     q = TrajectoryQueue(depth=2)
     q.put(solo)
     q.producer_done()
-    engine = serving.DecodeEngine(cfg, params, max_slots=slots,
+    engine = serving.DecodeEngine(solo_cfg, params, max_slots=slots,
                                   max_len=max_len, device=dev)
     serving.Scheduler(engine, q, continuous=False).run()
     check(solo.status == "done" and np.array_equal(solo.tokens, probe.tokens),
@@ -1961,7 +2083,9 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
           f"solo {None if solo.tokens is None else solo.tokens.tolist()}")
     say("serving", f"{arch} request {probe.rid} (prompt {len(probe.prompt)}, "
         f"{probe.max_new_tokens} tokens) rerun solo on a fresh {slots}-slot "
-        "engine: bitwise equal")
+        "engine: bitwise equal"
+        + (f" (capacity factor {solo_cfg.moe_capacity_factor:.4g})" if moe
+           else ""))
     del engine
 
     wall_ms, busy_ms, summed_ms, top, by_name = profile_decode(
@@ -1981,6 +2105,8 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
         say("serving", f"{arch} decode step: {dec} {k_ms:.3f} ms a step "
             f"x{k_n:.0f} ({100 * k_ms / busy_ms:.1f}% of the busy "
             f"{busy_ms:.2f} ms)")
+    if moe:
+        moe_share(torch, models, tree, cfg, params, slots, busy_ms, dev)
     p_wall, p_busy, p_by = profile_prefill(
         torch, np, serving, cfg, params, slots, max_len,
         prompt_len=max(prompt_lens), dev=dev)
@@ -2010,7 +2136,85 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
         f"{lock['decode_s'] * 1e3:.1f} ms")
     del params
     torch.cuda.empty_cache()
+    say("serving", f"{arch} cell took {time.perf_counter() - t_cell:.1f} s")
     return counts
+
+
+def moe_probe(torch, np, serving, models, analysis, sanitize, cfg, params,
+              slots, max_len, dev="cuda"):
+    """An engine with every slot leased at pos 256: three admits and a step
+    unguarded (the first calls), then the fourth admit and a decode step
+    under the transfers guard, where any host sync torch reports raises;
+    then one step with ``_route_group`` watched: the share of the step's
+    assignments that capacity dropped, layer by layer."""
+    engine = serving.DecodeEngine(cfg, params, max_slots=slots,
+                                  max_len=max_len, device=dev)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, 256) for _ in range(slots)]
+    for slot in range(slots - 1):
+        engine.admit(slot, prompts[slot], seed=slot)
+    engine.step()
+    torch.cuda.synchronize()
+    analysis.enable_sanitizers("transfers")
+    sanitize.reset_stats()
+    try:
+        with sanitize.guard():
+            engine.admit(slots - 1, prompts[-1], seed=slots - 1)
+            engine.step()
+        torch.cuda.synchronize()
+        refused, guarded = sanitize.host_syncs["refused"], sanitize.stats["guarded"]
+    finally:
+        analysis.disable_sanitizers()
+    check(refused == 0 and guarded == 1,
+          f"{cfg.name}: {refused} host syncs refused in {guarded} guards")
+    say("serving", f"{cfg.name} one admit (256 tokens) and one decode step "
+        "under sanitize.guard() with the transfers mode on: no host sync "
+        f"({guarded} guarded scope, {refused} refused)")
+
+    route = models.moe._route_group
+    seen = []
+
+    def watched(tokens, logits, k, capacity, E):
+        out = route(tokens, logits, k, capacity, E)
+        seen.append((out[1], capacity, E))
+        return out
+
+    models.moe._route_group = watched
+    try:
+        engine.step()
+    finally:
+        models.moe._route_group = route
+    drops = [int((s == E * C).sum()) for s, C, E in seen]
+    total = sum(s.numel() for s, _, _ in seen)
+    check(len(seen) == cfg.num_layers - cfg.first_dense_layers,
+          f"{cfg.name}: {len(seen)} routed layers in a step")
+    say("serving", f"{cfg.name} decode step, {slots} rows leased, capacity "
+        f"factor {cfg.moe_capacity_factor}: capacity {seen[0][1]} per expert, "
+        f"{sum(drops)} of {total} assignments dropped "
+        f"({100 * sum(drops) / total:.1f}%; by layer {drops})")
+
+
+def moe_share(torch, models, tree, cfg, params, slots, busy_ms, dev="cuda"):
+    """The decode step's MoE layers alone: CUDA-event ms of every MoE
+    layer's ``moe_forward`` on a (slots, 1, d) bf16 input in turn, beside
+    the step's device-busy ms and the bound of reading the MoE layers'
+    weights once."""
+    stack = params["trunk"]["layers"]["moe"]
+    n = cfg.num_layers - cfg.first_dense_layers
+    x = torch.randn((slots, 1, cfg.d_model), device=dev).to(torch.bfloat16)
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
+    layer, fwd = models.transformer.layer, models.moe.moe_forward
+    ms = time_ms(torch, lambda: [fwd(layer(stack, i), cfg, x)
+                                 for i in range(n)], flush, iters=10)
+    nbytes = sum(t.numel() * t.element_size() for t in tree.tree_leaves(stack))
+    b_ms, _ = bound(nbytes, 0, "bfloat16")
+    share = (f"{100 * ms / busy_ms:.1f}% of the step's busy {busy_ms:.2f} ms"
+             if busy_ms > 0 else "the step's busy time not measured")
+    say("serving", f"{cfg.name} decode step's {n} MoE layers alone ({slots} "
+        f"rows): {ms:.3f} ms, {share}; bound {b_ms:.3f} ms (their "
+        f"{nbytes / 1e9:.2f} GB of weights at {HBM_BYTES_PER_S / 1e12:.2f} "
+        f"TB/s), {100 * b_ms / ms:.0f}% of it")
+    del flush
 
 
 def profile_decode(torch, np, serving, cfg, params, slots, max_len,
@@ -4042,8 +4246,9 @@ def main(argv=None) -> int:
     lap("model")
     for cell in SERVING_CELLS:
         by_path[f"{cell['arch']} serving"] = phase_serving(
-            torch, np, configs, models, ops, serve, serving, tree, card, cell)
-    lap("serving")
+            torch, np, configs, models, ops, serve, serving, tree, card, cell,
+            analysis, sanitize)
+        lap(f"serving {cell['arch']}")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

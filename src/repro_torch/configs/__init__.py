@@ -1,12 +1,14 @@
 """Architecture registry of the port — importing this package registers the
-configs ported so far: qwen2-7b, minicpm3-4b and mamba2-370m (serving)
-and the paper's networks (training). ``PipelineConfig`` holds the
-pipeline's knobs."""
+configs ported so far: qwen2-7b, glm4-9b, deepseek-coder-33b (dense GQA),
+minicpm3-4b (dense MLA), dbrx-132b (MoE, GQA), deepseek-v2-236b (MoE,
+MLA) and mamba2-370m (SSM) for serving, and the paper's networks
+(training). ``PipelineConfig`` holds the pipeline's knobs."""
 from repro_torch.configs.base import (ArchConfig, PipelineConfig, get_config,
                                       list_archs)
 
 # registration side-effects
-from repro_torch.configs import (mamba2_370m, minicpm3_4b,  # noqa: F401
-                                 paac_cnn, qwen2_7b)
+from repro_torch.configs import (dbrx_132b, deepseek_coder_33b,  # noqa: F401
+                                 deepseek_v2_236b, glm4_9b, mamba2_370m,
+                                 minicpm3_4b, paac_cnn, qwen2_7b)
 
 __all__ = ["ArchConfig", "PipelineConfig", "get_config", "list_archs"]

@@ -11,12 +11,15 @@ Two modes, as in ``repro.launch.serve``:
   requests join/leave the decode batch mid-flight, each row at its own
   position. Reports aggregate tokens/s and p50/p99 request latency.
 
-``--arch`` takes every registered token model: qwen2-7b (GQA: K3 prefill,
-K4 decode), minicpm3-4b (MLA: K3 prefill with q/k wider than v; the
-config's naive decode, or K5 when a caller serves
-``cfg.replace(mla_absorb=True)``, as ``chip_smoke.py`` does) and
-mamba2-370m (SSM: K6 prefill, recurrent decode; a prompt longer than one
-128-token chunk must be a whole number of chunks). Runs on the card
+``--arch`` takes every registered token model: qwen2-7b, glm4-9b and
+deepseek-coder-33b (GQA: K3 prefill, K4 decode), dbrx-132b (GQA + MoE:
+the same kernels), minicpm3-4b and deepseek-v2-236b (MLA, the latter with
+MoE: K3 prefill with q/k wider than v; the config's naive decode, or K5
+when a caller serves ``cfg.replace(mla_absorb=True)``, as
+``chip_smoke.py`` does) and mamba2-370m (SSM: K6 prefill, recurrent
+decode; a prompt longer than one 128-token chunk must be a whole number
+of chunks). A full-depth MoE model does not fit one card; the CLI, like
+the reference's, has no depth flag. Runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given; without
 a CUDA device the default raises.
 

@@ -2,8 +2,10 @@
 
 The same functional surface as ``repro.models``, for the families ported
 so far — the paper's CNNs and MLP (``family == "cnn"``), the dense decoder
-with GQA or MLA attention (qwen2-7b, minicpm3-4b) and the Mamba2 SSM
-(``family == "ssm"``, mamba2-370m):
+with GQA or MLA attention (qwen2-7b, glm4-9b, deepseek-coder-33b,
+minicpm3-4b), the MoE decoder with GQA or MLA attention (``family ==
+"moe"``: dbrx-132b, deepseek-v2-236b) and the Mamba2 SSM (``family ==
+"ssm"``, mamba2-370m):
 
 * ``init_policy(cfg, *, generator, device)``           -> params
 * ``policy_apply(params, cfg, obs)``  -> (logits, values, {})  (CNN family)

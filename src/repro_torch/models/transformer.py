@@ -1,14 +1,18 @@
-"""Decoder trunks of the dense (GQA or MLA) and SSM families: init,
+"""Decoder trunks of the dense and MoE (GQA or MLA) and SSM families: init,
 prefill, decode step, cache.
 
 The port's counterpart of ``repro/models/transformer.py`` for the families
 served so far. Layer parameters are stacked on a leading layer axis, as the
 reference's scanned stack lays them out, and the layers run as a Python
-loop over that axis. Every cache leaf is per layer ``(L, B, ...)``, as in
-the reference: GQA's ``{"k", "v"}`` (L, B, slots, Hkv, D), MLA's ``{"c",
-"kr"}`` (L, B, slots, rank / rope), Mamba2's conv buffers and fp32 state.
-``decode_step`` updates the cache in place (see ``attention.py`` and
-``ssm.py``).
+loop over that axis. An MoE trunk (DeepSeek-V2, DBRX) runs its
+``first_dense_layers`` with a dense FFN as a stack of their own,
+``"first"``, before ``"layers"``, whose blocks carry a ``"moe"`` FFN
+(``moe.py``). Every cache leaf is per layer ``(L, B, ...)``, as in the
+reference: GQA's ``{"k", "v"}`` (L, B, slots, Hkv, D), MLA's ``{"c",
+"kr"}`` (L, B, slots, rank / rope), Mamba2's conv buffers and fp32 state;
+an MoE trunk's cache is ``{"first": {"attn": ...}, "layers": {"attn":
+...}}``. ``decode_step`` updates the cache in place (see ``attention.py``
+and ``ssm.py``).
 """
 from __future__ import annotations
 
@@ -25,18 +29,21 @@ from repro_torch.models.common import (
     rmsnorm,
 )
 from repro_torch.models.mlp import init_mlp, mlp_forward
+from repro_torch.models.moe import init_moe, moe_forward
+from repro_torch.utils.tree import tree_map
 
 
 def _check_family(cfg) -> None:
-    dense = (cfg.family == "dense" and cfg.attention in ("gqa", "mla")
-             and cfg.d_ff and not cfg.num_experts
-             and not cfg.first_dense_layers)
-    if (not (dense or cfg.family == "ssm") or cfg.is_encoder_decoder
+    attention = cfg.attention in ("gqa", "mla")
+    dense = (cfg.family == "dense" and attention and cfg.d_ff
+             and not cfg.num_experts and not cfg.first_dense_layers)
+    moe = cfg.family == "moe" and attention and cfg.num_experts
+    if (not (dense or moe or cfg.family == "ssm") or cfg.is_encoder_decoder
             or cfg.frontend_dim or cfg.prefix_len):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense (GQA or MLA) and SSM families are "
-            "ported yet; MoE, hybrid, encoder-decoder and vision trunks wait "
-            "for ROADMAP.md Queue 1, item 11")
+            f"{cfg.name}: only the dense and MoE (GQA or MLA) and SSM "
+            "families are ported yet; hybrid, encoder-decoder and vision "
+            "trunks wait for ROADMAP.md Queue 1, item 11")
 
 
 # ---------------------------------------------------------------------------
@@ -44,25 +51,41 @@ def _check_family(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_attn_block(generator, cfg, dtype):
-    """Transformer block: GQA or MLA + FFN, pre-norm."""
+def init_attn_block(generator, cfg, dtype, *, dense_ff: int = 0):
+    """Transformer block: GQA or MLA + FFN, pre-norm. The FFN is a dense
+    MLP of width ``dense_ff`` when given, else the MoE block when the
+    config has experts, else a dense MLP of width ``d_ff``."""
     device = generator.device
     init = attn.init_mla if cfg.attention == "mla" else attn.init_gqa
-    return {"ln1": init_rmsnorm(cfg.d_model, dtype, device),
-            "attn": init(generator, cfg, dtype),
-            "ln2": init_rmsnorm(cfg.d_model, dtype, device),
-            "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, cfg.mlp)}
+    p = {"ln1": init_rmsnorm(cfg.d_model, dtype, device),
+         "attn": init(generator, cfg, dtype),
+         "ln2": init_rmsnorm(cfg.d_model, dtype, device)}
+    if dense_ff:
+        p["mlp"] = init_mlp(generator, cfg.d_model, dense_ff, dtype, cfg.mlp)
+    elif cfg.num_experts:
+        p["moe"] = init_moe(generator, cfg, dtype)
+    else:
+        p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, cfg.mlp)
+    return p
+
+
+def _ffn(p, cfg, h):
+    """The block's FFN on the normed input: (y, the MoE aux loss, or 0.0
+    for a dense FFN)."""
+    if "moe" in p:
+        return moe_forward(p["moe"], cfg, h)
+    return mlp_forward(p["mlp"], h), 0.0
 
 
 def attn_block_forward(p, cfg, x, *, window: int = 0):
-    """Full-sequence block. Returns (x, cache contents): (k, v) for GQA,
-    (c, kr) for MLA."""
+    """Full-sequence block. Returns (x, aux loss, cache contents): (k, v)
+    for GQA, (c, kr) for MLA."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     fwd = attn.mla_forward if cfg.attention == "mla" else attn.gqa_prefill
     y, kv = fwd(p["attn"], cfg, h, window=window)
     x = x + y
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp_forward(p["mlp"], h), kv
+    y, aux = _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + y, aux, kv
 
 
 def attn_block_decode(p, cfg, x, cache, pos, *, window: int = 0):
@@ -71,8 +94,8 @@ def attn_block_decode(p, cfg, x, cache, pos, *, window: int = 0):
     dec = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
     y, _ = dec(p["attn"], cfg, h, cache["attn"], pos, window=window)
     x = x + y
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp_forward(p["mlp"], h), cache
+    y, _ = _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + y, cache
 
 
 def init_ssm_block(generator, cfg, dtype):
@@ -101,12 +124,21 @@ def ssm_block_decode(p, cfg, x, cache):
 # ---------------------------------------------------------------------------
 
 
-def _stack(trees):
-    """Stack a list of equal parameter trees along a new leading axis."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _stack_init(make, n: int):
+    """``n`` layers from ``make()`` stacked on a leading axis. Each stacked
+    leaf is allocated once, from the first layer's shapes, and each layer
+    is copied into its slice as soon as it is drawn: the peak is the stack
+    plus one layer, not twice the stack. The draws are those of ``n``
+    calls of ``make()`` in order."""
+    first = make()
+    out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    tree_map(lambda dst, src: dst[0].copy_(src), out, first)
+    del first
+    for i in range(1, n):
+        one = make()
+        tree_map(lambda dst, src: dst[i].copy_(src), out, one)
+        del one
+    return out
 
 
 def layer(tree, i: int):
@@ -116,17 +148,29 @@ def layer(tree, i: int):
     return tree[i]
 
 
+def _stacks(cfg):
+    """The trunk's stacks of attention blocks in the order they run, with
+    their depths: ``"first"`` (the leading dense layers) then ``"layers"``."""
+    n_first = cfg.first_dense_layers
+    return [(name, n) for name, n in (("first", n_first),
+                                      ("layers", cfg.num_layers - n_first))
+            if n]
+
+
 def init_model(generator, cfg):
     _check_family(cfg)
     dtype = dtype_of(cfg.param_dtype)
     device = generator.device
     p = {"embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype)}
-    block = init_ssm_block if cfg.family == "ssm" else init_attn_block
-    blocks = []
-    for _ in range(cfg.num_layers):
-        blocks.append(block(generator, cfg, dtype))
-    p["layers"] = _stack(blocks)
-    del blocks
+    if cfg.family == "ssm":
+        p["layers"] = _stack_init(
+            lambda: init_ssm_block(generator, cfg, dtype), cfg.num_layers)
+    else:
+        for name, n in _stacks(cfg):
+            ff = (cfg.dense_d_ff or cfg.d_ff) if name == "first" else 0
+            p[name] = _stack_init(
+                lambda: init_attn_block(generator, cfg, dtype, dense_ff=ff),
+                n)
     p["final_norm"] = init_rmsnorm(cfg.d_model, dtype, device)
     return p
 
@@ -154,19 +198,16 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device):
         dtype = dtype_of(cfg.cache_dtype or cfg.compute_dtype)
     if cfg.family == "ssm":
         one = ssm.init_mamba2_cache(cfg, batch, dtype, "meta")
-    elif cfg.attention == "mla":
-        one = {"attn": attn.init_mla_cache(cfg, batch, max_len, dtype, "meta")}
+        stacks = [("layers", cfg.num_layers)]
     else:
-        one = {"attn": attn.init_gqa_cache(cfg, batch, max_len, dtype, "meta")}
-    L = cfg.num_layers
-
-    def stack(tree):
-        if isinstance(tree, dict):
-            return {k: stack(v) for k, v in tree.items()}
-        return torch.zeros((L,) + tuple(tree.shape), dtype=tree.dtype,
-                           device=device)
-
-    return {"layers": stack(one)}
+        init = (attn.init_mla_cache if cfg.attention == "mla"
+                else attn.init_gqa_cache)
+        one = {"attn": init(cfg, batch, max_len, dtype, "meta")}
+        stacks = _stacks(cfg)
+    return {name: tree_map(lambda t: torch.zeros((n,) + tuple(t.shape),
+                                             dtype=t.dtype, device=device),
+                       one)
+            for name, n in stacks}
 
 
 # ---------------------------------------------------------------------------
@@ -187,19 +228,23 @@ def prefill(params, cfg, tokens, *, window: Optional[int] = None,
     x = embed_tokens(params, cfg, tokens)
     B, S, _ = x.shape
     cache = init_cache(cfg, B, max_len or S, device=x.device)
-    lc = cache["layers"]
-    for i in range(cfg.num_layers):
-        lp = layer(params["layers"], i)
-        if cfg.family == "ssm":
-            x, (state, (tx, tB, tC)) = ssm_block_forward(lp, cfg, x)
+    if cfg.family == "ssm":
+        lc = cache["layers"]
+        for i in range(cfg.num_layers):
+            x, (state, (tx, tB, tC)) = ssm_block_forward(
+                layer(params["layers"], i), cfg, x)
             lc["state"][i] = state
             lc["conv_x"][i] = tx.to(lc["conv_x"].dtype)
             lc["conv_B"][i] = tB.to(lc["conv_B"].dtype)
             lc["conv_C"][i] = tC.to(lc["conv_C"].dtype)
-            continue
-        x, kv = attn_block_forward(lp, cfg, x, window=win)
-        for name, t in zip(lc["attn"], kv):  # (k, v) or (c, kr)
-            lc["attn"][name][i, :, :S] = t.to(lc["attn"][name].dtype)
+        return x_final(params, cfg, x), cache
+    for name, n in _stacks(cfg):
+        lc = cache[name]["attn"]
+        for i in range(n):
+            x, _, kv = attn_block_forward(layer(params[name], i), cfg, x,
+                                          window=win)
+            for leaf, t in zip(lc, kv):  # (k, v) or (c, kr)
+                lc[leaf][i, :, :S] = t.to(lc[leaf].dtype)
     return x_final(params, cfg, x), cache
 
 
@@ -210,11 +255,13 @@ def decode_step(params, cfg, cache, token, pos, *, window: Optional[int] = None)
     """
     win = cfg.sliding_window if window is None else window
     x = embed_tokens(params, cfg, token)
-    layers = cache["layers"]
-    for i in range(cfg.num_layers):
-        lp, lc = layer(params["layers"], i), layer(layers, i)
-        if cfg.family == "ssm":  # the recurrence needs no position
-            x, _ = ssm_block_decode(lp, cfg, x, lc)
-        else:
-            x, _ = attn_block_decode(lp, cfg, x, lc, pos, window=win)
+    if cfg.family == "ssm":  # the recurrence needs no position
+        for i in range(cfg.num_layers):
+            x, _ = ssm_block_decode(layer(params["layers"], i), cfg, x,
+                                    layer(cache["layers"], i))
+        return x_final(params, cfg, x), cache
+    for name, n in _stacks(cfg):
+        for i in range(n):
+            x, _ = attn_block_decode(layer(params[name], i), cfg, x,
+                                     layer(cache[name], i), pos, window=win)
     return x_final(params, cfg, x), cache

@@ -17,7 +17,11 @@ through K2, and a process worker's hard exit respawned with the run's
 quota complete; the analysis plane: a guarded thread's host sync refused
 while another thread's passes, the sanitized lockstep pipeline sync-free
 and bitwise the unsanitized one through K1 and K2, and ``serve --trace
---metrics-jsonl`` through K3 and K4.
+--metrics-jsonl`` through K3 and K4; the MoE trunks: reduced dbrx-132b,
+deepseek-v2-236b (absorbed and naive), glm4-9b and deepseek-coder-33b on
+the card against the CPU, and a reduced MoE engine's admit and decode
+step sync-free under the transfers guard, continuous ≡ solo bitwise at
+capacity factor E / k.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one. This file imports no JAX, so it also runs on a machine that has
@@ -372,6 +376,11 @@ def test_reduced_qwen2_on_the_card_matches_the_cpu(cuda):
     ("minicpm3-4b", True, "mla_decode_attention"),
     ("minicpm3-4b", False, "flash_attention"),
     ("mamba2-370m", False, "ssd_scan"),
+    ("glm4-9b", False, "decode_attention"),
+    ("deepseek-coder-33b", False, "decode_attention"),
+    ("dbrx-132b", False, "decode_attention"),
+    ("deepseek-v2-236b", True, "mla_decode_attention"),
+    ("deepseek-v2-236b", False, "flash_attention"),
 ])
 def test_reduced_mla_and_ssm_on_the_card_match_the_cpu(cuda, arch, absorb,
                                                        kernel):
@@ -379,6 +388,8 @@ def test_reduced_mla_and_ssm_on_the_card_match_the_cpu(cuda, arch, absorb,
     from repro_torch.models import init_policy, policy_decode, policy_prefill
 
     cfg = get_config(arch).reduced().replace(mla_absorb=absorb)
+    if cfg.num_experts:  # no token drops on either side
+        cfg = cfg.replace(moe_capacity_factor=16.0)
     cpu = init_policy(cfg, generator=torch.Generator().manual_seed(0),
                       device="cpu")
     gpu = tree_map(lambda t: t.to(cuda), cpu)
@@ -1011,3 +1022,56 @@ def test_serve_trace_on_the_card(cuda, tmp_path):
     assert {"admit", "prefill", "decode"} <= {e["name"] for e in events}
     assert any("serve_queue_depth" in json.loads(x) for x in
                (tmp_path / "m.jsonl").read_text().splitlines())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v2-236b"])
+def test_reduced_moe_engine_on_the_card_is_sync_free_and_solo_bitwise(
+        cuda, sanitizers, arch):
+    """A reduced MoE engine at capacity factor E / k on the card: an admit
+    and a decode step under the transfers guard take no host sync, and a
+    request's tokens under continuous batching equal its solo rerun."""
+    from repro_torch.analysis import disable_sanitizers, enable_sanitizers
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_policy
+    from repro_torch.pipeline.queue import TrajectoryQueue
+    from repro_torch.serving import (DecodeEngine, Request, Scheduler,
+                                     make_requests)
+
+    cfg = get_config(arch).reduced().replace(mla_absorb=True)
+    cfg = cfg.replace(moe_capacity_factor=cfg.num_experts
+                      / cfg.num_experts_per_tok)
+    params = init_policy(cfg, generator=torch.Generator(device=cuda)
+                         .manual_seed(0), device=cuda)
+    W, L = 3, 40
+    eng = DecodeEngine(cfg, params, max_slots=W, max_len=L, device=cuda)
+    eng.admit(0, np.arange(9), seed=0)
+    eng.step()
+    torch.cuda.synchronize()
+    enable_sanitizers("transfers")
+    with sanitizers.guard():
+        eng.admit(1, np.arange(9), seed=1)
+        eng.step()
+    torch.cuda.synchronize()
+    disable_sanitizers()
+    assert sanitizers.host_syncs["refused"] == 0
+
+    def feed(reqs):
+        q = TrajectoryQueue(depth=len(reqs) + 1)
+        for r in reqs:
+            q.put(r)
+        q.producer_done()
+        return q
+
+    reqs = make_requests(5, seed=11, prompt_lens=(4, 7, 9),
+                         gen_range=(3, 8), vocab=cfg.vocab_size)
+    by = {r.rid: r for r in Scheduler(
+        DecodeEngine(cfg, params, max_slots=W, max_len=L, device=cuda),
+        feed(reqs), continuous=True).run()}
+    for probe in reqs:
+        solo = Request(rid=probe.rid, prompt=probe.prompt.copy(),
+                       max_new_tokens=probe.max_new_tokens, seed=probe.seed)
+        Scheduler(DecodeEngine(cfg, params, max_slots=W, max_len=L,
+                               device=cuda), feed([solo]),
+                  continuous=False).run()
+        assert np.array_equal(by[probe.rid].tokens, solo.tokens), probe.rid

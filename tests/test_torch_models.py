@@ -25,6 +25,7 @@ from repro_torch.models import (init_policy, init_policy_cache,  # noqa: E402
                                 policy_decode, policy_prefill)
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
+from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.utils.bridge import params_from_numpy  # noqa: E402
 
 TOL = 1e-4
@@ -34,6 +35,14 @@ S, ML = 11, 16
 def _close(a, b, tol=TOL):
     np.testing.assert_allclose(np.asarray(a, np.float32),
                                np.asarray(b, np.float32), rtol=tol, atol=tol)
+
+
+def _pair(arch, **change):
+    cfg_j = jax_config(arch).reduced().replace(**change)
+    cfg = get_config(arch).reduced().replace(**change)
+    pj = jax_init(jax.random.PRNGKey(0), cfg_j)
+    pt = params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), "cpu")
+    return cfg_j, cfg, pj, pt
 
 
 @pytest.fixture(scope="module")
@@ -150,12 +159,16 @@ def test_entry_points_run_on_the_card_unless_asked_for_the_cpu(pair):
         init_policy(cfg, generator=torch.Generator(), device="meta")
 
 
-@pytest.mark.parametrize("change", ["sliding_window", "moe", "mla"])
+@pytest.mark.parametrize("change", ["sliding_window", "moe", "mla",
+                                    "hybrid"])
 def test_unported_features_raise_and_name_the_roadmap(pair, change):
     cfg = pair[1]
     kw = {"sliding_window": {"sliding_window": 64},
-          "moe": {"family": "moe", "num_experts": 4},
-          "mla": {"attention": "mla", "sliding_window": 64}}[change]
+          # the MoE trunk is ported; its sliding window is not
+          "moe": {"family": "moe", "num_experts": 4,
+                  "num_experts_per_tok": 2, "sliding_window": 64},
+          "mla": {"attention": "mla", "sliding_window": 64},
+          "hybrid": {"family": "hybrid", "shared_attn_every": 2}}[change]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_policy(cfg.replace(**kw), generator=torch.Generator(),
                     device="cpu")
@@ -163,3 +176,90 @@ def test_unported_features_raise_and_name_the_roadmap(pair, change):
         x = torch.zeros(1, 1, cfg.d_model)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tattn.gqa_decode({}, cfg, x, {"k": None, "v": None}, 0, window=8)
+
+
+def _cache_leaves(cache):
+    return {(stack, name): leaf for stack, c in cache.items()
+            for name, leaf in c["attn"].items()}
+
+
+def _check_trunk_against_jax(pair, rng):
+    """Prefill of S tokens (logits, values, every cache leaf), then four
+    decode steps with a scalar and with a per-row position."""
+    cfg_j, cfg, pj, pt = pair
+    tokens = rng.integers(0, cfg.vocab_size, (3, S))
+    lj, vj, cj = jax_prefill(pj, cfg_j, jnp.asarray(tokens), max_len=ML)
+    lt, vt, ct = policy_prefill(pt, cfg, torch.from_numpy(tokens), max_len=ML)
+    assert lt.shape == (3, S, cfg.vocab_size) and vt.shape == (3, S)
+    _close(lt, lj, TOL)
+    _close(vt, vj, TOL)
+    got, ref = _cache_leaves(ct), _cache_leaves(cj)
+    assert got.keys() == ref.keys()
+    for key, leaf in got.items():
+        assert tuple(leaf.shape) == np.asarray(ref[key]).shape
+        _close(leaf, ref[key], TOL)
+        assert not leaf[:, :, S:].any()
+    for step in range(4):
+        tok = rng.integers(0, cfg.vocab_size, (3, 1)).astype(np.int32)
+        if step % 2:
+            pos = np.array([S + step, S - 3 + step, S + 1 + step], np.int32)
+            pos_j, pos_t = jnp.asarray(pos), torch.from_numpy(pos)
+        else:
+            pos_j = pos_t = S + step
+        lj, vj, cj = jax_decode(pj, cfg_j, cj, jnp.asarray(tok), pos_j)
+        lt, vt, ct = policy_decode(pt, cfg, ct, torch.from_numpy(tok).long(),
+                                   pos_t)
+        _close(lt, lj, TOL)
+        _close(vt, vj, TOL)
+    got, ref = _cache_leaves(ct), _cache_leaves(cj)
+    for key, leaf in got.items():
+        _close(leaf, ref[key], TOL)
+
+
+@pytest.mark.parametrize("arch,change", [
+    ("glm4-9b", {}),
+    ("deepseek-coder-33b", {}),
+    ("dbrx-132b", {"moe_capacity_factor": 1.25}),
+    ("dbrx-132b", {"moe_capacity_factor": 16.0}),
+    ("deepseek-v2-236b", {"mla_absorb": True, "moe_capacity_factor": 1.25}),
+    ("deepseek-v2-236b", {"mla_absorb": True, "moe_capacity_factor": 16.0}),
+    ("deepseek-v2-236b", {"mla_absorb": False, "moe_capacity_factor": 1.25}),
+    ("deepseek-v2-236b", {"mla_absorb": False, "moe_capacity_factor": 16.0}),
+], ids=["glm4", "deepseek-coder", "dbrx-cf1.25", "dbrx-cf16",
+        "deepseek-absorbed-cf1.25", "deepseek-absorbed-cf16",
+        "deepseek-naive-cf1.25", "deepseek-naive-cf16"])
+def test_reduced_trunk_matches_jax(arch, change):
+    pair = _pair(arch, **change)
+    _check_trunk_against_jax(pair, np.random.default_rng(7))
+
+
+def _stack_of_blocks(generator, cfg):
+    """The build ``init_model`` replaced: every layer's block drawn into a
+    list, then each leaf ``torch.stack``ed (twice the layers' bytes)."""
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    dtype = tcommon.dtype_of(cfg.param_dtype)
+    p = {"embed": tcommon.embed_init(generator, cfg.vocab_size, cfg.d_model,
+                                     dtype)}
+    block = (ttfm.init_ssm_block if cfg.family == "ssm"
+             else ttfm.init_attn_block)
+    p["layers"] = stack([block(generator, cfg, dtype)
+                         for _ in range(cfg.num_layers)])
+    p["final_norm"] = tcommon.init_rmsnorm(cfg.d_model, dtype,
+                                           generator.device)
+    return p
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "minicpm3-4b", "mamba2-370m"])
+def test_init_model_is_bitwise_the_stack_of_blocks_build(arch):
+    cfg = get_config(arch).reduced().replace(num_layers=3)
+    got = ttfm.init_model(torch.Generator().manual_seed(5), cfg)
+    want = _stack_of_blocks(torch.Generator().manual_seed(5), cfg)
+    flat_got = jax.tree_util.tree_leaves_with_path(got)
+    flat_want = jax.tree_util.tree_leaves_with_path(want)
+    assert [p for p, _ in flat_got] == [p for p, _ in flat_want]
+    for (path, a), (_, b) in zip(flat_got, flat_want):
+        assert a.dtype == b.dtype and torch.equal(a, b), path

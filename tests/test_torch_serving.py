@@ -8,12 +8,15 @@
   return, and (with hypothesis) conservation and slot-bound properties.
 * **bitwise equivalence** — on the reduced qwen2 in fp32 on the CPU, a
   request's tokens under continuous batching equal a solo lockstep rerun
-  on a fresh engine of the same width, torch against torch.
+  on a fresh engine of the same width, torch against torch; the same on
+  the reduced MoE trunks (dbrx-132b, deepseek-v2-236b with the absorbed
+  MLA decode) at capacity factor E / k, where a decode step's whole batch
+  routes as one group and no expert's capacity can overflow.
 * **against JAX** — the first-token logits of ``DecodeEngine.admit``
   match the reference's prefill on the same weights and prompt.
 * **launcher** — ``repro_torch.launch.serve.main`` runs in process with
-  ``--device cpu`` in both modes, and raises without it when no card is
-  present.
+  ``--device cpu`` in both modes (qwen2-7b and dbrx-132b), and raises
+  without it when no card is present.
 """
 import os
 
@@ -479,6 +482,32 @@ def test_bitwise_continuous_equals_solo_lockstep(model):
         assert ((solo >= 0) & (solo < cfg.vocab_size)).all()
 
 
+@pytest.mark.parametrize("arch,change", [
+    ("dbrx-132b", {}), ("deepseek-v2-236b", {"mla_absorb": True})])
+def test_bitwise_continuous_equals_solo_on_reduced_moe(arch, change):
+    """At capacity factor E / k the capacity of a decode step (the W rows
+    are one group) is at least W, so no row's expert slot depends on the
+    other rows' routing and the pin holds as for the dense trunks."""
+    from repro_torch.models import init_policy
+
+    cfg = get_config(arch).reduced().replace(**change)
+    cfg = cfg.replace(moe_capacity_factor=cfg.num_experts
+                      / cfg.num_experts_per_tok)
+    params = init_policy(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    W, L = 3, 24
+    reqs = make_requests(5, seed=11, prompt_lens=(4, 7, 9),
+                         gen_range=(3, 8), vocab=cfg.vocab_size)
+    sched = Scheduler(DecodeEngine(cfg, params, max_slots=W, max_len=L,
+                                   device="cpu"), _feed(reqs),
+                      continuous=True)
+    by = {r.rid: r for r in sched.run()}
+    assert all(r.status == DONE for r in by.values()) and len(by) == 5
+    for probe in reqs:
+        solo = _solo_tokens(cfg, params, probe, W, L)
+        assert np.array_equal(by[probe.rid].tokens, solo), probe.rid
+
+
 def test_admit_first_token_logits_match_jax(model):
     jax = pytest.importorskip("jax")
     import jax.numpy as jnp
@@ -546,6 +575,19 @@ def test_launcher_continuous_runs_in_process_on_the_cpu():
     assert all(r.status == DONE for r in res["requests"])
     assert res["tokens"] == sum(r.max_new_tokens for r in res["requests"])
     assert res["admitted"] == 5 and res["steps"] > 0 and res["tok_s"] > 0
+
+
+def test_launcher_serves_dbrx_on_the_cpu():
+    from repro_torch.launch.serve import main
+
+    res = main(["--arch", "dbrx-132b", "--reduced", "--device", "cpu",
+                "--continuous", "--requests", "4", "--slots", "2",
+                "--prompt-len", "12", "--gen", "4"])
+    assert res["admitted"] == 4
+    assert all(r.status == DONE for r in res["requests"])
+    res = main(["--arch", "deepseek-v2-236b", "--reduced", "--device",
+                "cpu", "--batch", "2", "--prompt-len", "6", "--gen", "3"])
+    assert res["tokens"].shape == (2, 4) and res["logits_finite"]
 
 
 def test_launcher_lockstep_demo_runs_in_process_on_the_cpu():
