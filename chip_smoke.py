@@ -55,12 +55,14 @@ paths:
               plain version in fp32 on the same bf16 inputs), with
               CUDA-event times of the kernel, the plain version and
               scaled_dot_product_attention (a yardstick only) for K3 at
-              the 512-token prefills of qwen2-7b, dbrx-132b and
-              deepseek-v2-236b and K4 at W=8 S=1024 and at the serving
-              decode steps of qwen2-7b and dbrx-132b (W=4 S=544, pos
-              256-264); then K3 at MLA prefill's shape (B=1 S=512 H=40,
-              q/k 96 wide, v 64), K5 at the decode shapes of minicpm3-4b
-              (W=4 S=544 H=40 R=256 Rr=32) and deepseek-v2-236b (H=128
+              the 512-token prefills of qwen2-7b, dbrx-132b,
+              deepseek-v2-236b and zamba2-7b (32/32 heads, D 112) and K4
+              at W=8 S=1024 and at the serving decode steps of qwen2-7b,
+              dbrx-132b and zamba2-7b (W=4 S=544, pos 256-264; zamba2's
+              one query head a KV head); then K3 at MLA prefill's
+              shape (B=1 S=512 H=40, q/k 96 wide, v 64), K5 at the
+              decode shapes of minicpm3-4b (W=4 S=544 H=40 R=256
+              Rr=32) and deepseek-v2-236b (H=128
               R=512 Rr=64), per-row and scalar pos (yardstick: SDPA on
               (q_lat || q_rope) against (c || kr) with v = c), and at the
               split design's edges (K5_EDGES: R = 512 with H = 128, H = 1
@@ -68,8 +70,9 @@ paths:
               giving zeros), and K6 at mamba2-370m's prefill shape (B=1
               S=512 H=32 P=64 N=128, chunk 128; y and the final state,
               fp32 within 1e-4 + 1e-4 |ref|; no single PyTorch call
-              computes it) and at K6_EDGES (every N, chunks 7, 32, 100,
-              128, two rows), with the same tolerances and times;
+              computes it), at K6_EDGES (every N, chunks 7, 32, 100,
+              128, two rows) and at zamba2-7b's prefill shape (H=112
+              N=64), with the same tolerances and times;
 4. rl_model — paac_nature at full size in fp32, one set of weights on the
               CPU and on the card: logits and values of 32 frames agree
               within 1e-4, and one PAAC update on the same replayed
@@ -243,14 +246,17 @@ paths:
               prefill and decode spans, at least 2 heartbeat lines with
               ``serve_queue_depth``, tok/s and p50/p99 on and off;
 6. model    — reduced qwen2-7b, glm4-9b, deepseek-coder-33b, minicpm3-4b
-              (absorbed and naive decode), mamba2-370m, dbrx-132b and
+              (absorbed and naive decode), mamba2-370m, dbrx-132b,
               deepseek-v2-236b (absorbed and naive; both MoE trunks at
-              capacity factor 16) in fp32, one set of weights on the CPU
+              capacity factor 16) and zamba2-7b (5 layers: two groups of
+              2 and a tail of 1) in fp32, one set of weights on the CPU
               (plain versions) and on the card (kernels): prefill and
               four decode steps (per-row and scalar pos) must agree within
               1e-4 on the logits, and each kernel of the path must launch
-              once a layer a call, every other kernel never;
-7. serving  — five cells, each at full width with random bf16 weights
+              once a layer a call (zamba2: K6 once a Mamba2 layer, K3 and
+              K4 once an application of the shared block), every other
+              kernel never;
+7. serving  — six cells, each at full width with random bf16 weights
               from a seed: qwen2-7b (28 layers, d_model 3584; K3
               prefill, K4 decode), minicpm3-4b with the absorbed decode
               (62 layers, d_model 2560, MLA; K3 prefill with q/k 96 and v
@@ -260,10 +266,15 @@ paths:
               60 layers: the dense first layer and 7 MoE layers of 160
               experts, top-6, 2 shared; MLA with the absorbed decode; K3
               with q/k 192 and v 128, K5 at R 512) and dbrx-132b (8 of 40
-              layers, 16 experts, top-4; K3, K4). Each: the peak memory
-              of the init beside the parameters' bytes (at most 12 GB
-              over), 8 requests over 4 slots, prompts of 128 to 512
-              tokens (whole 128-token chunks for mamba2), 16 to 32 new
+              layers, 16 experts, top-4; K3, K4), and the hybrid
+              zamba2-7b at full depth (81 layers: 13 groups of 6 Mamba2
+              layers, each followed by the one shared attention block, 32
+              heads of 112, and a tail of 3; K6 81 and K3 13 times a
+              prefill, K4 13 times a step). Each: the peak memory of the
+              init beside the parameters' bytes (at most 12 GB over;
+              zamba2: one group of Mamba2 layers), 8 requests over 4
+              slots, prompts of 128 to 512 tokens (whole 128-token chunks
+              for mamba2 and zamba2), 16 to 32 new
               tokens each, burst arrival, through the port's
               continuous-batching entry point after a warm-up; every
               request must finish with tokens in [0, vocab), the prefill
@@ -275,21 +286,26 @@ paths:
               assignment can drop, after the timed one at the published
               1.25; and an admit and a decode step under the transfers
               guard with no host sync, and the share of a step's
-              assignments dropped at 1.25); a torch.profiler window of 8
+              assignments dropped at 1.25; zamba2: the same guarded
+              admit and step); a torch.profiler window of 8
               decode steps gives the device-busy share of a step and the
               decode kernel's share of it (an MoE cell: also its MoE
               layers alone, CUDA events, beside the bound of reading
-              their weights), one of 3 prefills of 512 tokens the
-              prefill's device time and the prefill kernel's share; then
+              their weights; zamba2: its Mamba2 layers alone in a
+              profiler window), one of 3 prefills of 512 tokens the
+              prefill's device time and each prefill kernel's share; then
               the lockstep demo, whose decode runs with a scalar
-              position.
+              position. zamba2 ends with F14 at full width in fp32 (TF32
+              off): its prefill of 256 tokens and 8 decode steps against
+              a decode loop over the 264 tokens from the zero cache,
+              logits within 1e-3 + 1e-3 |logit|.
 
 TF32 is off for matmuls and convolutions throughout. The line before the
 last is a JSON object with each kernel's numbers and its launches on each
 main path (training, pipeline, agents, train cli, host sync, host
 pipeline, host train cli, host process, host process train cli, replay,
 replay train cli, faults, faults train cli, the analysis legs and the
-five serving cells, each read with the counts set to 0 just before it);
+six serving cells, each read with the counts set to 0 just before it);
 the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
 phase fails, it exits non-zero and prints no result. ``--trace-dir DIR``
@@ -580,6 +596,8 @@ FLASH_SWEEP = (  # (B, S, H, Hkv, D, Dv, window, timed in bf16 as), causal
     (1, 512, 48, 8, 128, 128, 0, "dbrx-132b prefill"),
     (1, 333, 48, 8, 128, 128, 0, ""),
     (1, 512, 128, 128, 192, 128, 0, "deepseek-v2-236b prefill"),
+    # zamba2-7b's shared attention block: 32 query heads over 32 KV heads
+    (1, 512, 32, 32, 112, 112, 0, "zamba2-7b prefill"),
 )
 DECODE_SWEEP = (  # (W, S, H, Hkv, D, Dv, pos, timed in bf16 as)
     (8, 1024, 28, 4, 128, 128, [0, 1, 63, 64, 300, 777, 1000, 1023],
@@ -600,6 +618,9 @@ DECODE_SWEEP = (  # (W, S, H, Hkv, D, Dv, pos, timed in bf16 as)
     (4, 544, 48, 8, 128, 128, [256, 259, 262, 264],
      "dbrx-132b serving decode step"),
     (4, 544, 56, 8, 128, 128, [0, 250, 399, 543], ""),
+    # zamba2-7b's serving decode step: one query head a KV head (G = 1)
+    (4, 544, 32, 32, 112, 112, [256, 259, 262, 264],
+     "zamba2-7b serving decode step"),
 )
 
 
@@ -879,22 +900,51 @@ def phase_latent_kernels(torch, np, F, ref, fa, mk, sk, rows, dev="cuda"):
             row["max_abs_err"] = max(row["max_abs_err"], err)
             say("kernels", f"K6 ssd_scan {dtype} B={B2} S={S2} H={H2} P={P} "
                 f"N={N2} chunk={Q2}: max_abs_err {err:.3g} (as above)")
-    ms = time_ms(torch, lambda: sk.ssd_scan_cuda(x, dts, A, Bm, Cm, Dh, chunk=Q),
-                 flush)
-    plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(x, dts, A, Bm, Cm, Dh,
-                                                       chunk=Q), flush)
-    nc = S // Q
-    tri = Q * (Q + 1) // 2
-    flops = B * H * (nc * (2 * N * tri + 2 * P * tri + 2 * Q * P * N)
-                     + (nc - 1) * 2 * Q * N * P)  # C.state is 0 in chunk 0
-    nbytes = (2 * (2 * x.numel() + Bm.numel() + Cm.numel())
-              + 4 * (dts.numel() + 2 * H + st.numel()))
-    b_ms, b_by = bound(nbytes, flops, "bfloat16")
-    row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               shape=f"bf16 B={B} S={S} H={H} P={P} N={N} chunk={Q}")
+    def k6_timed(x, dts, A, Bm, Cm, Dh, Q, label):
+        """K6 in bf16 beside its plain version, and its bound."""
+        B, S, H, P = x.shape
+        N = Bm.shape[-1]
+        ms = time_ms(torch, lambda: sk.ssd_scan_cuda(x, dts, A, Bm, Cm, Dh,
+                                                     chunk=Q), flush)
+        plain_ms = time_ms(torch, lambda: ref.ssd_scan_ref(
+            x, dts, A, Bm, Cm, Dh, chunk=Q), flush)
+        nc = S // Q
+        tri = Q * (Q + 1) // 2
+        flops = B * H * (nc * (2 * N * tri + 2 * P * tri + 2 * Q * P * N)
+                         + (nc - 1) * 2 * Q * N * P)  # C.state is 0 in chunk 0
+        nbytes = (2 * (2 * x.numel() + Bm.numel() + Cm.numel())
+                  + 4 * (dts.numel() + 2 * H + B * H * P * N))
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        t = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None,
+                 shape=f"bf16 B={B} S={S} H={H} P={P} N={N} chunk={Q} "
+                 f"({label})")
+        say("kernels", f"K6 timed ({t['shape']}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by}), library none")
+        return t
+
+    row.update(k6_timed(x, dts, A, Bm, Cm, Dh, Q, "mamba2-370m prefill"))
+    # zamba2-7b's prefill: 112 heads at N = 64, checked and timed as above
+    B, S, H, N = 1, 512, 112, 64
+    A = torch.log(torch.arange(1, H + 1, dtype=torch.float32, device=dev))
+    Dh = torch.ones(H, device=dev)
+    for dtype in ("float32", "bfloat16"):
+        x = randn(B, S, H, P, dtype=dtype)
+        dts = F.softplus(randn(B, S, H) - 2.0)
+        Bm, Cm = randn(B, S, N, dtype=dtype), randn(B, S, N, dtype=dtype)
+        y, st = sk.ssd_scan_cuda(x, dts, A, Bm, Cm, Dh, chunk=Q)
+        y_ref, st_ref = ref.ssd_scan_ref(x.float(), dts, A, Bm.float(),
+                                         Cm.float(), Dh, chunk=Q)
+        tol = SSD_TOL if dtype == "float32" else BF16_TOL
+        err = max(within_rel(torch, y, y_ref, tol, tol, f"K6 y {dtype}"),
+                  within_rel(torch, st, st_ref, SSD_TOL, SSD_TOL,
+                             f"K6 state {dtype}"))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        say("kernels", f"K6 ssd_scan {dtype} B={B} S={S} H={H} P={P} N={N} "
+            f"chunk={Q}: max_abs_err {err:.3g} (as above); max |y| "
+            f"{y_ref.abs().max().item():.3g}")
+    row["other"] = [k6_timed(x, dts, A, Bm, Cm, Dh, Q, "zamba2-7b prefill")]
     rows["ssd_scan"] = row
-    say("kernels", f"K6 timed ({row['shape']}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by}), library none")
     del flush
 
 
@@ -1865,23 +1915,38 @@ def phase_agents(torch, configs, models, envs, A, replay, core, optim, tree,
             {k: v for k, v in cli.items() if v})
 
 
-MODEL_CASES = (  # (arch, config changes, prompt length, prefill, decode kernel)
-    ("qwen2-7b", {}, 37, "flash_attention", "decode_attention"),
-    ("minicpm3-4b", {"mla_absorb": True}, 37, "flash_attention",
-     "mla_decode_attention"),
-    ("minicpm3-4b", {"mla_absorb": False}, 37, "flash_attention", None),
-    ("mamba2-370m", {}, 64, "ssd_scan", None),  # two chunks of 32
-    ("glm4-9b", {}, 37, "flash_attention", "decode_attention"),
-    ("deepseek-coder-33b", {}, 37, "flash_attention", "decode_attention"),
+K3 = ("flash_attention",)
+MODEL_CASES = (  # (arch, config changes, prompt length, prefill kernels,
+    #                decode kernel)
+    ("qwen2-7b", {}, 37, K3, "decode_attention"),
+    ("minicpm3-4b", {"mla_absorb": True}, 37, K3, "mla_decode_attention"),
+    ("minicpm3-4b", {"mla_absorb": False}, 37, K3, None),
+    ("mamba2-370m", {}, 64, ("ssd_scan",), None),  # two chunks of 32
+    ("glm4-9b", {}, 37, K3, "decode_attention"),
+    ("deepseek-coder-33b", {}, 37, K3, "decode_attention"),
     # the MoE trunks at capacity factor 16, as the reference's decode
     # consistency test runs them: no token drops on either side
-    ("dbrx-132b", {"moe_capacity_factor": 16.0}, 37, "flash_attention",
-     "decode_attention"),
+    ("dbrx-132b", {"moe_capacity_factor": 16.0}, 37, K3, "decode_attention"),
     ("deepseek-v2-236b", {"mla_absorb": True, "moe_capacity_factor": 16.0},
-     37, "flash_attention", "mla_decode_attention"),
+     37, K3, "mla_decode_attention"),
     ("deepseek-v2-236b", {"mla_absorb": False, "moe_capacity_factor": 16.0},
-     37, "flash_attention", None),
+     37, K3, None),
+    # the hybrid: two groups of 2 Mamba2 layers and a tail of 1 (K6 five
+    # times a prefill), the shared block applied twice (K3 twice a
+    # prefill, K4 twice a step); two chunks of 32
+    ("zamba2-7b", {"num_layers": 5}, 64, ("ssd_scan", "flash_attention"),
+     "decode_attention"),
 )
+
+
+def kernel_layers(cfg, kernel: str) -> int:
+    """Launches of ``kernel`` in one prefill or decode step of ``cfg``: a
+    hybrid runs K6 in each Mamba2 layer and its attention kernels once an
+    application of the shared block; every other trunk runs its kernel in
+    every layer."""
+    if cfg.family == "hybrid" and kernel != "ssd_scan":
+        return cfg.num_layers // cfg.shared_attn_every
+    return cfg.num_layers
 
 
 def phase_model(torch, np, configs, models, ops, tree, dev="cuda"):
@@ -1912,9 +1977,10 @@ def phase_model(torch, np, configs, models, ops, tree, dev="cuda"):
         counts = dict(ops.launches)
         L = cfg.num_layers
         want = {name: 0 for name in counts}
-        want[pre] = L
+        for name in pre:
+            want[name] = kernel_layers(cfg, name)
         if dec:
-            want[dec] = L * len(steps)
+            want[dec] = kernel_layers(cfg, dec) * len(steps)
         check(counts == want, f"reduced {arch} {change}: launches {counts}, "
               f"expected {want}")
         check(worst <= MODEL_ATOL, f"reduced {arch} {change} logits: card vs "
@@ -1929,21 +1995,21 @@ SERVING_CELLS = (
     {"arch": "qwen2-7b", "change": {},
      "full": {"num_layers": 28, "d_model": 3584, "num_heads": 28,
               "num_kv_heads": 4, "head_dim": 128, "param_dtype": "bfloat16"},
-     "prompt_lens": (128, 200, 333, 512), "prefill": "flash_attention",
+     "prompt_lens": (128, 200, 333, 512), "prefill": K3,
      "decode": "decode_attention"},
     {"arch": "minicpm3-4b", "change": {"mla_absorb": True},
      "full": {"num_layers": 62, "d_model": 2560, "num_heads": 40,
               "q_lora_rank": 768, "kv_lora_rank": 256, "qk_nope_dim": 64,
               "qk_rope_dim": 32, "v_head_dim": 64, "d_ff": 6400,
               "param_dtype": "bfloat16"},
-     "prompt_lens": (128, 200, 333, 512), "prefill": "flash_attention",
+     "prompt_lens": (128, 200, 333, 512), "prefill": K3,
      "decode": "mla_decode_attention"},
     {"arch": "mamba2-370m", "change": {},
      "full": {"num_layers": 48, "d_model": 1024, "ssm_state": 128,
               "ssm_head_dim": 64, "ssm_expand": 2, "ssm_chunk": 128,
               "param_dtype": "bfloat16"},
      # whole 128-token chunks: a longer prompt must be a multiple
-     "prompt_lens": (128, 256, 384, 512), "prefill": "ssd_scan",
+     "prompt_lens": (128, 256, 384, 512), "prefill": ("ssd_scan",),
      "decode": None},
     # the MoE cells: every published width, the depth cut to what one card
     # holds beside the cache and the init's transients (the dense first
@@ -1959,7 +2025,7 @@ SERVING_CELLS = (
               "first_dense_layers": 1, "dense_d_ff": 12288,
               "vocab_size": 102400, "moe_capacity_factor": 1.25,
               "param_dtype": "bfloat16"},
-     "prompt_lens": (128, 200, 333, 512), "prefill": "flash_attention",
+     "prompt_lens": (128, 200, 333, 512), "prefill": K3,
      "decode": "mla_decode_attention"},
     {"arch": "dbrx-132b", "change": {"num_layers": 8},
      "reduced": "num_layers 40 -> 8",
@@ -1967,7 +2033,19 @@ SERVING_CELLS = (
               "head_dim": 128, "num_experts": 16, "num_experts_per_tok": 4,
               "moe_d_ff": 10752, "vocab_size": 100352,
               "moe_capacity_factor": 1.25, "param_dtype": "bfloat16"},
-     "prompt_lens": (128, 200, 333, 512), "prefill": "flash_attention",
+     "prompt_lens": (128, 200, 333, 512), "prefill": K3,
+     "decode": "decode_attention"},
+    # the hybrid at full depth: 13 groups of 6 Mamba2 layers, each followed
+    # by the one shared attention block, and a tail of 3 (13.50 GB)
+    {"arch": "zamba2-7b", "change": {},
+     "full": {"num_layers": 81, "d_model": 3584, "num_heads": 32,
+              "num_kv_heads": 32, "head_dim": 112, "d_ff": 14336,
+              "ssm_state": 64, "ssm_head_dim": 64, "ssm_expand": 2,
+              "ssm_chunk": 128, "shared_attn_every": 6, "vocab_size": 32000,
+              "param_dtype": "bfloat16"},
+     # whole 128-token chunks, as for mamba2-370m
+     "prompt_lens": (128, 256, 384, 512),
+     "prefill": ("ssd_scan", "flash_attention"),
      "decode": "decode_attention"},
 )
 
@@ -1981,8 +2059,10 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
     and the bitwise solo pin on a second continuous call at capacity factor
     E / k, where none can drop; it also runs an admit and a decode step
     under the transfers guard, counts the step's dropped assignments and
-    times its MoE layers alone. Returns the launch counts of the
-    continuous run at the published factor."""
+    times its MoE layers alone. A hybrid cell (zamba2-7b) runs the guarded
+    admit and step too, times its Mamba2 layers alone, and ends with the
+    F14 check (``hybrid_f14``). Returns the launch counts of the continuous
+    run at the published factor."""
     from repro_torch.pipeline.queue import TrajectoryQueue
 
     arch = cell["arch"]
@@ -1990,6 +2070,7 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
     check(all(getattr(cfg, k) == v for k, v in cell["full"].items()),
           f"not the full {arch} config: {cfg}")
     moe = bool(cfg.num_experts)
+    hybrid = cfg.family == "hybrid"
     L = cfg.num_layers
     pre, dec = cell["prefill"], cell["decode"]
     t_cell = time.perf_counter()
@@ -2003,22 +2084,31 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
     n_params = sum(t.numel() for t in leaves)
     p_bytes = sum(t.numel() * t.element_size() for t in leaves)
     peak = torch.cuda.max_memory_allocated() - base
+    over, over_what = 12e9, "12 GB"
+    if hybrid:  # the stack of groups is built a layer at a time
+        groups = params["trunk"]["groups"]
+        over = sum(t[0].numel() * t.element_size()
+                   for t in tree.tree_leaves(groups))
+        over_what = (f"one group of {cfg.shared_attn_every} Mamba2 layers, "
+                     f"{over / 1e9:.3f} GB")
     say("serving", f"{arch} {cell['change'] or ''}: "
         f"{n_params / 1e9:.2f} B parameters (bf16, {p_bytes / 1e9:.2f} GB) "
         f"initialised on the card from seed {SEED} in "
         f"{time.perf_counter() - t_cell:.1f} s; peak allocated during the "
-        f"init {peak / 1e9:.2f} GB, {(peak - p_bytes) / 1e9:.2f} GB over the "
-        "parameters (<= 12)"
+        f"init {peak / 1e9:.2f} GB, {(peak - p_bytes) / 1e9:.3f} GB over the "
+        f"parameters (<= {over_what})"
         + (f"; reduced: {cell['reduced']}, every width as published"
            if "reduced" in cell else ""))
-    check(peak <= p_bytes + 12e9, f"{arch}: the init's peak {peak / 1e9:.2f} "
-          f"GB is more than 12 GB over the parameters' {p_bytes / 1e9:.2f}")
+    check(peak <= p_bytes + over, f"{arch}: the init's peak {peak / 1e9:.2f} "
+          f"GB is more than {over_what} over the parameters' "
+          f"{p_bytes / 1e9:.2f}")
 
     def expected(n_prefill, n_steps):
         want = {name: 0 for name in ops.launches}
-        want[pre] = L * n_prefill
+        for name in pre:
+            want[name] = kernel_layers(cfg, name) * n_prefill
         if dec:
-            want[dec] = L * n_steps
+            want[dec] = kernel_layers(cfg, dec) * n_steps
         return want
 
     slots, prompt_lens, gen_range = 4, cell["prompt_lens"], (16, 32)
@@ -2047,8 +2137,10 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
               f"{expected(res['admitted'], res['steps'])}")
         say("serving", f"{arch} continuous{what}: 8/8 requests done, "
             f"{res['tokens']} tokens, {res['steps']} decode steps, launches "
-            f"{pre} {counts[pre]} (= {L} x {res['admitted']} prefills)"
-            + (f" {dec} {counts[dec]} (= {L} x {res['steps']} steps)" if dec
+            + " ".join(f"{k} {counts[k]} (= {kernel_layers(c, k)} x "
+                       f"{res['admitted']} prefills)" for k in pre)
+            + (f" {dec} {counts[dec]} (= {kernel_layers(c, dec)} x "
+               f"{res['steps']} steps)" if dec
                else " (decode runs no kernel)") + ", every other kernel 0")
         say("serving", f"{arch} bf16{what}, {slots} slots, burst of 8: "
             f"{res['tok_s']:.1f} tok/s aggregate, latency p50 "
@@ -2060,6 +2152,9 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
                else "")
     res, counts = continuous(cfg, cf_what)
     solo_cfg = cfg
+    if hybrid:
+        guard_probe(torch, np, serving, analysis, sanitize, cfg, params,
+                    slots, max_len, dev)
     if moe:
         moe_probe(torch, np, serving, models, analysis, sanitize, cfg,
                   params, slots, max_len, dev)
@@ -2107,15 +2202,21 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
             f"{busy_ms:.2f} ms)")
     if moe:
         moe_share(torch, models, tree, cfg, params, slots, busy_ms, dev)
+    if hybrid:
+        mamba_share(torch, models, tree, cfg, params, slots, busy_ms, dev)
     p_wall, p_busy, p_by = profile_prefill(
         torch, np, serving, cfg, params, slots, max_len,
         prompt_len=max(prompt_lens), dev=dev)
-    k_ms, k_n = kernel_time(p_by, pre)
+    shares = []
+    for name in pre:
+        k_ms, k_n = kernel_time(p_by, name)
+        shares.append(f"{name} {k_ms:.3f} ms x{k_n:.0f} "
+                      f"({100 * k_ms / max(p_busy, 1e-9):.1f}% of the busy "
+                      "time)")
     say("serving", f"{arch} prefill of {max(prompt_lens)} tokens through "
         f"DecodeEngine.admit, torch.profiler window of 3: wall "
         f"{p_wall:.2f} ms without the profiler, device busy {p_busy:.2f} ms; "
-        f"{pre} {k_ms:.3f} ms x{k_n:.0f} "
-        f"({100 * k_ms / max(p_busy, 1e-9):.1f}% of the busy time)")
+        + "; ".join(shares))
 
     _, prompt_gen, decode_gen = serve.demo_generators(SEED, dev)
     ops.reset_launches()
@@ -2136,17 +2237,18 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
         f"{lock['decode_s'] * 1e3:.1f} ms")
     del params
     torch.cuda.empty_cache()
+    if hybrid:
+        hybrid_f14(torch, np, models, cfg, dev=dev)
     say("serving", f"{arch} cell took {time.perf_counter() - t_cell:.1f} s")
     return counts
 
 
-def moe_probe(torch, np, serving, models, analysis, sanitize, cfg, params,
-              slots, max_len, dev="cuda"):
+def guard_probe(torch, np, serving, analysis, sanitize, cfg, params, slots,
+                max_len, dev="cuda"):
     """An engine with every slot leased at pos 256: three admits and a step
     unguarded (the first calls), then the fourth admit and a decode step
-    under the transfers guard, where any host sync torch reports raises;
-    then one step with ``_route_group`` watched: the share of the step's
-    assignments that capacity dropped, layer by layer."""
+    under the transfers guard, where any host sync torch reports raises.
+    Returns the engine."""
     engine = serving.DecodeEngine(cfg, params, max_slots=slots,
                                   max_len=max_len, device=dev)
     rng = np.random.default_rng(SEED)
@@ -2170,7 +2272,16 @@ def moe_probe(torch, np, serving, models, analysis, sanitize, cfg, params,
     say("serving", f"{cfg.name} one admit (256 tokens) and one decode step "
         "under sanitize.guard() with the transfers mode on: no host sync "
         f"({guarded} guarded scope, {refused} refused)")
+    return engine
 
+
+def moe_probe(torch, np, serving, models, analysis, sanitize, cfg, params,
+              slots, max_len, dev="cuda"):
+    """``guard_probe``, then one step with ``_route_group`` watched: the
+    share of the step's assignments that capacity dropped, layer by
+    layer."""
+    engine = guard_probe(torch, np, serving, analysis, sanitize, cfg, params,
+                         slots, max_len, dev)
     route = models.moe._route_group
     seen = []
 
@@ -2215,6 +2326,102 @@ def moe_share(torch, models, tree, cfg, params, slots, busy_ms, dev="cuda"):
         f"{nbytes / 1e9:.2f} GB of weights at {HBM_BYTES_PER_S / 1e12:.2f} "
         f"TB/s), {100 * b_ms / ms:.0f}% of it")
     del flush
+
+
+def mamba_share(torch, models, tree, cfg, params, slots, busy_ms, dev="cuda"):
+    """A hybrid decode step's Mamba2 layers alone: a (slots, 1, d) bf16
+    input through every group's and the tail's ``ssm_stack_decode`` in
+    turn, on a scratch cache, in a profiler window of 3 passes (device
+    busy ms a pass, as the step's busy ms is taken: the layers' ~3,000
+    launches take longer to enqueue than the card to run, so CUDA events
+    would time the host), beside the step's busy ms and the bound of
+    reading their weights and reading and writing their fp32 states
+    once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tfm = models.transformer
+    trunk = params["trunk"]
+    cache = tfm.init_cache(cfg, slots, 2, device=dev)
+    stacks = [(tfm.layer(trunk["groups"], g), tfm.layer(cache["groups"], g))
+              for g in range(cfg.num_layers // cfg.shared_attn_every)]
+    if "tail" in trunk:
+        stacks.append((trunk["tail"], cache["tail"]))
+    x = torch.randn((slots, 1, cfg.d_model), device=dev).to(torch.bfloat16)
+
+    def run():
+        y = x
+        for p, c in stacks:
+            y = tfm.ssm_stack_decode(p, cfg, y, c)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+    ms, _ = device_window(prof, 3)
+    weights = sum(t.numel() * t.element_size() for name in ("groups", "tail")
+                  if name in trunk for t in tree.tree_leaves(trunk[name]))
+    states = sum(c[leaf].numel() * c[leaf].element_size()
+                 for _, c in stacks for leaf in c)
+    b_ms, _ = bound(weights + 2 * states, 0, "bfloat16")
+    share = (f"{100 * ms / busy_ms:.1f}% of the step's busy {busy_ms:.2f} ms"
+             if busy_ms > 0 and ms > 0 else "a share not measured")
+    say("serving", f"{cfg.name} decode step's {cfg.num_layers} Mamba2 layers "
+        f"alone ({slots} rows): device busy {ms:.3f} ms, {share}; bound "
+        f"{b_ms:.3f} ms (their {weights / 1e9:.2f} GB of weights read and "
+        f"{states / 1e9:.3f} GB of states and conv buffers read and "
+        f"written at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)"
+        + (f", {100 * b_ms / ms:.0f}% of it" if ms > 0 else ""))
+
+
+F14_TOL = 1e-3  # fp32 at full width, absolute and relative
+
+
+def hybrid_f14(torch, np, models, cfg, prompt_len: int = 256,
+               steps: int = 8, dev="cuda"):
+    """F14 at full width, in fp32 with TF32 off: the port's prefill of a
+    ``prompt_len``-token prompt, then ``steps`` decode steps, against a
+    decode loop over the same tokens from the zero cache. The logits at
+    every prompt position and at every step after it must agree within
+    F14_TOL + F14_TOL |ref|."""
+    t0 = time.perf_counter()
+    c32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    params = models.init_policy(
+        c32, generator=torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
+    S, ML = prompt_len, prompt_len + steps
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (1, ML))).to(dev)
+    logits, _, cache = models.policy_prefill(params, c32, toks[:, :S],
+                                             max_len=ML)
+    got = [logits[0]]
+    for t in range(S, ML):
+        lg, _, cache = models.policy_decode(params, c32, cache,
+                                            toks[:, t:t + 1], t)
+        got.append(lg)
+    got = torch.cat(got)
+    cache = models.init_policy_cache(c32, 1, ML, device=dev)
+    want = []
+    for t in range(ML):
+        lg, _, cache = models.policy_decode(params, c32, cache,
+                                            toks[:, t:t + 1], t)
+        want.append(lg)
+    want = torch.cat(want)
+    e_pre = within_rel(torch, got[:S], want[:S], F14_TOL, F14_TOL,
+                       "F14: the prefill's logits vs the decode loop's")
+    e_dec = within_rel(torch, got[S:], want[S:], F14_TOL, F14_TOL,
+                       "F14: decode after the prefill vs the decode loop")
+    say("serving", f"{cfg.name} F14 at full width ({c32.num_layers} "
+        f"layers, fp32, TF32 off): prefill of {S} tokens then {steps} "
+        f"decode steps vs a decode loop over the {ML} tokens from the "
+        f"zero cache: max |dlogit| {e_pre:.3g} over the prompt, "
+        f"{e_dec:.3g} over the {steps} steps (<= {F14_TOL} + {F14_TOL} "
+        f"|logit|; max |logit| {want.abs().max().item():.3g}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params, cache
+    torch.cuda.empty_cache()
 
 
 def profile_decode(torch, np, serving, cfg, params, slots, max_len,

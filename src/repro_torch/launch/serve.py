@@ -16,10 +16,12 @@ deepseek-coder-33b (GQA: K3 prefill, K4 decode), dbrx-132b (GQA + MoE:
 the same kernels), minicpm3-4b and deepseek-v2-236b (MLA, the latter with
 MoE: K3 prefill with q/k wider than v; the config's naive decode, or K5
 when a caller serves ``cfg.replace(mla_absorb=True)``, as
-``chip_smoke.py`` does) and mamba2-370m (SSM: K6 prefill, recurrent
-decode; a prompt longer than one 128-token chunk must be a whole number
-of chunks). A full-depth MoE model does not fit one card; the CLI, like
-the reference's, has no depth flag. Runs on the card
+``chip_smoke.py`` does), mamba2-370m (SSM: K6 prefill, recurrent
+decode) and zamba2-7b (hybrid: K6 prefill in its 81 Mamba2 layers, K3
+prefill and K4 decode in the 13 applications of its shared attention
+block); for the last two a prompt longer than one 128-token chunk must be
+a whole number of chunks. A full-depth MoE model does not fit one card;
+the CLI, like the reference's, has no depth flag. Runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given; without
 a CUDA device the default raises.
 
@@ -36,6 +38,8 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         --batch 8 --prompt-len 64 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+        --continuous --requests 8 --slots 4 --prompt-len 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --continuous --requests 8 --slots 4 --prompt-len 512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \\
         --reduced --device cpu --continuous --requests 16 --slots 4 --gen 16

@@ -4,8 +4,9 @@ The same functional surface as ``repro.models``, for the families ported
 so far — the paper's CNNs and MLP (``family == "cnn"``), the dense decoder
 with GQA or MLA attention (qwen2-7b, glm4-9b, deepseek-coder-33b,
 minicpm3-4b), the MoE decoder with GQA or MLA attention (``family ==
-"moe"``: dbrx-132b, deepseek-v2-236b) and the Mamba2 SSM (``family ==
-"ssm"``, mamba2-370m):
+"moe"``: dbrx-132b, deepseek-v2-236b), the Mamba2 SSM (``family ==
+"ssm"``, mamba2-370m) and the hybrid of Mamba2 groups and one shared
+attention block (``family == "hybrid"``, zamba2-7b):
 
 * ``init_policy(cfg, *, generator, device)``           -> params
 * ``policy_apply(params, cfg, obs)``  -> (logits, values, {})  (CNN family)

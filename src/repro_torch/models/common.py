@@ -29,12 +29,12 @@ def dense_init(generator, in_dim: int, out_dim: int, dtype, scale: float = 1.0):
     std = scale / math.sqrt(in_dim)
     w = torch.randn((in_dim, out_dim), generator=generator,
                     device=generator.device)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)  # in place: one fp32 draw alive, not two
 
 
 def embed_init(generator, vocab: int, dim: int, dtype):
     w = torch.randn((vocab, dim), generator=generator, device=generator.device)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 def init_linear(generator, in_dim: int, out_dim: int, dtype,

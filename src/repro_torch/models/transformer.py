@@ -1,5 +1,5 @@
-"""Decoder trunks of the dense and MoE (GQA or MLA) and SSM families: init,
-prefill, decode step, cache.
+"""Decoder trunks of the dense and MoE (GQA or MLA), SSM and hybrid
+families: init, prefill, decode step, cache.
 
 The port's counterpart of ``repro/models/transformer.py`` for the families
 served so far. Layer parameters are stacked on a leading layer axis, as the
@@ -7,15 +7,28 @@ reference's scanned stack lays them out, and the layers run as a Python
 loop over that axis. An MoE trunk (DeepSeek-V2, DBRX) runs its
 ``first_dense_layers`` with a dense FFN as a stack of their own,
 ``"first"``, before ``"layers"``, whose blocks carry a ``"moe"`` FFN
-(``moe.py``). Every cache leaf is per layer ``(L, B, ...)``, as in the
-reference: GQA's ``{"k", "v"}`` (L, B, slots, Hkv, D), MLA's ``{"c",
-"kr"}`` (L, B, slots, rank / rope), Mamba2's conv buffers and fp32 state;
-an MoE trunk's cache is ``{"first": {"attn": ...}, "layers": {"attn":
-...}}``. ``decode_step`` updates the cache in place (see ``attention.py``
-and ``ssm.py``).
+(``moe.py``). A hybrid trunk (Zamba2) runs ``"groups"``, a stack of stacks
+(n_groups, shared_attn_every, ...) of Mamba2 blocks, each group followed by
+one application of the single ``"shared"`` attention + dense FFN block
+(one weight copy, no layer axis), then a ``"tail"`` stack of the remaining
+``num_layers % shared_attn_every`` Mamba2 blocks. Every cache leaf is per
+layer ``(L, B, ...)``, as in the reference: GQA's ``{"k", "v"}`` (L, B,
+slots, Hkv, D), MLA's ``{"c", "kr"}`` (L, B, slots, rank / rope), Mamba2's
+conv buffers and fp32 state; an MoE trunk's cache is ``{"first": {"attn":
+...}, "layers": {"attn": ...}}``, a hybrid's ``{"groups": (n_groups,
+every, B, ...), "shared": {"attn": ...} (n_groups, B, ...), "tail": (rem,
+B, ...)}``: one K/V cache per application of the shared block.
+``decode_step`` updates the cache in place (see ``attention.py`` and
+``ssm.py``).
+
+Unlike the reference, whose hybrid ``prefill`` returns the zero cache, the
+port's fills it: every Mamba2 layer's final state and conv tails and each
+shared application's K/V, as decoding the prompt token by token from the
+zero cache would leave them.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -38,12 +51,15 @@ def _check_family(cfg) -> None:
     dense = (cfg.family == "dense" and attention and cfg.d_ff
              and not cfg.num_experts and not cfg.first_dense_layers)
     moe = cfg.family == "moe" and attention and cfg.num_experts
-    if (not (dense or moe or cfg.family == "ssm") or cfg.is_encoder_decoder
-            or cfg.frontend_dim or cfg.prefix_len):
+    hybrid = (cfg.family == "hybrid" and attention and cfg.d_ff
+              and not cfg.num_experts
+              and 1 <= cfg.shared_attn_every <= cfg.num_layers)
+    if (not (dense or moe or hybrid or cfg.family == "ssm")
+            or cfg.is_encoder_decoder or cfg.frontend_dim or cfg.prefix_len):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE (GQA or MLA) and SSM "
-            "families are ported yet; hybrid, encoder-decoder and vision "
-            "trunks wait for ROADMAP.md Queue 1, item 11")
+            f"{cfg.name}: only the dense, MoE, SSM and hybrid families are "
+            "ported yet; encoder-decoder and vision trunks wait for "
+            "ROADMAP.md Queue 1, item 11")
 
 
 # ---------------------------------------------------------------------------
@@ -124,12 +140,14 @@ def ssm_block_decode(p, cfg, x, cache):
 # ---------------------------------------------------------------------------
 
 
-def _stack_init(make, n: int):
-    """``n`` layers from ``make()`` stacked on a leading axis. Each stacked
-    leaf is allocated once, from the first layer's shapes, and each layer
-    is copied into its slice as soon as it is drawn: the peak is the stack
-    plus one layer, not twice the stack. The draws are those of ``n``
-    calls of ``make()`` in order."""
+def _stack_init(make, *dims: int):
+    """``prod(dims)`` layers from ``make()`` stacked on leading axes
+    ``dims`` (one axis for a stack, two for the hybrid's stack of groups).
+    Each stacked leaf is allocated once, from the first layer's shapes, and
+    each layer is copied into its slice as soon as it is drawn: the peak is
+    the stack plus one layer, not twice the stack. The draws are those of
+    ``prod(dims)`` calls of ``make()`` in order, the last axis fastest."""
+    n = math.prod(dims)
     first = make()
     out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
     tree_map(lambda dst, src: dst[0].copy_(src), out, first)
@@ -138,7 +156,7 @@ def _stack_init(make, n: int):
         one = make()
         tree_map(lambda dst, src: dst[i].copy_(src), out, one)
         del one
-    return out
+    return tree_map(lambda t: t.view(tuple(dims) + tuple(t.shape[1:])), out)
 
 
 def layer(tree, i: int):
@@ -146,6 +164,12 @@ def layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _hybrid_dims(cfg):
+    """(every, n_groups, rem): Mamba2 layers a group, groups, tail layers."""
+    every = cfg.shared_attn_every
+    return (every,) + divmod(cfg.num_layers, every)
 
 
 def _stacks(cfg):
@@ -165,6 +189,15 @@ def init_model(generator, cfg):
     if cfg.family == "ssm":
         p["layers"] = _stack_init(
             lambda: init_ssm_block(generator, cfg, dtype), cfg.num_layers)
+    elif cfg.family == "hybrid":
+        every, n_groups, rem = _hybrid_dims(cfg)
+        p["groups"] = _stack_init(
+            lambda: init_ssm_block(generator, cfg, dtype), n_groups, every)
+        if rem:
+            p["tail"] = _stack_init(
+                lambda: init_ssm_block(generator, cfg, dtype), rem)
+        p["shared"] = init_attn_block(generator, cfg, dtype,
+                                      dense_ff=cfg.d_ff)
     else:
         for name, n in _stacks(cfg):
             ff = (cfg.dense_d_ff or cfg.d_ff) if name == "first" else 0
@@ -190,24 +223,33 @@ def x_final(params, cfg, x):
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device):
-    """Zeroed per-layer cache, each leaf (L, batch, ...). The SSM state is
-    fp32 whatever ``dtype`` is; an SSM cache does not depend on
+    """Zeroed per-layer cache, each leaf (L, batch, ...); a hybrid's
+    ``"groups"`` leaves are (n_groups, every, batch, ...). The SSM state is
+    fp32 whatever ``dtype`` is; a Mamba2 cache does not depend on
     ``max_len``."""
     _check_family(cfg)
     if dtype is None:
         dtype = dtype_of(cfg.cache_dtype or cfg.compute_dtype)
-    if cfg.family == "ssm":
-        one = ssm.init_mamba2_cache(cfg, batch, dtype, "meta")
-        stacks = [("layers", cfg.num_layers)]
-    else:
+    if cfg.family in ("ssm", "hybrid"):
+        mamba = ssm.init_mamba2_cache(cfg, batch, dtype, "meta")
+    if cfg.family != "ssm":
         init = (attn.init_mla_cache if cfg.attention == "mla"
                 else attn.init_gqa_cache)
         one = {"attn": init(cfg, batch, max_len, dtype, "meta")}
-        stacks = _stacks(cfg)
-    return {name: tree_map(lambda t: torch.zeros((n,) + tuple(t.shape),
-                                             dtype=t.dtype, device=device),
-                       one)
-            for name, n in stacks}
+    if cfg.family == "ssm":
+        stacks = [("layers", mamba, (cfg.num_layers,))]
+    elif cfg.family == "hybrid":
+        every, n_groups, rem = _hybrid_dims(cfg)
+        stacks = [("groups", mamba, (n_groups, every)),
+                  ("shared", one, (n_groups,))]
+        if rem:
+            stacks.append(("tail", mamba, (rem,)))
+    else:
+        stacks = [(name, one, (n,)) for name, n in _stacks(cfg)]
+    return {name: tree_map(lambda t: torch.zeros(dims + tuple(t.shape),
+                                                 dtype=t.dtype, device=device),
+                           leaves)
+            for name, leaves, dims in stacks}
 
 
 # ---------------------------------------------------------------------------
@@ -215,10 +257,38 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device):
 # ---------------------------------------------------------------------------
 
 
+def _depth(stack) -> int:
+    """Layers in a stack of Mamba2 blocks (its leading axis)."""
+    return len(stack["ln"]["scale"])
+
+
+def _ssm_prefill(params, cache, cfg, x):
+    """The Mamba2 layers of one stack over x (B, S, d); each layer's final
+    state and conv tails land in its slice of ``cache``. Returns x."""
+    for i in range(_depth(params)):
+        x, (state, tails) = ssm_block_forward(layer(params, i), cfg, x)
+        lc = layer(cache, i)
+        lc["state"].copy_(state)
+        for leaf, t in zip(("conv_x", "conv_B", "conv_C"), tails):
+            lc[leaf].copy_(t)
+    return x
+
+
+def _attn_prefill(p, cfg, x, cache, window: int):
+    """One attention block over x (B, S, d); its K/V or MLA latent land in
+    slots [0, S) of ``cache``, one layer's {"attn": ...}. Returns x."""
+    x, _, kv = attn_block_forward(p, cfg, x, window=window)
+    lc = cache["attn"]
+    for leaf, t in zip(lc, kv):  # (k, v) or (c, kr)
+        lc[leaf][:, :t.shape[1]] = t
+    return x
+
+
 def prefill(params, cfg, tokens, *, window: Optional[int] = None,
             max_len: Optional[int] = None):
     """Full-sequence causal pass that also fills the cache: each layer's
-    K/V or MLA latent, or its final SSM state and conv tails.
+    K/V or MLA latent, or its final SSM state and conv tails; a hybrid's
+    too, the shared block's K/V once an application.
 
     ``max_len`` sizes an attention cache with decode headroom (defaults to
     S); slots [S, max_len) stay zero. Returns (hidden (B, S, d), cache).
@@ -229,23 +299,30 @@ def prefill(params, cfg, tokens, *, window: Optional[int] = None,
     B, S, _ = x.shape
     cache = init_cache(cfg, B, max_len or S, device=x.device)
     if cfg.family == "ssm":
-        lc = cache["layers"]
-        for i in range(cfg.num_layers):
-            x, (state, (tx, tB, tC)) = ssm_block_forward(
-                layer(params["layers"], i), cfg, x)
-            lc["state"][i] = state
-            lc["conv_x"][i] = tx.to(lc["conv_x"].dtype)
-            lc["conv_B"][i] = tB.to(lc["conv_B"].dtype)
-            lc["conv_C"][i] = tC.to(lc["conv_C"].dtype)
-        return x_final(params, cfg, x), cache
-    for name, n in _stacks(cfg):
-        lc = cache[name]["attn"]
-        for i in range(n):
-            x, _, kv = attn_block_forward(layer(params[name], i), cfg, x,
-                                          window=win)
-            for leaf, t in zip(lc, kv):  # (k, v) or (c, kr)
-                lc[leaf][i, :, :S] = t.to(lc[leaf].dtype)
+        x = _ssm_prefill(params["layers"], cache["layers"], cfg, x)
+    elif cfg.family == "hybrid":
+        for g in range(_hybrid_dims(cfg)[1]):
+            x = _ssm_prefill(layer(params["groups"], g),
+                             layer(cache["groups"], g), cfg, x)
+            x = _attn_prefill(params["shared"], cfg, x,
+                              layer(cache["shared"], g), win)
+        if "tail" in params:
+            x = _ssm_prefill(params["tail"], cache["tail"], cfg, x)
+    else:
+        for name, n in _stacks(cfg):
+            for i in range(n):
+                x = _attn_prefill(layer(params[name], i), cfg, x,
+                                  layer(cache[name], i), win)
     return x_final(params, cfg, x), cache
+
+
+def ssm_stack_decode(params, cfg, x, cache):
+    """One token through the Mamba2 layers of one stack, each on its slice
+    of ``cache`` (updated in place); the recurrence needs no position.
+    Returns x."""
+    for i in range(_depth(params)):
+        x, _ = ssm_block_decode(layer(params, i), cfg, x, layer(cache, i))
+    return x
 
 
 def decode_step(params, cfg, cache, token, pos, *, window: Optional[int] = None):
@@ -255,10 +332,18 @@ def decode_step(params, cfg, cache, token, pos, *, window: Optional[int] = None)
     """
     win = cfg.sliding_window if window is None else window
     x = embed_tokens(params, cfg, token)
-    if cfg.family == "ssm":  # the recurrence needs no position
-        for i in range(cfg.num_layers):
-            x, _ = ssm_block_decode(layer(params["layers"], i), cfg, x,
-                                    layer(cache["layers"], i))
+    if cfg.family == "ssm":
+        x = ssm_stack_decode(params["layers"], cfg, x, cache["layers"])
+        return x_final(params, cfg, x), cache
+    if cfg.family == "hybrid":
+        for g in range(_hybrid_dims(cfg)[1]):
+            x = ssm_stack_decode(layer(params["groups"], g), cfg, x,
+                                 layer(cache["groups"], g))
+            x, _ = attn_block_decode(params["shared"], cfg, x,
+                                     layer(cache["shared"], g), pos,
+                                     window=win)
+        if "tail" in params:
+            x = ssm_stack_decode(params["tail"], cfg, x, cache["tail"])
         return x_final(params, cfg, x), cache
     for name, n in _stacks(cfg):
         for i in range(n):

@@ -23,8 +23,7 @@ read.
 Prefill is exact-length and batch 1, because right-padding would corrupt
 the SSM recurrence (and a Mamba2 prompt longer than one chunk must be a
 whole number of chunks); every leaf of the small cache, whatever its dtype,
-is then copied into the leased row by explicit indexing (``cache[:, slot]
-= small[:, 0]``).
+is then copied into the leased row along the leaf's row axis (``_place``).
 
 The step reads ``pos``/``seeds``/``tindex`` from host numpy, as the
 reference does, and never waits on device values: positions go up with a
@@ -47,12 +46,20 @@ from repro_torch.utils.sampling import sample_streams
 
 def _place(big, small, slot: int) -> None:
     """Copy the one-row prefill cache ``small`` into row ``slot`` of
-    ``big``; leaves are (L, rows, ...)."""
+    ``big``. A leaf's row axis is the one axis where the W-row leaf and the
+    1-row leaf differ: (L, rows, ...) in most stacks, (n_groups, every,
+    rows, ...) in a hybrid's groups. With one slot the row is the whole
+    leaf."""
     if isinstance(big, dict):
         for k in big:
             _place(big[k], small[k], slot)
         return
-    big[:, slot] = small[:, 0].to(big.dtype)
+    axis = next((i for i, (a, b) in enumerate(zip(big.shape, small.shape))
+                 if a != b), None)
+    if axis is None:
+        big.copy_(small)
+    else:
+        big.select(axis, slot).copy_(small.select(axis, 0))
 
 
 class DecodeEngine:

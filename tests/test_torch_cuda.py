@@ -21,7 +21,8 @@ and bitwise the unsanitized one through K1 and K2, and ``serve --trace
 deepseek-v2-236b (absorbed and naive), glm4-9b and deepseek-coder-33b on
 the card against the CPU, and a reduced MoE engine's admit and decode
 step sync-free under the transfers guard, continuous ≡ solo bitwise at
-capacity factor E / k.
+capacity factor E / k; the hybrid trunk: K3, K4 and K6 at zamba2-7b's
+shapes and reduced zamba2-7b on the card against the CPU.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one. This file imports no JAX, so it also runs on a machine that has
@@ -137,6 +138,7 @@ def test_flash_kernel_with_v_unlike_qk_matches_plain_version(cuda, dtype, B, S,
     (1, 200, 200, 6, 3, 48, 112, True, 0),     # v wider than q/k
     (1, 1, 1, 4, 2, 112, 112, True, 0),        # one query, one key
     (2, 3, 70, 4, 4, 192, 128, False, 0),      # a few queries, one tile
+    (1, 512, 512, 32, 32, 112, 112, True, 0),  # zamba2-7b's prefill, G = 1
 ])
 def test_flash_kernel_at_the_tpu_kernels_widths_matches_plain_version(
         cuda, dtype, B, Sq, Sk, H, Hkv, D, Dv, causal, window):
@@ -162,6 +164,8 @@ def test_flash_kernel_at_the_tpu_kernels_widths_matches_plain_version(
     (2, 150, 16, 1, 32, 32, 90),                 # scalar pos, MQA
     (2, 100, 8, 2, 112, 128, 500),               # pos past S: every slot
     (3, 1, 8, 2, 112, 64, [0, 0, 7]),            # a cache of one slot
+    # zamba2-7b's serving decode step: 32 query heads over 32 KV heads
+    (4, 544, 32, 32, 112, 112, [256, 259, 262, 264]),
 ])
 def test_decode_kernel_at_the_tpu_kernels_widths_matches_plain_version(
         cuda, dtype, B, S, H, Hkv, D, Dv, pos):
@@ -246,6 +250,7 @@ def test_mla_kernel_matches_plain_version(cuda, dtype, W, S, H, R, Rr, pos):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,H,N,chunk", [
     (1, 512, 32, 128, 128),  # mamba2-370m prefill
+    (1, 512, 112, 64, 128),  # zamba2-7b prefill
     (2, 64, 8, 16, 32),      # reduced mamba2-370m
     (1, 100, 4, 32, 100),    # one chunk shorter than 128
 ] + [(2, 3 * Q if Q < 100 else 2 * Q, 6, N, Q)  # every N, chunks of any length
@@ -381,6 +386,7 @@ def test_reduced_qwen2_on_the_card_matches_the_cpu(cuda):
     ("dbrx-132b", False, "decode_attention"),
     ("deepseek-v2-236b", True, "mla_decode_attention"),
     ("deepseek-v2-236b", False, "flash_attention"),
+    ("zamba2-7b", False, "ssd_scan"),
 ])
 def test_reduced_mla_and_ssm_on_the_card_match_the_cpu(cuda, arch, absorb,
                                                        kernel):

@@ -160,7 +160,7 @@ def test_entry_points_run_on_the_card_unless_asked_for_the_cpu(pair):
 
 
 @pytest.mark.parametrize("change", ["sliding_window", "moe", "mla",
-                                    "hybrid"])
+                                    "encoder_decoder"])
 def test_unported_features_raise_and_name_the_roadmap(pair, change):
     cfg = pair[1]
     kw = {"sliding_window": {"sliding_window": 64},
@@ -168,7 +168,8 @@ def test_unported_features_raise_and_name_the_roadmap(pair, change):
           "moe": {"family": "moe", "num_experts": 4,
                   "num_experts_per_tok": 2, "sliding_window": 64},
           "mla": {"attention": "mla", "sliding_window": 64},
-          "hybrid": {"family": "hybrid", "shared_attn_every": 2}}[change]
+          # the hybrid trunk is ported; the encoder-decoder is not
+          "encoder_decoder": {"is_encoder_decoder": True}}[change]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_policy(cfg.replace(**kw), generator=torch.Generator(),
                     device="cpu")
