@@ -72,7 +72,20 @@ paths:
               fp32 within 1e-4 + 1e-4 |ref|; no single PyTorch call
               computes it), at K6_EDGES (every N, chunks 7, 32, 100,
               128, two rows) and at zamba2-7b's prefill shape (H=112
-              N=64), with the same tolerances and times;
+              N=64), with the same tolerances and times; K3 also at
+              pixtral-12b's prefill (B=4, 1024 patches + 512 tokens, 32/8
+              heads of 128), seamless-m4t-large-v2's encoder (B=4 S=1024,
+              16 heads of 64) and a windowed 512-token prefill (window
+              256), and non-causal with Sq != Sk (the cross-attention:
+              seamless's B=4 Sq=128 Sk=1024, timed; Sq < Sk and Sq > Sk
+              ragged); then K4 and K5 with a window (F18: the TPU kernels
+              take none) against their plain versions in fp32 and bf16,
+              windows 1, 7, 64 and 256 on a cache of 1024 at a scalar pos
+              not wrapped, one wrapped five times and per-row positions
+              (one negative: zeros), K4 at G = 1, 4 and 7, K5 at
+              minicpm3-4b's and deepseek-v2-236b's widths, each holding
+              window 0 bitwise against window 1024 (the same slots); both
+              timed at window 256 beside window 0 (W=4, pos 600-900);
 4. rl_model — paac_nature at full size in fp32, one set of weights on the
               CPU and on the card: logits and values of 32 frames agree
               within 1e-4, and one PAAC update on the same replayed
@@ -255,13 +268,18 @@ paths:
               1e-4 on the logits, and each kernel of the path must launch
               once a layer a call (zamba2: K6 once a Mamba2 layer, K3 and
               K4 once an application of the shared block), every other
-              kernel never;
+              kernel never; also qwen2-7b and minicpm3-4b (absorbed) with
+              a window of 16 (a ring the prompt wraps), pixtral-12b (8
+              patches before the text) and seamless-m4t-large-v2 (16
+              frames through the encoder; K3 once an encoder layer and
+              twice a decoder layer, K4 twice a decoder layer);
 7. serving  — six cells, each at full width with random bf16 weights
               from a seed: qwen2-7b (28 layers, d_model 3584; K3
               prefill, K4 decode), minicpm3-4b with the absorbed decode
               (62 layers, d_model 2560, MLA; K3 prefill with q/k 96 and v
-              64 wide, K5 decode), mamba2-370m (48 layers, d_model 1024;
-              K6 prefill, recurrent decode in plain PyTorch), and the MoE
+              64 wide, K5 decode), mamba2-370m (48 layers, d_model
+              1024; K6 prefill, recurrent decode in plain PyTorch), and
+              the MoE
               cells at the depth one card holds: deepseek-v2-236b (8 of
               60 layers: the dense first layer and 7 MoE layers of 160
               experts, top-6, 2 shared; MLA with the absorbed decode; K3
@@ -298,14 +316,39 @@ paths:
               position. zamba2 ends with F14 at full width in fp32 (TF32
               off): its prefill of 256 tokens and 8 decode steps against
               a decode loop over the 264 tokens from the zero cache,
-              logits within 1e-3 + 1e-3 |logit|.
+              logits within 1e-3 + 1e-3 |logit|. qwen2-7b, minicpm3-4b
+              and zamba2-7b then serve the same parameters with a sliding
+              window of 256, a functional check at no published window
+              (``window_cell``: rings of 256 slots, four
+              requests of prompts 128, 200, 333 and 512 tokens, zamba2
+              128 and 512, 64 new tokens each, so the ring wraps in the
+              prefill and in the decode; launches, tok/s, peak memory, a
+              profiled step's busy share and its decode kernel's share),
+              and qwen2-7b checks the window in fp32 at full width cut to
+              4 layers (``window_parity``: prefill of 333 tokens + 16
+              steps vs the decode loop, on the ring and with window=64 a
+              call on a full cache, 1e-3 + 1e-3 |logit|);
+8. prefixed — pixtral-12b (all 40 layers, ~24.5 GB) and
+              seamless-m4t-large-v2 (24 + 24 layers) at every published
+              width through ``policy_prefill`` with ``prefix_embeds`` and
+              ``policy_decode`` (the engine refuses both, as the
+              reference's does): four rows, 1024 random patch or frame
+              embeddings of width 1024, text of 128 and 512 (pixtral) or
+              64 and 128 tokens (seamless), 32 lockstep greedy steps each;
+              K3 once a layer a prefill (seamless: 24 encoder, 24 self, 24
+              cross), K4 once a layer a step (seamless: twice); prefill
+              ms, ms a step, tok/s, a profiled step's busy share; then
+              seamless in fp32 at 2 + 2 layers (``encdec_parity``: prefill
+              of 64 tokens + 8 steps vs a one-token prefill and the decode
+              loop, 1e-3 + 1e-3 |logit|).
 
 TF32 is off for matmuls and convolutions throughout. The line before the
 last is a JSON object with each kernel's numbers and its launches on each
 main path (training, pipeline, agents, train cli, host sync, host
 pipeline, host train cli, host process, host process train cli, replay,
-replay train cli, faults, faults train cli, the analysis legs and the
-six serving cells, each read with the counts set to 0 just before it);
+replay train cli, faults, faults train cli, the analysis legs, the
+six serving cells, the three window cells and the two prefixed cells,
+each read with the counts set to 0 just before it);
 the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
 phase fails, it exits non-zero and prints no result. ``--trace-dir DIR``
@@ -598,6 +641,17 @@ FLASH_SWEEP = (  # (B, S, H, Hkv, D, Dv, window, timed in bf16 as), causal
     (1, 512, 128, 128, 192, 128, 0, "deepseek-v2-236b prefill"),
     # zamba2-7b's shared attention block: 32 query heads over 32 KV heads
     (1, 512, 32, 32, 112, 112, 0, "zamba2-7b prefill"),
+    # the window cells' 512-token prefill into a ring of 256
+    (1, 512, 28, 4, 128, 128, 256, "qwen2-7b prefill, window 256"),
+    # pixtral-12b: 1024 patches + 512 text tokens, four rows; the
+    # seamless-m4t-large-v2 encoder over 1024 frames (causal, F17)
+    (4, 1536, 32, 8, 128, 128, 0, "pixtral-12b prefill"),
+    (4, 1024, 16, 16, 64, 64, 0, "seamless-m4t-large-v2 encoder"),
+)
+FLASH_CROSS = (  # (B, Sq, Sk, H, Hkv, D, timed in bf16 as), non-causal
+    (4, 128, 1024, 16, 16, 64, "seamless-m4t-large-v2 cross prefill"),
+    (2, 37, 300, 32, 8, 128, ""),  # ragged, Sq < Sk
+    (1, 200, 90, 16, 4, 112, ""),  # Sq > Sk
 )
 DECODE_SWEEP = (  # (W, S, H, Hkv, D, Dv, pos, timed in bf16 as)
     (8, 1024, 28, 4, 128, 128, [0, 1, 63, 64, 300, 777, 1000, 1023],
@@ -652,22 +706,64 @@ def phase_kernels(torch, np, F, ref, fa, da):
             row = rows.setdefault("flash_attention", {"max_abs_err": 0.0})
             row["max_abs_err"] = max(row["max_abs_err"], err)
             if dtype == "bfloat16" and timed:
-                ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v), flush)
-                plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v), flush)
+                ms = time_ms(torch, lambda: fa.flash_attention_cuda(
+                    q, k, v, window=window), flush)
+                plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
+                    q, k, v, window=window), flush)
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-                lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+                if window:  # SDPA takes no window: the mask, made once
+                    i = torch.arange(S, device=dev)
+                    wmask = ((i[None, :] <= i[:, None])
+                             & (i[None, :] > i[:, None] - window))
+                    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=wmask, enable_gqa=True), flush)
+                else:
+                    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True), flush)
                 nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
-                flops = 2 * (D + Dv) * flash_pairs(np, S, S, True, 0) * H * B
+                flops = 2 * (D + Dv) * flash_pairs(np, S, S, True, window) * H * B
                 b_ms, b_by = bound(nbytes, flops, dtype)
                 t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by,
                          shape=f"bf16 B={B} S={S} H={H} Hkv={Hkv} D={D} "
-                         f"Dv={Dv} causal ({timed})")
+                         f"Dv={Dv} causal window={window} ({timed})")
                 if "ms" in row:  # a later timed shape, beside the first
                     row.setdefault("other", []).append(t)
                 else:
                     row.update(t)
+                say("kernels", f"K3 timed ({t['shape']}): kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                    f"{b_ms:.4f} ms ({b_by})")
+
+    for dtype in ("float32", "bfloat16"):
+        for B, Sq, Sk, H, Hkv, D, timed in FLASH_CROSS:
+            q = randn(B, Sq, H, D, dtype=dtype)
+            k, v = randn(B, Sk, Hkv, D, dtype=dtype), randn(B, Sk, Hkv, D, dtype=dtype)
+            out = fa.flash_attention_cuda(q, k, v, causal=False)
+            check(tuple(out.shape) == (B, Sq, H, D), f"K3 out {tuple(out.shape)}")
+            plain = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                            causal=False)
+            err = within(torch, out, plain, dtype)
+            rows["flash_attention"]["max_abs_err"] = max(
+                rows["flash_attention"]["max_abs_err"], err)
+            say("kernels", f"K3 flash_attention {dtype} B={B} Sq={Sq} Sk={Sk} "
+                f"H={H} Hkv={Hkv} D={D} non-causal (cross): max_abs_err "
+                f"{err:.3g} ({tolerance(dtype)})")
+            if dtype == "bfloat16" and timed:
+                ms = time_ms(torch, lambda: fa.flash_attention_cuda(
+                    q, k, v, causal=False), flush)
+                plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
+                    q, k, v, causal=False), flush)
+                qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=True), flush)
+                nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
+                b_ms, b_by = bound(nbytes, 2 * 2 * D * Sq * Sk * H * B, dtype)
+                t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         shape=f"bf16 B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} "
+                         f"D={D} non-causal ({timed})")
+                rows["flash_attention"].setdefault("other", []).append(t)
                 say("kernels", f"K3 timed ({t['shape']}): kernel {ms:.4f} ms, "
                     f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                     f"{b_ms:.4f} ms ({b_by})")
@@ -945,6 +1041,167 @@ def phase_latent_kernels(torch, np, F, ref, fa, mk, sk, rows, dev="cuda"):
             f"{y_ref.abs().max().item():.3g}")
     row["other"] = [k6_timed(x, dts, A, Bm, Cm, Dh, Q, "zamba2-7b prefill")]
     rows["ssd_scan"] = row
+    del flush
+
+
+WINDOWS = (1, 7, 64, 256)  # K4/K5 window sweeps, on a cache of WINDOW_S
+WINDOW_S = 1024
+WINDOW_POS = (  # a ring not yet wrapped, one wrapped several times, per row
+    500, 5 * WINDOW_S + 321,
+    [0, 6, 63, 300, WINDOW_S - 1, WINDOW_S + 17, 3 * WINDOW_S + 700, -1])
+K4_WINDOW_HEADS = ((4, 4), (16, 4), (28, 4))  # (H, Hkv): G = 1, 4, 7
+K5_WINDOW_WIDTHS = ((40, 256, 32, 1.0 / math.sqrt(64 + 32), "minicpm3-4b"),
+                    (128, 512, 64, 1.0 / math.sqrt(128 + 64),
+                     "deepseek-v2-236b"))
+
+
+def window_keys(pos, S: int, window: int) -> int:
+    """Live slots a decode reads, summed over the rows (the age rule)."""
+    rows = pos if isinstance(pos, list) else [pos]
+    return sum(min(window or S, p + 1, S) for p in rows if p >= 0)
+
+
+def phase_window_kernels(torch, np, F, ref, da, mk, rows, dev="cuda"):
+    """K4 and K5 with a window (the extension F18) against their plain
+    versions on the card in fp32 and bf16: windows WINDOWS on a cache of
+    WINDOW_S slots, at WINDOW_POS (scalar not wrapped, scalar wrapped five
+    times, per row with a negative row), K4 at G = 1, 4 and 7, K5 at
+    minicpm3-4b's and deepseek-v2-236b's widths. Each case
+    also holds window = 0 bitwise against window = WINDOW_S, whose live
+    slots are the same (the kernels' windowed path adds nothing where the
+    window covers the cache). Then both timed in bf16 at window 256 beside
+    window 0 on the same cache. Adds to ``rows``."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
+    S = WINDOW_S
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=g, device=dev).to(getattr(torch, dtype))
+
+    def as_pos(pos):
+        return (torch.tensor(pos, dtype=torch.int32, device=dev)
+                if isinstance(pos, list) else pos)
+
+    def live_rows(out, pos):
+        """Rows with a live slot (a negative pos gives zeros)."""
+        if not isinstance(pos, list):
+            return slice(None)
+        keep = torch.tensor([p >= 0 for p in pos], device=dev)
+        check(bool((out[~keep] == 0).all()), "a row with a negative pos is "
+              "not zeros")
+        return keep
+
+    k4, k5 = rows["decode_attention"], rows["mla_decode_attention"]
+    cases = 0
+    for dtype in ("float32", "bfloat16"):
+        for H, Hkv in K4_WINDOW_HEADS:
+            D = 128
+            W = 8
+            q = randn(W, H, D, dtype=dtype)
+            kc, vc = randn(W, S, Hkv, D, dtype=dtype), randn(W, S, Hkv, D, dtype=dtype)
+            for pos in WINDOW_POS:
+                p = as_pos(pos)
+                if not isinstance(pos, list):
+                    q1, kc1, vc1 = q[:2], kc[:2], vc[:2]
+                else:
+                    q1, kc1, vc1 = q, kc, vc
+                for window in WINDOWS:
+                    out = da.decode_attention_cuda(q1, kc1, vc1, p,
+                                                   window=window)
+                    plain = ref.decode_attention_ref(
+                        q1.float(), kc1.float(), vc1.float(), p, window=window)
+                    keep = live_rows(out, pos)
+                    err = within(torch, out[keep], plain[keep], dtype)
+                    k4["max_abs_err"] = max(k4["max_abs_err"], err)
+                    cases += 1
+                same = torch.equal(da.decode_attention_cuda(q1, kc1, vc1, p),
+                                   da.decode_attention_cuda(q1, kc1, vc1, p,
+                                                            window=S))
+                check(same, f"K4 {dtype} H={H} Hkv={Hkv} pos={pos}: window 0 "
+                      f"and window {S} (the same slots) differ in bits")
+            say("kernels", f"K4 decode_attention {dtype} W=8 S={S} H={H} "
+                f"Hkv={Hkv} D={D}, windows {WINDOWS} at pos {WINDOW_POS}: "
+                f"within {tolerance(dtype)}; window 0 bitwise window {S}")
+        for H, R, Rr, scale, label in K5_WINDOW_WIDTHS:
+            W = 8
+            ql, qr = randn(W, H, R, dtype=dtype), randn(W, H, Rr, dtype=dtype)
+            c, kr = randn(W, S, R, dtype=dtype), randn(W, S, Rr, dtype=dtype)
+            for pos in WINDOW_POS:
+                p = as_pos(pos)
+                args = ((ql, qr, c, kr) if isinstance(pos, list) else
+                        (ql[:2], qr[:2], c[:2], kr[:2]))
+                for window in WINDOWS:
+                    out = mk.mla_decode_attention_cuda(*args, p, scale, window)
+                    plain = ref.mla_decode_attention_ref(
+                        *(a.float() for a in args), p, scale, window)
+                    keep = live_rows(out, pos)
+                    err = within(torch, out[keep], plain[keep], dtype)
+                    k5["max_abs_err"] = max(k5["max_abs_err"], err)
+                    cases += 1
+                same = torch.equal(
+                    mk.mla_decode_attention_cuda(*args, p, scale),
+                    mk.mla_decode_attention_cuda(*args, p, scale, S))
+                check(same, f"K5 {dtype} {label} pos={pos}: window 0 and "
+                      f"window {S} (the same slots) differ in bits")
+            say("kernels", f"K5 mla_decode_attention {dtype} W=8 S={S} H={H} "
+                f"R={R} Rr={Rr} ({label}), windows {WINDOWS} at pos "
+                f"{WINDOW_POS}: within {tolerance(dtype)}; window 0 bitwise "
+                f"window {S}")
+
+    # timed in bf16: the serving steps' rows at pos 600-900 of a 1024-slot
+    # cache, window 256 beside window 0 (every slot <= pos)
+    pos = [600, 700, 800, 900]
+    p = as_pos(pos)
+    H, Hkv, D = 28, 4, 128
+    q = randn(4, H, D, dtype="bfloat16")
+    kc = randn(4, S, Hkv, D, dtype="bfloat16")
+    vc = randn(4, S, Hkv, D, dtype="bfloat16")
+    for window in (256, 0):
+        ms = time_ms(torch, lambda: da.decode_attention_cuda(
+            q, kc, vc, p, window=window), flush)
+        plain_ms = time_ms(torch, lambda: ref.decode_attention_ref(
+            q, kc, vc, p, window=window), flush)
+        live = ref.live_slots(p, S, window, dev)[:, None, None, :]
+        q4, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=live, enable_gqa=True), flush)
+        keys = window_keys(pos, S, window)
+        nbytes = 2 * (q.numel() * 2 + keys * Hkv * 2 * D) + 4 * 4
+        b_ms, b_by = bound(nbytes, 2 * H * 2 * D * keys, "bfloat16")
+        t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                 bound_by=b_by, shape=f"bf16 W=4 S={S} H={H} Hkv={Hkv} D={D} "
+                 f"pos={pos} window={window} (qwen2-7b widths)")
+        k4.setdefault("other", []).append(t)
+        say("kernels", f"K4 timed ({t['shape']}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; {keys} live slots)")
+    H, R, Rr, scale, label = K5_WINDOW_WIDTHS[0]
+    ql, qr = randn(4, H, R, dtype="bfloat16"), randn(4, H, Rr, dtype="bfloat16")
+    c, kr = randn(4, S, R, dtype="bfloat16"), randn(4, S, Rr, dtype="bfloat16")
+    qcat = torch.cat([ql, qr], dim=-1)[:, :, None]
+    kcat = torch.cat([c, kr], dim=-1)[:, None]
+    for window in (256, 0):
+        ms = time_ms(torch, lambda: mk.mla_decode_attention_cuda(
+            ql, qr, c, kr, p, scale, window), flush)
+        plain_ms = time_ms(torch, lambda: ref.mla_decode_attention_ref(
+            ql, qr, c, kr, p, scale, window), flush)
+        live = ref.live_slots(p, S, window, dev)[:, None, None, :]
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qcat, kcat, c[:, None], attn_mask=live, scale=scale,
+            enable_gqa=True), flush)
+        keys = window_keys(pos, S, window)
+        nbytes = 2 * (ql.numel() * 2 + qr.numel() + keys * (R + Rr)) + 4 * 4
+        flops = 2 * H * keys * (R + Rr) + 2 * H * keys * R
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                 bound_by=b_by, shape=f"bf16 W=4 S={S} H={H} R={R} Rr={Rr} "
+                 f"pos={pos} window={window} ({label} widths)")
+        k5.setdefault("other", []).append(t)
+        say("kernels", f"K5 timed ({t['shape']}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; {keys} live slots)")
+    say("kernels", f"window sweeps: {cases} windowed cases of K4 and K5 "
+        "against their plain versions")
     del flush
 
 
@@ -1936,17 +2193,48 @@ MODEL_CASES = (  # (arch, config changes, prompt length, prefill kernels,
     # prefill, K4 twice a step); two chunks of 32
     ("zamba2-7b", {"num_layers": 5}, 64, ("ssd_scan", "flash_attention"),
      "decode_attention"),
+    # a ring of 16 slots, wrapped by the prompt and the steps (K3 windowed)
+    ("qwen2-7b", {"sliding_window": 16}, 37, K3, "decode_attention"),
+    ("minicpm3-4b", {"mla_absorb": True, "sliding_window": 16}, 37, K3,
+     "mla_decode_attention"),
+    # a prefix of 8 patches; 16 frames through the encoder, each decoder
+    # layer's cross-attention (K3 and K4 twice a decoder layer)
+    ("pixtral-12b", {}, 37, K3, "decode_attention"),
+    ("seamless-m4t-large-v2", {}, 37, K3, "decode_attention"),
 )
 
 
 def kernel_layers(cfg, kernel: str) -> int:
     """Launches of ``kernel`` in one prefill or decode step of ``cfg``: a
     hybrid runs K6 in each Mamba2 layer and its attention kernels once an
-    application of the shared block; every other trunk runs its kernel in
-    every layer."""
+    application of the shared block; an encoder-decoder runs K3 in each
+    encoder layer and twice in each decoder layer (self and cross), K4
+    twice a decoder layer; every other trunk runs its kernel in every
+    layer."""
     if cfg.family == "hybrid" and kernel != "ssd_scan":
         return cfg.num_layers // cfg.shared_attn_every
+    if cfg.is_encoder_decoder:
+        enc = cfg.encoder_layers if kernel == "flash_attention" else 0
+        return enc + 2 * cfg.num_layers
     return cfg.num_layers
+
+
+def front_embeds(torch, cfg, batch: int, generator, dev, dtype=None):
+    """Random front-end embeddings from ``generator`` for a vision trunk's
+    prefix (prefix_len patches) or an encoder-decoder's encoder
+    (encoder_seq_len frames), (batch, n, frontend_dim); None for a text
+    trunk."""
+    if not cfg.frontend_dim:
+        return None
+    n = cfg.prefix_len if cfg.family == "vlm" else cfg.encoder_seq_len
+    x = torch.randn((batch, n, cfg.frontend_dim), generator=generator,
+                    device=dev)
+    return x if dtype is None else x.to(dtype)
+
+
+def prefix_offset(cfg) -> int:
+    """Positions a vision trunk's patches take before the text."""
+    return cfg.prefix_len if cfg.family == "vlm" else 0
 
 
 def phase_model(torch, np, configs, models, ops, tree, dev="cuda"):
@@ -1960,11 +2248,17 @@ def phase_model(torch, np, configs, models, ops, tree, dev="cuda"):
         gpu = tree.tree_map(lambda t: t.to(dev), cpu)
         rng = np.random.default_rng(SEED)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, S)))
+        front = front_embeds(torch, cfg, 2,
+                             torch.Generator().manual_seed(SEED), "cpu")
+        front_g = None if front is None else front.to(dev)
+        off = prefix_offset(cfg)
         ops.reset_launches()
-        lc, _, cache_c = models.policy_prefill(cpu, cfg, toks, max_len=S + 11)
+        lc, _, cache_c = models.policy_prefill(cpu, cfg, toks, front,
+                                               max_len=off + S + 11)
         lg, _, cache_g = models.policy_prefill(gpu, cfg, toks.to(dev),
-                                               max_len=S + 11)
+                                               front_g, max_len=off + S + 11)
         worst = (lc - lg.cpu()).abs().max().item()
+        S = off + S  # the decode positions follow the patch prefix
         steps = [torch.tensor([S, S + 3], dtype=torch.int32), S + 4, S + 5,
                  torch.tensor([S + 6, S + 1], dtype=torch.int32)]
         for pos in steps:
@@ -1986,7 +2280,9 @@ def phase_model(torch, np, configs, models, ops, tree, dev="cuda"):
         check(worst <= MODEL_ATOL, f"reduced {arch} {change} logits: card vs "
               f"CPU {worst:.3g}")
         say("model", f"reduced {arch} {change} fp32 (L={L} d={cfg.d_model}): "
-            f"prefill of {S} + 4 decode steps (per-row and scalar pos), card "
+            f"prefill of {S - off} tokens after {off} patches + 4 decode "
+            "steps (per-row "
+            "and scalar pos), card "
             f"vs CPU max |dlogit| {worst:.3g} <= {MODEL_ATOL}; launches "
             + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
 
@@ -1996,14 +2292,18 @@ SERVING_CELLS = (
      "full": {"num_layers": 28, "d_model": 3584, "num_heads": 28,
               "num_kv_heads": 4, "head_dim": 128, "param_dtype": "bfloat16"},
      "prompt_lens": (128, 200, 333, 512), "prefill": K3,
-     "decode": "decode_attention"},
+     "decode": "decode_attention",
+     # the ring wraps in prefill (333, 512) and in decode (200 + 64)
+     "window": {"prompt_lens": (128, 200, 333, 512), "gen": 64,
+                "parity": True}},
     {"arch": "minicpm3-4b", "change": {"mla_absorb": True},
      "full": {"num_layers": 62, "d_model": 2560, "num_heads": 40,
               "q_lora_rank": 768, "kv_lora_rank": 256, "qk_nope_dim": 64,
               "qk_rope_dim": 32, "v_head_dim": 64, "d_ff": 6400,
               "param_dtype": "bfloat16"},
      "prompt_lens": (128, 200, 333, 512), "prefill": K3,
-     "decode": "mla_decode_attention"},
+     "decode": "mla_decode_attention",
+     "window": {"prompt_lens": (128, 200, 333, 512), "gen": 64}},
     {"arch": "mamba2-370m", "change": {},
      "full": {"num_layers": 48, "d_model": 1024, "ssm_state": 128,
               "ssm_head_dim": 64, "ssm_expand": 2, "ssm_chunk": 128,
@@ -2046,8 +2346,14 @@ SERVING_CELLS = (
      # whole 128-token chunks, as for mamba2-370m
      "prompt_lens": (128, 256, 384, 512),
      "prefill": ("ssd_scan", "flash_attention"),
-     "decode": "decode_attention"},
+     "decode": "decode_attention",
+     # the window on the shared block; whole 128-token chunks
+     "window": {"prompt_lens": (128, 512, 128, 512), "gen": 64}},
 )
+# the window cells' sliding_window: no published config of these models
+# sets one, so 256 is a functional choice, small enough that prompts up to
+# 512 tokens wrap the ring; their tok/s describe no deployment
+WINDOW = 256
 
 
 def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
@@ -2061,8 +2367,11 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
     under the transfers guard, counts the step's dropped assignments and
     times its MoE layers alone. A hybrid cell (zamba2-7b) runs the guarded
     admit and step too, times its Mamba2 layers alone, and ends with the
-    F14 check (``hybrid_f14``). Returns the launch counts of the continuous
-    run at the published factor."""
+    F14 check (``hybrid_f14``). A cell with a ``"window"`` then serves the
+    same parameters with ``sliding_window`` = WINDOW (``window_cell``), and
+    qwen2-7b's checks the window's parity (``window_parity``). Returns the
+    launch counts of each path: the continuous run at the published factor
+    and the window cell's run."""
     from repro_torch.pipeline.queue import TrajectoryQueue
 
     arch = cell["arch"]
@@ -2235,12 +2544,351 @@ def phase_serving(torch, np, configs, models, ops, serve, serving, tree,
         f"steps, launches {lock_counts}; prefill "
         f"{lock['prefill_s'] * 1e3:.1f} ms, decode "
         f"{lock['decode_s'] * 1e3:.1f} ms")
+    paths = {f"{arch} serving": counts}
+    if "window" in cell:
+        paths[f"{arch} window serving"] = window_cell(
+            torch, np, serving, ops, card, cfg, params, slots, expected,
+            **{k: v for k, v in cell["window"].items() if k != "parity"},
+            dev=dev)
     del params
     torch.cuda.empty_cache()
     if hybrid:
         hybrid_f14(torch, np, models, cfg, dev=dev)
+    if cell.get("window", {}).get("parity"):
+        window_parity(torch, np, models, cfg, dev=dev)
     say("serving", f"{arch} cell took {time.perf_counter() - t_cell:.1f} s")
+    return paths
+
+
+def window_cell(torch, np, serving, ops, card, cfg, params, slots, expected,
+                prompt_lens, gen: int, dev="cuda"):
+    """The cell's parameters served with ``sliding_window`` = WINDOW (a
+    window changes no parameter's shape): one request a prompt length, each
+    ``gen`` new tokens, through the continuous scheduler on a fresh engine,
+    whose attention caches are rings of WINDOW slots. Every request must
+    finish with tokens in range, the prefill kernels launch once a layer
+    (K3 windowed) per request and the decode kernel once a layer per step;
+    tok/s, the peak memory, and a profiled decode step's busy share and
+    decode kernel's share. Returns the run's launch counts."""
+    from repro_torch.pipeline.queue import TrajectoryQueue
+
+    t0 = time.perf_counter()
+    wcfg = cfg.replace(sliding_window=WINDOW)
+    max_len = max(prompt_lens) + gen
+    rng = np.random.default_rng(SEED + 3)
+    reqs = [serving.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n),
+                            max_new_tokens=gen,
+                            seed=int(rng.integers(0, 2**31 - 1)))
+            for i, n in enumerate(prompt_lens)]
+    q = TrajectoryQueue(depth=max(2, len(reqs)))
+    for r in reqs:
+        q.put(r)
+    q.producer_done()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine = serving.DecodeEngine(wcfg, params, max_slots=slots,
+                                  max_len=max_len, device=dev)
+    rings = attn_slots(engine._cache)
+    check(rings and set(rings) == {WINDOW},
+          f"{cfg.name}: attention caches of {sorted(set(rings))} slots, not "
+          f"rings of {WINDOW}")
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    sched = serving.Scheduler(engine, q, continuous=True)
+    done = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(len(done) == len(reqs), f"{len(done)} of {len(reqs)} requests")
+    for r in done:
+        check(r.status == "done" and len(r.tokens) == gen,
+              f"{cfg.name} window request {r.rid} {r.status}: {r.error}")
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()),
+              f"{cfg.name} window request {r.rid}: token out of range")
+    want = expected(len(reqs), sched.steps)
+    check(counts == want, f"{cfg.name} window: launches {counts}, expected "
+          f"{want}")
+    tokens = sum(len(r.tokens) for r in done)
+    del engine
+    # a profiler window of 2 steps: its event processing is most of a
+    # window's cost at these launch counts
+    wall_ms, busy_ms, _, _, by_name = profile_decode(
+        torch, np, serving, wcfg, params, slots, max_len, steps=2, dev=dev)
+    dec = [k for k, v in want.items() if v and k != "flash_attention"
+           and k != "ssd_scan"]
+    share = ""
+    if busy_ms > 0 and dec:
+        k_ms, k_n = kernel_time(by_name, dec[0])
+        share = (f", {dec[0]} {k_ms:.3f} ms x{k_n:.0f} "
+                 f"({100 * k_ms / busy_ms:.1f}% of it)")
+    say("serving", f"{cfg.name} window {WINDOW}, functional: no published "
+        f"window (rings of {WINDOW} slots, "
+        f"{len(rings)} leaves): {len(reqs)} requests, prompts "
+        f"{list(prompt_lens)}, {gen} new tokens each, {tokens} tokens in "
+        f"{sched.steps} decode steps: {tokens / wall:.1f} tok/s, wall "
+        f"{wall:.3f} s; peak {peak / 1e9:.3f} GB over the parameters (engine "
+        f"and run); launches " + " ".join(f"{k} {v}" for k, v in
+                                          counts.items() if v)
+        + f"; decode step at pos 256-264 (wrapped), a profiler window of 2: "
+        f"wall {wall_ms:.2f} ms, "
+        f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.0f}%){share}; "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
     return counts
+
+
+def attn_slots(cache) -> list:
+    """The slot count of every attention cache leaf: the axis after the
+    rows, (..., rows, slots, Hkv, D) for GQA's k/v and (..., rows, slots,
+    width) for MLA's c/kr."""
+    out = []
+    for key, val in cache.items():
+        if key == "attn":
+            out += [t.shape[-3] if name in ("k", "v") else t.shape[-2]
+                    for name, t in val.items()]
+        elif isinstance(val, dict):
+            out += attn_slots(val)
+    return out
+
+
+PREFIX_CELLS = (
+    # every published width and all 40 layers (about 24.5 GB in bf16): a
+    # prefix of 1024 patch embeddings of width 1024 before the text
+    {"arch": "pixtral-12b",
+     "full": {"num_layers": 40, "d_model": 5120, "num_heads": 32,
+              "num_kv_heads": 8, "head_dim": 128, "d_ff": 14336,
+              "vocab_size": 131072, "prefix_len": 1024, "frontend_dim": 1024,
+              "param_dtype": "bfloat16"},
+     "text_lens": (128, 512), "steps": 32},
+    # every published width, 24 encoder and 24 decoder layers: 1024 frame
+    # embeddings of width 1024 through the (causal, F17) encoder
+    {"arch": "seamless-m4t-large-v2",
+     "full": {"num_layers": 24, "encoder_layers": 24, "d_model": 1024,
+              "num_heads": 16, "num_kv_heads": 16, "head_dim": 64,
+              "d_ff": 8192, "mlp": "gelu", "vocab_size": 256206,
+              "encoder_seq_len": 1024, "frontend_dim": 1024,
+              "is_encoder_decoder": True, "param_dtype": "bfloat16"},
+     "text_lens": (64, 128), "steps": 32, "parity": True},
+)
+
+
+def phase_prefixed(torch, np, configs, models, ops, tree, card, cell,
+                   dev="cuda"):
+    """A vision or encoder-decoder model at full width through
+    ``policy_prefill`` (with ``prefix_embeds``) and ``policy_decode``: the
+    engine refuses both, as the reference's does. Four rows, random front-end
+    embeddings from the seed, one prefill a text length, then ``steps``
+    lockstep greedy decode steps at pos = prefix + text + t. Each prefill
+    must launch K3 once a layer (an encoder-decoder: once an encoder layer,
+    twice a decoder layer) and each step K4 once a layer (twice a decoder
+    layer), the logits must be finite; prefill ms, ms a step, tok/s and a
+    profiled step's busy share. An encoder-decoder cell ends with
+    ``encdec_parity``. Returns the launch counts of the timed calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    arch = cell["arch"]
+    cfg = configs.get_config(arch)
+    check(all(getattr(cfg, k) == v for k, v in cell["full"].items()),
+          f"not the full {arch} config: {cfg}")
+    t_cell = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = models.init_policy(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
+    torch.cuda.synchronize()
+    leaves = tree.tree_leaves(params)
+    p_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(peak <= p_bytes + 12e9, f"{arch}: the init's peak {peak / 1e9:.2f} "
+          f"GB is more than 12 GB over the parameters' {p_bytes / 1e9:.2f}")
+    say("serving", f"{arch}: {sum(t.numel() for t in leaves) / 1e9:.2f} B "
+        f"parameters (bf16, {p_bytes / 1e9:.2f} GB) initialised on the card "
+        f"from seed {SEED} in {time.perf_counter() - t_cell:.1f} s; peak "
+        f"allocated during the init {peak / 1e9:.2f} GB; every published "
+        f"width, {cfg.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder layers"
+           if cfg.is_encoder_decoder else ""))
+    B, steps = 4, cell["steps"]
+    pre = front_embeds(torch, cfg, B,
+                       torch.Generator(device=dev).manual_seed(SEED + 6), dev,
+                       torch.bfloat16)
+    off = prefix_offset(cfg)
+    rng = np.random.default_rng(SEED + 6)
+    k3, k4 = "flash_attention", "decode_attention"
+    want_pre = {name: 0 for name in ops.launches}
+    want_pre[k3] = kernel_layers(cfg, k3)
+    want_step = {name: 0 for name in ops.launches}
+    want_step[k4] = kernel_layers(cfg, k4)
+
+    def run(text_len, n_steps):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (B, text_len))).to(dev)
+        ML = off + text_len + n_steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, cache = models.policy_prefill(params, cfg, toks, pre,
+                                                 max_len=ML)
+        last = logits[:, -1]
+        check(tuple(logits.shape) == (B, off + text_len, cfg.actions()),
+              f"{arch} prefill logits {tuple(logits.shape)}")
+        del logits
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = last.argmax(-1, keepdim=True)
+        for t in range(n_steps):
+            lg, _, cache = models.policy_decode(params, cfg, cache, tok,
+                                                off + text_len + t)
+            tok = lg.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(bool(torch.isfinite(last).all() and torch.isfinite(lg).all()),
+              f"{arch}: non-finite logits")
+        return t1 - t0, t2 - t1, cache, tok
+
+    run(16, 2)  # warm-up
+    total = {name: 0 for name in ops.launches}
+    for text_len in cell["text_lens"]:
+        ops.reset_launches()
+        pre_s, dec_s, cache, tok = run(text_len, steps)
+        counts = dict(ops.launches)
+        want = {k: want_pre[k] + steps * want_step[k] for k in counts}
+        check(counts == want, f"{arch} text {text_len}: launches {counts}, "
+              f"expected {want}")
+        for k, v in counts.items():
+            total[k] += v
+        say("serving", f"{arch} bf16, {B} rows, "
+            + (f"{off} patches + " if off else
+               f"{cfg.encoder_seq_len} frames through the encoder, ")
+            + f"{text_len} text tokens: prefill {pre_s * 1e3:.1f} ms, then "
+            f"{steps} lockstep decode steps {dec_s / steps * 1e3:.2f} ms a "
+            f"step, {B * steps / dec_s:.1f} tok/s; launches {k3} "
+            f"{counts[k3]} (= {want_pre[k3]} a prefill), {k4} {counts[k4]} "
+            f"(= {want_step[k4]} x {steps} steps), every other kernel 0 "
+            f"({card})")
+    # a profiled window of 4 steps at the last cache (the timed run's)
+    pos = off + cell["text_lens"][-1] + steps - 4
+    cache_len = cache["layers"]["attn"]["k"].shape[2]
+    check(pos + 3 < cache_len, f"{arch}: no room for the profiled steps")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(4):
+            lg, _, cache = models.policy_decode(params, cfg, cache, tok, pos + t)
+        torch.cuda.synchronize()
+    busy_ms, by_name = device_window(prof, 4)
+    k_ms, k_n = kernel_time(by_name, k4)
+    say("serving", f"{arch} decode step (torch.profiler window of 4): device "
+        f"busy {busy_ms:.2f} ms a step; {k4} {k_ms:.3f} ms x{k_n:.0f} "
+        f"({100 * k_ms / max(busy_ms, 1e-9):.1f}% of it)")
+    del params, cache, pre
+    torch.cuda.empty_cache()
+    if cell.get("parity"):
+        encdec_parity(torch, np, models, cfg, dev=dev)
+    say("serving", f"{arch} cell took {time.perf_counter() - t_cell:.1f} s")
+    return total
+
+
+def encdec_parity(torch, np, models, cfg, layers: int = 2, prompt_len: int = 64,
+                  steps: int = 8, dev="cuda"):
+    """The encoder-decoder at full width in fp32 with TF32 off, cut to
+    ``layers`` encoder and ``layers`` decoder layers: its prefill of a
+    ``prompt_len``-token prompt with 1024 frames, then ``steps`` decode
+    steps, against the decode loop: a prefill of the first token (which
+    fills the cross cache) and decode steps over the rest. Logits within
+    F14_TOL + F14_TOL |ref|."""
+    t0 = time.perf_counter()
+    c32 = cfg.replace(num_layers=layers, encoder_layers=layers,
+                      param_dtype="float32", compute_dtype="float32")
+    params = models.init_policy(
+        c32, generator=torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
+    frames = front_embeds(torch, c32, 2,
+                          torch.Generator(device=dev).manual_seed(SEED + 7),
+                          dev)
+    S, ML = prompt_len, prompt_len + steps
+    toks = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, (2, ML))).to(dev)
+    logits, _, cache = models.policy_prefill(params, c32, toks[:, :S], frames,
+                                             max_len=ML)
+    got = [logits]
+    for t in range(S, ML):
+        lg, _, cache = models.policy_decode(params, c32, cache,
+                                            toks[:, t:t + 1], t)
+        got.append(lg[:, None])
+    got = torch.cat(got, dim=1)
+    logits, _, cache = models.policy_prefill(params, c32, toks[:, :1], frames,
+                                             max_len=ML)
+    want = [logits]
+    for t in range(1, ML):
+        lg, _, cache = models.policy_decode(params, c32, cache,
+                                            toks[:, t:t + 1], t)
+        want.append(lg[:, None])
+    want = torch.cat(want, dim=1)
+    e_pre = within_rel(torch, got[:, :S], want[:, :S], F14_TOL, F14_TOL,
+                       "encoder-decoder parity: prefill vs decode loop")
+    e_dec = within_rel(torch, got[:, S:], want[:, S:], F14_TOL, F14_TOL,
+                       "encoder-decoder parity: steps vs decode loop")
+    say("serving", f"{cfg.name} parity, {layers} + {layers} layers at full "
+        f"width, fp32, TF32 off, 1024 frames: prefill of {S} tokens then "
+        f"{steps} steps vs a one-token prefill and a decode loop over the "
+        f"{ML} tokens: max |dlogit| {e_pre:.3g} over the prompt, {e_dec:.3g} "
+        f"over the steps (<= {F14_TOL} + {F14_TOL} |logit|; max |logit| "
+        f"{want.abs().max().item():.3g}); {time.perf_counter() - t0:.1f} s")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def window_parity(torch, np, models, cfg, layers: int = 4,
+                  prompt_len: int = 333, steps: int = 16, dev="cuda"):
+    """The window at full width in fp32 with TF32 off, cut to ``layers``
+    layers: the port's prefill of a ``prompt_len``-token prompt, then
+    ``steps`` decode steps, against a decode loop over the same tokens from
+    the zero cache. Twice: on a ring of WINDOW slots (``sliding_window``),
+    and with ``window=64`` per call on a full-length cache, where K4 reads
+    its age mask. The logits at every prompt position and at every step
+    must agree within F14_TOL + F14_TOL |ref|."""
+    t0 = time.perf_counter()
+    c32 = cfg.replace(num_layers=layers, param_dtype="float32",
+                      compute_dtype="float32")
+    params = models.init_policy(
+        c32, generator=torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
+    S, ML = prompt_len, prompt_len + steps
+    toks = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (1, ML))).to(dev)
+    for what, ccfg, window in (
+            (f"ring of {WINDOW}", c32.replace(sliding_window=WINDOW), None),
+            ("window=64 a call, full cache", c32, 64)):
+        logits, _, cache = models.policy_prefill(
+            params, ccfg, toks[:, :S], window=window, max_len=ML)
+        got = [logits[0]]
+        for t in range(S, ML):
+            lg, _, cache = models.policy_decode(
+                params, ccfg, cache, toks[:, t:t + 1], t, window=window)
+            got.append(lg)
+        got = torch.cat(got)
+        slots = cache["layers"]["attn"]["k"].shape[2]
+        cache = models.init_policy_cache(ccfg, 1, ML, device=dev)
+        want = []
+        for t in range(ML):
+            lg, _, cache = models.policy_decode(
+                params, ccfg, cache, toks[:, t:t + 1], t, window=window)
+            want.append(lg)
+        want = torch.cat(want)
+        e_pre = within_rel(torch, got[:S], want[:S], F14_TOL, F14_TOL,
+                           f"window parity ({what}): prefill vs decode loop")
+        e_dec = within_rel(torch, got[S:], want[S:], F14_TOL, F14_TOL,
+                           f"window parity ({what}): steps vs decode loop")
+        say("serving", f"{cfg.name} window parity, {what} ({slots} slots), "
+            f"{layers} layers at full width, fp32, TF32 off: prefill of {S} "
+            f"tokens then {steps} steps vs a decode loop over the {ML} tokens "
+            f"from the zero cache: max |dlogit| {e_pre:.3g} over the prompt, "
+            f"{e_dec:.3g} over the steps (<= {F14_TOL} + {F14_TOL} |logit|; "
+            f"max |logit| {want.abs().max().item():.3g})")
+    del params, cache
+    torch.cuda.empty_cache()
+    say("serving", f"{cfg.name} window parity took "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def guard_probe(torch, np, serving, analysis, sanitize, cfg, params, slots,
@@ -4405,6 +5053,7 @@ def main(argv=None) -> int:
     lap("returns, vtrace")
     rows.update(phase_kernels(torch, np, F, ref, fa, da))
     phase_latent_kernels(torch, np, F, ref, fa, mk, sk, rows)
+    phase_window_kernels(torch, np, F, ref, da, mk, rows)
     lap("kernels")
     phase_rl_model(torch, configs, models, envs, paac, optim, tree)
     # launches of each kernel on each main path, every path driven with the
@@ -4452,10 +5101,14 @@ def main(argv=None) -> int:
     phase_model(torch, np, configs, models, ops, tree)
     lap("model")
     for cell in SERVING_CELLS:
-        by_path[f"{cell['arch']} serving"] = phase_serving(
+        by_path.update(phase_serving(
             torch, np, configs, models, ops, serve, serving, tree, card, cell,
-            analysis, sanitize)
+            analysis, sanitize))
         lap(f"serving {cell['arch']}")
+    for cell in PREFIX_CELLS:
+        by_path[f"{cell['arch']} prefixed"] = phase_prefixed(
+            torch, np, configs, models, ops, tree, card, cell)
+        lap(f"prefixed {cell['arch']}")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -8,7 +8,10 @@
 // denominator and accumulator; output (B, H, Dv) in q's dtype. The TPU
 // kernel takes one scalar pos; this one also takes a per-row (B,) int32 pos,
 // which the serving engine decodes with. pos >= S reads all S slots (the
-// ring cache).
+// ring cache). A window w > 0, which the TPU kernel does not take (an
+// extension, for a call whose window is narrower than its ring), keeps the
+// slots of the reference's age rule: slot j is live iff (pos mod S - j) mod
+// S < min(w, pos + 1) (split_combine.cuh's LiveSlots).
 //
 // What bounds it on the H100: each cached K/V element is used by the G query
 // heads of its KV head, so the work is about G flops a byte in bf16 (7 at
@@ -20,8 +23,11 @@
 // What the design does about it:
 // - The walk is split across blocks: a grid of (Hkv, B, ceil(S / SPLIT))
 //   blocks, each over SPLIT = 64 slots. The grid is sized from the capacity
-//   S; a block whose split starts past pos_b exits at once, so the bytes
-//   read follow the filled length and pos never goes to the host.
+//   S; a block whose split holds no live slot (past pos_b, or wholly
+//   before the window) exits at once, so the bytes read follow the live
+//   slots and pos never goes to the host. Within a split, a tile with no
+//   live slot is skipped, a dead slot's row is zero-filled without a read
+//   and its score masked.
 // - Within a split, K/V tiles of 32 slots stay in the cache's dtype in
 //   shared memory (rows padded by 16 bytes), filled by 16-byte cp.async into
 //   two stages, both issued at the start: the second tile loads while the
@@ -34,9 +40,9 @@
 //   l accumulates value columns 2l, 2l + 1, 2l + 64, 2l + 65.
 // - Each split writes its (m, l, acc[Dv]) in fp32 to scratch the wrapper
 //   allocates; split_combine_kernel (split_combine.cuh, shared with K5), one
-//   block per (query head, row) and a thread a column, merges the splits
-//   0 .. ceil((pos_b + 1) / SPLIT) - 1, summing in split order with loads
-//   that do not wait on each other. Split
+//   block per (query head, row) and a thread a column, merges the live
+//   splits (0 .. ceil((pos_b + 1) / SPLIT) - 1 without a window), summing
+//   in split order with loads that do not wait on each other. Split
 //   boundaries depend on SPLIT alone and no sum uses atomics, so row b's
 //   result depends only on its own q, cache and pos: the same bits whether
 //   it is decoded alone or beside other rows.
@@ -75,19 +81,20 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
 }
 
 // Issue the copy of a tile's BK rows of W elements, `stride` apart in device
-// memory, into shared memory rows `pitch` apart; rows at or past `valid` are
-// zero-filled without a read.
+// memory, into shared memory rows `pitch` apart; row r is slot t0 + r, and
+// a row past the cache or not live is zero-filled without a read.
 template <typename T, int W>
 __device__ __forceinline__ void load_rows(T* dst, int pitch,
                                           const T* __restrict__ src,
-                                          long stride, int valid) {
+                                          long stride, int t0,
+                                          const LiveSlots& live) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CPR = W / VEC;
   static_assert(W % VEC == 0, "row must be a whole number of 16-byte chunks");
   for (int i = threadIdx.x; i < BK * CPR; i += THREADS) {
     const int r = i / CPR;
     const int c = (i % CPR) * VEC;
-    const bool ok = r < valid;
+    const bool ok = t0 + r < live.S && live.at(t0 + r);
     cp_async_16(dst + r * pitch + c, ok ? src + r * stride + c : src,
                 ok ? 16 : 0);
   }
@@ -97,17 +104,19 @@ template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, const int* __restrict__ pos_vec,
-                    int pos_scalar, int S, int H, int Hkv, float scale_log2,
-                    float* __restrict__ part_acc, float* __restrict__ part_ml) {
+                    int pos_scalar, int S, int window, int H, int Hkv,
+                    float scale_log2, float* __restrict__ part_acc,
+                    float* __restrict__ part_ml) {
   using L = Tiles<T, D, DV>;
   constexpr int NP = (DV + 63) / 64;  // column pairs a lane, per head
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
   const int sp = blockIdx.z;
-  const int n = visible_slots(pos_vec, pos_scalar, b, S);
+  const LiveSlots live = live_slots(pos_vec, pos_scalar, b, S, window);
   const int s0 = sp * SPLIT;
-  if (s0 >= n) return;  // past pos: nothing to read, nothing to write
-  const int s1 = min(s0 + SPLIT, n);
+  const int s1 = min(s0 + SPLIT, S);
+  // no live slot: nothing to read, nothing to write (the combine skips it)
+  if (!live.any(s0, s1)) return;
   const int G = H / Hkv;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -121,15 +130,18 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const long v_stride = (long)Hkv * DV;
   const T* kb = kc + (long)b * S * k_stride + (long)hk * D;
   const T* vb = vc + (long)b * S * v_stride + (long)hk * DV;
-  // both tiles of the split in flight at once, each into its own stage
+  // both tiles of the split in flight at once, each into its own stage;
+  // a tile with no live slot is neither loaded nor computed
+  bool tile_live[2];
 #pragma unroll
   for (int st = 0; st < 2; ++st) {
     const int t0 = s0 + st * BK;
-    if (t0 < s1) {
-      load_rows<T, D>(sK + st * L::K, L::KP, kb + t0 * k_stride, k_stride,
-                      min(BK, s1 - t0));
+    tile_live[st] = t0 < s1 && live.any(t0, min(t0 + BK, s1));
+    if (tile_live[st]) {
+      load_rows<T, D>(sK + st * L::K, L::KP, kb + t0 * k_stride, k_stride, t0,
+                      live);
       load_rows<T, DV>(sV + st * L::V, L::VP, vb + t0 * v_stride, v_stride,
-                       min(BK, s1 - t0));
+                       t0, live);
     }
     cp_async_commit();
   }
@@ -153,13 +165,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
   for (int st = 0; st < 2; ++st) {
     const int t0 = s0 + st * BK;
-    if (t0 >= s1) break;
+    if (!tile_live[st]) continue;
     if (st == 0)
       cp_async_wait<1>();  // the first tile landed; the second may be loading
     else
       cp_async_wait<0>();
     __syncthreads();  // tile st (and q) visible to every warp
-    const int valid = min(BK, s1 - t0);
+    const bool lane_live = t0 + lane < s1 && live.at(t0 + lane);
     const T* kr = sK + st * L::K + lane * L::KP;
     const T* sv = sV + st * L::V;
 
@@ -186,7 +198,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int hh = 0; hh < HPW; ++hh) {
       const int gh = warp + WARPS * hh;
       if (gh >= G) continue;
-      const float x = lane < valid ? s[hh] * scale_log2 : NEG_INF;
+      const float x = lane_live ? s[hh] * scale_log2 : NEG_INF;
       float mx = x;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -205,7 +217,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         acc[hh][c][0] *= corr;
         acc[hh][c][1] *= corr;
       }
-      // slots past `valid` have p = 0 and zero-filled v rows
+      // dead slots have p = 0 and zero-filled v rows
 #pragma unroll
       for (int j = 0; j < BK; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
@@ -244,8 +256,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
 template <typename T, int D, int DV>
 int launch(const void* q, const void* kc, const void* vc, void* o,
-           const int* pos_vec, int pos_scalar, float* part, int B, int S,
-           int H, int Hkv, float scale, cudaStream_t stream) {
+           const int* pos_vec, int pos_scalar, int window, float* part,
+           int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
   static_assert(SPLIT == 2 * BK, "a split is the two stages' tiles");
   constexpr size_t smem = Tiles<T, D, DV>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -258,29 +270,30 @@ int launch(const void* q, const void* kc, const void* vc, void* o,
   float* part_ml = part + (long)B * Hkv * nsplit * G * DV;
   decode_split_kernel<T, D, DV><<<dim3(Hkv, B, nsplit), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), pos_vec, pos_scalar, S, H, Hkv,
+      static_cast<const T*>(vc), pos_vec, pos_scalar, S, window, H, Hkv,
       scale * LOG2E, part_acc, part_ml);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_split_combine<T, SPLIT>(part_acc, part_ml,
                                              static_cast<T*>(o), pos_vec,
-                                             pos_scalar, B, S, H, Hkv, DV,
-                                             nsplit, stream);
+                                             pos_scalar, window, B, S, H, Hkv,
+                                             DV, nsplit, stream);
 }
 
 template <typename T, int D>
 int dispatch_dv(int DV, const void* q, const void* kc, const void* vc, void* o,
-                const int* pos_vec, int pos_scalar, float* part, int B, int S,
-                int H, int Hkv, float scale, cudaStream_t stream) {
+                const int* pos_vec, int pos_scalar, int window, float* part,
+                int B, int S, int H, int Hkv, float scale,
+                cudaStream_t stream) {
   switch (DV) {
     case 32:
-      return launch<T, D, 32>(q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
+      return launch<T, D, 32>(q, kc, vc, o, pos_vec, pos_scalar, window, part, B, S, H, Hkv, scale, stream);
     case 64:
-      return launch<T, D, 64>(q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
+      return launch<T, D, 64>(q, kc, vc, o, pos_vec, pos_scalar, window, part, B, S, H, Hkv, scale, stream);
     case 112:
-      return launch<T, D, 112>(q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
+      return launch<T, D, 112>(q, kc, vc, o, pos_vec, pos_scalar, window, part, B, S, H, Hkv, scale, stream);
     case 128:
-      return launch<T, D, 128>(q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
+      return launch<T, D, 128>(q, kc, vc, o, pos_vec, pos_scalar, window, part, B, S, H, Hkv, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -288,18 +301,18 @@ int dispatch_dv(int DV, const void* q, const void* kc, const void* vc, void* o,
 
 template <typename T>
 int dispatch_d(int D, int DV, const void* q, const void* kc, const void* vc,
-               void* o, const int* pos_vec, int pos_scalar, float* part,
-               int B, int S, int H, int Hkv, float scale,
+               void* o, const int* pos_vec, int pos_scalar, int window,
+               float* part, int B, int S, int H, int Hkv, float scale,
                cudaStream_t stream) {
   switch (D) {
     case 32:
-      return dispatch_dv<T, 32>(DV, q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
+      return dispatch_dv<T, 32>(DV, q, kc, vc, o, pos_vec, pos_scalar, window, part, B, S, H, Hkv, scale, stream);
     case 64:
-      return dispatch_dv<T, 64>(DV, q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
+      return dispatch_dv<T, 64>(DV, q, kc, vc, o, pos_vec, pos_scalar, window, part, B, S, H, Hkv, scale, stream);
     case 112:
-      return dispatch_dv<T, 112>(DV, q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
+      return dispatch_dv<T, 112>(DV, q, kc, vc, o, pos_vec, pos_scalar, window, part, B, S, H, Hkv, scale, stream);
     case 128:
-      return dispatch_dv<T, 128>(DV, q, kc, vc, o, pos_vec, pos_scalar, part, B, S, H, Hkv, scale, stream);
+      return dispatch_dv<T, 128>(DV, q, kc, vc, o, pos_vec, pos_scalar, window, part, B, S, H, Hkv, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -309,7 +322,8 @@ int dispatch_d(int D, int DV, const void* q, const void* kc, const void* vc,
 }  // namespace repro_torch
 
 // C interface, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. pos_vec
-// is a device pointer to B int32 positions, or null to use pos_scalar.
+// is a device pointer to B int32 positions, or null to use pos_scalar;
+// window is 0 (slots 0..pos) or the ring's window (> 0).
 // part is fp32 scratch on the card of at least B * Hkv * nsplit * (H / Hkv)
 // * (Dv + 2) floats, nsplit = ceil(S / SPLIT); a caller whose nsplit differs
 // (another SPLIT) is refused. Returns the CUDA error code of the launches
@@ -317,19 +331,21 @@ int dispatch_d(int D, int DV, const void* q, const void* kc, const void* vc,
 extern "C" int decode_attention_fwd(const void* q, const void* kc,
                                     const void* vc, void* o,
                                     const void* pos_vec, int pos_scalar,
-                                    void* part, int nsplit, int B, int S,
+                                    int window, void* part, int nsplit,
+                                    int B, int S,
                                     int H, int Hkv, int D, int Dv, int dtype,
                                     float scale, void* stream) {
   using namespace repro_torch;
   if (Hkv < 1 || H % Hkv != 0 || H / Hkv > GMAX) return (int)cudaErrorInvalidValue;
-  if (S < 1 || nsplit != (S + SPLIT - 1) / SPLIT) return (int)cudaErrorInvalidValue;
+  if (S < 1 || nsplit != (S + SPLIT - 1) / SPLIT || window < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pv = static_cast<const int*>(pos_vec);
   float* pt = static_cast<float*>(part);
   if (dtype == 0)
-    return dispatch_d<float>(D, Dv, q, kc, vc, o, pv, pos_scalar, pt, B, S, H, Hkv, scale, st);
+    return dispatch_d<float>(D, Dv, q, kc, vc, o, pv, pos_scalar, window, pt, B, S, H, Hkv, scale, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, Dv, q, kc, vc, o, pv, pos_scalar, pt, B, S, H, Hkv, scale, st);
+    return dispatch_d<__nv_bfloat16>(D, Dv, q, kc, vc, o, pv, pos_scalar, window, pt, B, S, H, Hkv, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

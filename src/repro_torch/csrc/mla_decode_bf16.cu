@@ -8,7 +8,9 @@
 //     s_k = (q_lat . c_k + q_rope . kr_k) * scale,   k <= pos_b
 //     out = sum_k softmax(s)_k c_k                   (B, H, R), bf16
 // with a scalar or a per-row (B,) int32 pos, pos >= S reading all S slots
-// and a negative pos giving zeros.
+// and a negative pos giving zeros. A window w > 0, which the TPU kernel does
+// not take (an extension, as K4's), keeps the ring's slots of age < min(w,
+// pos + 1) (split_combine.cuh's LiveSlots).
 //
 // What bounds it on the H100: every cached latent element is used by all H
 // heads twice (score and combine), about 2H flops a byte (80 at
@@ -20,8 +22,10 @@
 // What the design does about it (FlashMLA's arrangement, on mma.sync):
 // - Split-K over slots, as K4: a grid of (ceil(H / 16), ceil(S / SPLIT), B)
 //   blocks, each over SPLIT = 64 slots of one row for a tile of 16 heads.
-//   The grid follows the capacity S; a block whose split starts past pos_b
-//   exits, so pos never goes to the host. split_combine.cuh's kernel (K4's)
+//   The grid follows the capacity S; a block whose split holds no live slot
+//   (past pos_b, or wholly before the window) exits, so pos never goes to
+//   the host. A tile with no live slot is skipped; a dead slot's row is
+//   zero-filled without a read and its score masked. split_combine.cuh's kernel (K4's)
 //   merges the splits in split order, without atomics, so a row's bits do
 //   not depend on the batch or on the other rows' positions.
 // - The split's two tiles of 32 slots of (c || kr) are staged once, as bf16
@@ -65,13 +69,33 @@ struct Tiles {
   static constexpr size_t bytes = sizeof(bf16) * (Q + 2 * T);
 };
 
+// Issue the copy of the tile's rows of W bf16 elements (`stride` apart in
+// device memory) into shared memory rows `pitch` apart; row r is slot t0 +
+// r, and a row past the cache or not live is zero-filled without a read
+// (K4's load_rows).
+template <int W>
+__device__ __forceinline__ void live_rows(bf16* dst, int pitch,
+                                          const bf16* __restrict__ src,
+                                          long stride, int t0,
+                                          const LiveSlots& live) {
+  constexpr int CPR = W / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < BK * CPR; i += THREADS) {
+    const int r = i / CPR;
+    const int c = (i % CPR) * 8;
+    const bool ok = t0 + r < live.S && live.at(t0 + r);
+    cp_async_16(dst + r * pitch + c, ok ? src + r * stride + c : src,
+                ok ? 16 : 0);
+  }
+}
+
 template <int R, int RR>
 __global__ void __launch_bounds__(THREADS)
 mla_split_bf16_kernel(const bf16* __restrict__ q_lat,
                       const bf16* __restrict__ q_rope,
                       const bf16* __restrict__ c, const bf16* __restrict__ kr,
                       const int* __restrict__ pos_vec, int pos_scalar, int S,
-                      int H, float scale_log2, float* __restrict__ part_acc,
+                      int window, int H, float scale_log2,
+                      float* __restrict__ part_acc,
                       float* __restrict__ part_ml) {
   using L = Tiles<R, RR>;
   constexpr int KSTEPS = L::KW / 16;  // k-steps of the scores
@@ -87,10 +111,11 @@ mla_split_bf16_kernel(const bf16* __restrict__ q_lat,
   const int h0 = blockIdx.x * HT;
   const int sp = blockIdx.y;
   const int b = blockIdx.z;
-  const int n = visible_slots(pos_vec, pos_scalar, b, S);
+  const LiveSlots live = live_slots(pos_vec, pos_scalar, b, S, window);
   const int s0 = sp * SPLIT;
-  if (s0 >= n) return;  // past pos: nothing to read, nothing to write
-  const int s1 = min(s0 + SPLIT, n);
+  const int s1 = min(s0 + SPLIT, S);
+  // no live slot: nothing to read, nothing to write (the combine skips it)
+  if (!live.any(s0, s1)) return;
   const int nh = min(HT, H - h0);  // heads of this block that exist
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -98,20 +123,21 @@ mla_split_bf16_kernel(const bf16* __restrict__ q_lat,
   const int t = lane & 3;
 
   // the queries and both tiles in flight: group 0 = q + tile 0, group 1 =
-  // tile 1 (empty past the row's end)
+  // tile 1 (empty when the tile has no live slot)
   cp_async_rows<R, THREADS>(sQ, L::KP, q_lat + ((long)b * H + h0) * R, R, HT,
                             nh);
   cp_async_rows<RR, THREADS>(sQ + R, L::KP, q_rope + ((long)b * H + h0) * RR,
                              RR, HT, nh);
+  bool tile_live[2];
 #pragma unroll
   for (int st = 0; st < 2; ++st) {
     const int t0 = s0 + st * BK;
-    if (t0 < s1) {
-      const int valid = min(BK, s1 - t0);
-      cp_async_rows<R, THREADS>(sT + st * L::T, L::KP,
-                                c + ((long)b * S + t0) * R, R, BK, valid);
-      cp_async_rows<RR, THREADS>(sT + st * L::T + R, L::KP,
-                                 kr + ((long)b * S + t0) * RR, RR, BK, valid);
+    tile_live[st] = t0 < s1 && live.any(t0, min(t0 + BK, s1));
+    if (tile_live[st]) {
+      live_rows<R>(sT + st * L::T, L::KP, c + ((long)b * S + t0) * R, R, t0,
+                   live);
+      live_rows<RR>(sT + st * L::T + R, L::KP, kr + ((long)b * S + t0) * RR,
+                    RR, t0, live);
     }
     cp_async_commit();
   }
@@ -136,20 +162,19 @@ mla_split_bf16_kernel(const bf16* __restrict__ q_lat,
 #pragma unroll
   for (int st = 0; st < 2; ++st) {
     const int t0 = s0 + st * BK;
-    if (t0 >= s1) break;
+    if (!tile_live[st]) continue;
     if (st == 0)
       cp_async_wait<1>();  // q and the first tile landed
     else
       cp_async_wait<0>();
     __syncthreads();  // tile st (and q) visible to every warp
     if constexpr (Q_IN_REGS) {
-      if (st == 0) {
+      if (st == 0 || !tile_live[0]) {  // the first tile this split computes
 #pragma unroll
         for (int kk = 0; kk < KSTEPS; ++kk) ldmatrix_x4(qf[kk], qa + kk * 16);
       }
     }
     const bf16* tile = sT + st * L::T;
-    const int valid = min(BK, s1 - t0);
 
     // S = [q_lat || q_rope] [c || kr]^T, 16 heads x 32 slots
     float s[NS][4];
@@ -175,13 +200,13 @@ mla_split_bf16_kernel(const bf16* __restrict__ q_lat,
       }
     }
 
-    // into the log2 domain; slots past the split's end are masked
+    // into the log2 domain; dead slots and slots past the cache are masked
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int slot = 8 * j + 2 * t + (e % 2);
-        s[j][e] = slot < valid ? s[j][e] * scale_log2 : NEG_INF;
+        const int slot = t0 + 8 * j + 2 * t + (e % 2);
+        s[j][e] = slot < s1 && live.at(slot) ? s[j][e] * scale_log2 : NEG_INF;
       }
 
     // online softmax on the fragments, rows g and g + 8
@@ -263,8 +288,9 @@ mla_split_bf16_kernel(const bf16* __restrict__ q_lat,
 
 template <int R, int RR>
 int launch(const void* q_lat, const void* q_rope, const void* c, const void* kr,
-           void* o, const int* pos_vec, int pos_scalar, float* part,
-           int nsplit, int B, int S, int H, float scale, cudaStream_t stream) {
+           void* o, const int* pos_vec, int pos_scalar, int window,
+           float* part, int nsplit, int B, int S, int H, float scale,
+           cudaStream_t stream) {
   constexpr size_t smem = Tiles<R, RR>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       mla_split_bf16_kernel<R, RR>,
@@ -276,35 +302,35 @@ int launch(const void* q_lat, const void* q_rope, const void* c, const void* kr,
   mla_split_bf16_kernel<R, RR><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q_lat), static_cast<const bf16*>(q_rope),
       static_cast<const bf16*>(c), static_cast<const bf16*>(kr), pos_vec,
-      pos_scalar, S, H, scale * LOG2E, part_acc, part_ml);
+      pos_scalar, S, window, H, scale * LOG2E, part_acc, part_ml);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_split_combine<bf16, SPLIT>(
-      part_acc, part_ml, static_cast<bf16*>(o), pos_vec, pos_scalar, B, S, H,
-      1, R, nsplit, stream);
+      part_acc, part_ml, static_cast<bf16*>(o), pos_vec, pos_scalar, window, B,
+      S, H, 1, R, nsplit, stream);
 }
 
 template <int R>
 int dispatch_rr(int RR, const void* ql, const void* qr, const void* c,
-                const void* kr, void* o, const int* pv, int ps, float* part,
+                const void* kr, void* o, const int* pv, int ps, int win, float* part,
                 int ns, int B, int S, int H, float scale, cudaStream_t st) {
   switch (RR) {
-    case 16: return launch<R, 16>(ql, qr, c, kr, o, pv, ps, part, ns, B, S, H, scale, st);
-    case 32: return launch<R, 32>(ql, qr, c, kr, o, pv, ps, part, ns, B, S, H, scale, st);
-    case 64: return launch<R, 64>(ql, qr, c, kr, o, pv, ps, part, ns, B, S, H, scale, st);
+    case 16: return launch<R, 16>(ql, qr, c, kr, o, pv, ps, win, part, ns, B, S, H, scale, st);
+    case 32: return launch<R, 32>(ql, qr, c, kr, o, pv, ps, win, part, ns, B, S, H, scale, st);
+    case 64: return launch<R, 64>(ql, qr, c, kr, o, pv, ps, win, part, ns, B, S, H, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 int dispatch_r(int R, int RR, const void* ql, const void* qr, const void* c,
-               const void* kr, void* o, const int* pv, int ps, float* part,
+               const void* kr, void* o, const int* pv, int ps, int win, float* part,
                int ns, int B, int S, int H, float scale, cudaStream_t st) {
   switch (R) {
-    case 32: return dispatch_rr<32>(RR, ql, qr, c, kr, o, pv, ps, part, ns, B, S, H, scale, st);
-    case 64: return dispatch_rr<64>(RR, ql, qr, c, kr, o, pv, ps, part, ns, B, S, H, scale, st);
-    case 128: return dispatch_rr<128>(RR, ql, qr, c, kr, o, pv, ps, part, ns, B, S, H, scale, st);
-    case 256: return dispatch_rr<256>(RR, ql, qr, c, kr, o, pv, ps, part, ns, B, S, H, scale, st);
-    case 512: return dispatch_rr<512>(RR, ql, qr, c, kr, o, pv, ps, part, ns, B, S, H, scale, st);
+    case 32: return dispatch_rr<32>(RR, ql, qr, c, kr, o, pv, ps, win, part, ns, B, S, H, scale, st);
+    case 64: return dispatch_rr<64>(RR, ql, qr, c, kr, o, pv, ps, win, part, ns, B, S, H, scale, st);
+    case 128: return dispatch_rr<128>(RR, ql, qr, c, kr, o, pv, ps, win, part, ns, B, S, H, scale, st);
+    case 256: return dispatch_rr<256>(RR, ql, qr, c, kr, o, pv, ps, win, part, ns, B, S, H, scale, st);
+    case 512: return dispatch_rr<512>(RR, ql, qr, c, kr, o, pv, ps, win, part, ns, B, S, H, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -314,17 +340,20 @@ int dispatch_r(int R, int RR, const void* ql, const void* qr, const void* c,
 
 // C interface, bound with ctypes; bfloat16 tensors only, the same arguments
 // as mla_decode.cu's mla_decode_fwd: pos_vec is a (B,) int32 device pointer
-// or null to use pos_scalar; part is fp32 scratch of at least B * nsplit * H
-// * (R + 2) floats, nsplit = ceil(S / SPLIT). Returns the CUDA error code of
+// or null to use pos_scalar; window is 0 or the ring's window; part is fp32
+// scratch of at least B * nsplit * H * (R + 2) floats, nsplit = ceil(S /
+// SPLIT). Returns the CUDA error code of
 // the launches (0 = launched).
 extern "C" int mla_decode_bf16_fwd(const void* q_lat, const void* q_rope,
                                    const void* c, const void* kr, void* o,
                                    const int* pos_vec, int pos_scalar,
-                                   void* part, int nsplit, int B, int S, int H,
+                                   int window, void* part, int nsplit, int B,
+                                   int S, int H,
                                    int R, int RR, float scale, void* stream) {
   using namespace repro_torch;
-  if (S < 1 || nsplit != (S + SPLIT - 1) / SPLIT) return (int)cudaErrorInvalidValue;
-  return dispatch_r(R, RR, q_lat, q_rope, c, kr, o, pos_vec, pos_scalar,
+  if (S < 1 || nsplit != (S + SPLIT - 1) / SPLIT || window < 0)
+    return (int)cudaErrorInvalidValue;
+  return dispatch_r(R, RR, q_lat, q_rope, c, kr, o, pos_vec, pos_scalar, window,
                     static_cast<float*>(part), nsplit, B, S, H, scale,
                     static_cast<cudaStream_t>(stream));
 }

@@ -2,8 +2,10 @@
 
 The hand-written CUDA kernel that replaces
 ``repro/kernels/decode_attention.py::decode_attention_pallas``, extended
-to a per-row ``(B,)`` position besides the scalar one. As the TPU kernel
-does, it takes a v cache of its own width Dv and writes (B, H, Dv). It
+to a per-row ``(B,)`` position besides the scalar one, and to a ``window``
+the TPU kernel does not take (a ring's age mask narrower than the ring). As
+the TPU kernel does, it takes a v cache of its own width Dv and writes (B,
+H, Dv). It
 splits each row's cache walk into blocks of ``SPLIT`` slots and merges the
 splits in a second kernel; one call of ``decode_attention_cuda`` is one
 launch of K4. Its plain version is ``ref.decode_attention_ref``;
@@ -34,7 +36,7 @@ def num_splits(S: int) -> int:
     return -(-S // SPLIT)
 
 
-def check_inputs(q, k_cache, v_cache, pos) -> None:
+def check_inputs(q, k_cache, v_cache, pos, window: int = 0) -> None:
     """Raise ``ValueError`` on anything the kernel does not take."""
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.dtype not in DTYPES:
@@ -88,27 +90,38 @@ def check_inputs(q, k_cache, v_cache, pos) -> None:
                          f"int32 tensor, got {type(pos).__name__}")
     elif not -2**31 <= int(pos) < 2**31:
         raise ValueError(f"decode_attention: pos {pos} is out of int32 range")
+    check_window(window, "decode_attention")
+
+
+def check_window(window, what: str) -> None:
+    """A window is a non-negative int32 (0: no window)."""
+    if isinstance(window, (bool, np.bool_)) or not isinstance(
+            window, (int, np.integer)) or not 0 <= int(window) < 2**31:
+        raise ValueError(f"{what}: window must be an int in [0, 2**31), got "
+                         f"{window!r}")
 
 
 def _kernel():
     fn = _build.library("decode_attention").decode_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p] \
             + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def decode_attention_cuda(q, k_cache, v_cache, pos, *, scale=None
-                          ) -> torch.Tensor:
+def decode_attention_cuda(q, k_cache, v_cache, pos, *, scale=None,
+                          window: int = 0) -> torch.Tensor:
     """Launch K4 on ``q``'s card: q (B, H, D), k_cache (B, S, Hkv, D),
-    v_cache (B, S, Hkv, Dv), pos an int or a (B,) int32 tensor -> (B, H, Dv)
-    in q's dtype. Raises on CPU tensors and on any input the kernel does
-    not take; a refused launch raises too."""
+    v_cache (B, S, Hkv, Dv), pos an int or a (B,) int32 tensor, ``window``
+    0 or the ring's window (``ref.live_slots``) -> (B, H, Dv) in q's dtype.
+    Raises on CPU tensors and on any input the kernel does not take; a
+    refused launch raises too."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_cuda: tensors are on {q.device}, "
                          "not on a CUDA device")
-    check_inputs(q, k_cache, v_cache, pos)
+    check_inputs(q, k_cache, v_cache, pos, window)
     B, H, D = q.shape
     _, S, Hkv, Dv = v_cache.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -125,8 +138,9 @@ def decode_attention_cuda(q, k_cache, v_cache, pos, *, scale=None
         fn = _kernel()
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                out.data_ptr(), pos_ptr, pos_scalar, part.data_ptr(), nsplit,
-                B, S, H, Hkv, D, Dv, DTYPES[q.dtype], float(scale), stream)
+                out.data_ptr(), pos_ptr, pos_scalar, int(window),
+                part.data_ptr(), nsplit, B, S, H, Hkv, D, Dv,
+                DTYPES[q.dtype], float(scale), stream)
     if rc != 0:
         msg = _build.error_string("decode_attention", rc)
         raise RuntimeError(f"decode_attention kernel launch failed: {msg} "

@@ -4,7 +4,8 @@ parity path, split-K on the CUDA cores).
 
 The hand-written CUDA kernels that replace
 ``repro/kernels/mla_decode.py::mla_decode_attention_pallas``, extended to a
-per-row ``(B,)`` position besides the scalar one, as K4 is. Both split each
+per-row ``(B,)`` position besides the scalar one and to a ring's
+``window``, as K4 is. Both split each
 row's cache walk into blocks of ``SPLIT`` slots and merge the splits in a
 second kernel (K4's); one call of ``mla_decode_attention_cuda`` is one
 launch of K5. Its plain version is ``ref.mla_decode_attention_ref``;
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import check_window
 from repro_torch.kernels.flash_attention import DTYPES
 
 LATENT_DIMS = (32, 64, 128, 256, 512)  # R the kernel is instantiated for
@@ -41,7 +43,8 @@ def scratch_floats(B: int, S: int, H: int, R: int) -> int:
     return B * num_splits(S) * H * (R + 2)
 
 
-def check_inputs(q_lat, q_rope, c_cache, kr_cache, pos) -> None:
+def check_inputs(q_lat, q_rope, c_cache, kr_cache, pos, window: int = 0
+                 ) -> None:
     """Raise ``ValueError`` on anything the kernel does not take."""
     named = (("q_lat", q_lat), ("q_rope", q_rope), ("c_cache", c_cache),
              ("kr_cache", kr_cache))
@@ -96,27 +99,30 @@ def check_inputs(q_lat, q_rope, c_cache, kr_cache, pos) -> None:
     elif not -2**31 <= int(pos) < 2**31:
         raise ValueError(f"mla_decode_attention: pos {pos} is out of int32 "
                          "range")
+    check_window(window, "mla_decode_attention")
 
 
 def _kernel(name: str):
     fn = getattr(_build.library(name), f"{name}_fwd")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p] \
             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def mla_decode_attention_cuda(q_lat, q_rope, c_cache, kr_cache, pos,
-                              scale: float) -> torch.Tensor:
+                              scale: float, window: int = 0) -> torch.Tensor:
     """Launch K5 on ``q_lat``'s card: q_lat (B, H, R), q_rope (B, H, Rr),
     c_cache (B, S, R), kr_cache (B, S, Rr), pos an int or a (B,) int32
-    tensor -> (B, H, R) in q_lat's dtype. Raises on CPU tensors and on any
-    input the kernel does not take; a refused launch raises too."""
+    tensor, ``window`` 0 or the ring's window -> (B, H, R) in q_lat's
+    dtype. Raises on CPU tensors and on any input the kernel does not take;
+    a refused launch raises too."""
     if q_lat.device.type != "cuda":
         raise ValueError(f"mla_decode_attention_cuda: tensors are on "
                          f"{q_lat.device}, not on a CUDA device")
-    check_inputs(q_lat, q_rope, c_cache, kr_cache, pos)
+    check_inputs(q_lat, q_rope, c_cache, kr_cache, pos, window)
     B, H, R = q_lat.shape
     S, Rr = kr_cache.shape[1], kr_cache.shape[2]
     if isinstance(pos, torch.Tensor):
@@ -133,8 +139,8 @@ def mla_decode_attention_cuda(q_lat, q_rope, c_cache, kr_cache, pos,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q_lat.data_ptr(), q_rope.data_ptr(), c_cache.data_ptr(),
                 kr_cache.data_ptr(), out.data_ptr(), pos_ptr, pos_scalar,
-                part.data_ptr(), num_splits(S), B, S, H, R, Rr, float(scale),
-                stream)
+                int(window), part.data_ptr(), num_splits(S), B, S, H, R, Rr,
+                float(scale), stream)
     if rc != 0:
         msg = _build.error_string(name, rc)
         raise RuntimeError(f"mla_decode_attention kernel launch failed: {msg} "

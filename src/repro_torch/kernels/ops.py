@@ -67,25 +67,31 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
-def decode_attention(q, k_cache, v_cache, pos, *, scale=None):
+def decode_attention(q, k_cache, v_cache, pos, *, scale=None,
+                     window: int = 0):
     """K4. q (B, H, D); k_cache (B, S, Hkv, D); v_cache (B, S, Hkv, Dv);
-    pos an int or a (B,) int32 tensor -> (B, H, Dv)."""
+    pos an int or a (B,) int32 tensor; ``window`` > 0 keeps the ring's
+    slots younger than it (``ref.live_slots``) -> (B, H, Dv)."""
     if q.device.type == "cpu":
-        return _ref.decode_attention_ref(q, k_cache, v_cache, pos, scale=scale)
-    out = decode_attention_cuda(q, k_cache, v_cache, pos, scale=scale)
+        return _ref.decode_attention_ref(q, k_cache, v_cache, pos, scale=scale,
+                                         window=window)
+    out = decode_attention_cuda(q, k_cache, v_cache, pos, scale=scale,
+                                window=window)
     launches["decode_attention"] += 1
     return out
 
 
-def mla_decode_attention(q_lat, q_rope, c_cache, kr_cache, pos, scale: float):
+def mla_decode_attention(q_lat, q_rope, c_cache, kr_cache, pos, scale: float,
+                         window: int = 0):
     """K5. Absorbed queries q_lat (B, H, R) and q_rope (B, H, Rr); latent
     cache c (B, S, R) and roped keys kr (B, S, Rr); pos an int or a (B,)
-    int32 tensor -> the latent output (B, H, R)."""
+    int32 tensor; ``window`` as in ``decode_attention`` -> the latent
+    output (B, H, R)."""
     if q_lat.device.type == "cpu":
         return _ref.mla_decode_attention_ref(q_lat, q_rope, c_cache, kr_cache,
-                                             pos, scale)
+                                             pos, scale, window)
     out = mla_decode_attention_cuda(q_lat, q_rope, c_cache, kr_cache, pos,
-                                    scale)
+                                    scale, window)
     launches["mla_decode_attention"] += 1
     return out
 

@@ -81,45 +81,60 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
     return o.reshape(B, Sq, H, Dv).to(q.dtype)
 
 
-def decode_attention_ref(q, k_cache, v_cache, pos, *, scale=None):
+def live_slots(pos, S: int, window: int, device):
+    """The cache slots a decode step at ``pos`` attends to, as a bool mask:
+    (1, S) for an int ``pos``, (B, S) for a (B,) integer tensor.
+
+    With ``window == 0``, slots 0..pos (all S once pos >= S: the ring
+    cache; none for a negative pos). Otherwise the ring's age rule of
+    ``repro/models/attention.py``: slot j holds the token of age
+    (pos mod S - j) mod S and is live iff that age < min(window, pos + 1).
+    """
+    slots = torch.arange(S, device=device)
+    if isinstance(pos, torch.Tensor):
+        p = pos.to(device=device, dtype=torch.long)[:, None]  # (B, 1)
+    else:
+        p = torch.full((1, 1), int(pos), dtype=torch.long, device=device)
+    if not window:
+        return slots[None, :] <= p
+    age = torch.remainder(torch.remainder(p, S) - slots[None, :], S)
+    return age < torch.clamp(p + 1, max=window)
+
+
+def decode_attention_ref(q, k_cache, v_cache, pos, *, scale=None,
+                         window: int = 0):
     """q: (B, H, D); k_cache: (B, S, Hkv, D); v_cache: (B, S, Hkv, Dv).
     ``pos`` is an int (every row attends to slots <= pos) or a (B,) integer
-    tensor (row b attends to slots <= pos[b]). Returns (B, H, Dv)."""
+    tensor (row b attends to slots <= pos[b]); a ``window`` > 0 keeps only
+    the slots ``live_slots`` gives. Returns (B, H, Dv)."""
     B, H, D = q.shape
     _, S, Hkv, Dv = v_cache.shape
     G = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qg = q.reshape(B, Hkv, G, D).float()
     s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * scale
-    slots = torch.arange(S, device=q.device)
-    if isinstance(pos, torch.Tensor):
-        valid = slots[None, :] <= pos.to(q.device)[:, None]  # (B, S)
-    else:
-        valid = (slots <= int(pos))[None, :]  # (1, S)
+    valid = live_slots(pos, S, window, q.device)  # (B or 1, S)
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return o.reshape(B, H, Dv).to(q.dtype)
 
 
-def mla_decode_attention_ref(q_lat, q_rope, c_cache, kr_cache, pos, scale):
+def mla_decode_attention_ref(q_lat, q_rope, c_cache, kr_cache, pos, scale,
+                             window: int = 0):
     """Latent-space (absorbed) MLA decode. q_lat (B, H, R), q_rope (B, H, Rr),
     c_cache (B, S, R), kr_cache (B, S, Rr); ``pos`` an int or a (B,) integer
-    tensor, as in ``decode_attention_ref``. Returns (B, H, R) in q_lat's
-    dtype:
+    tensor and ``window`` as in ``decode_attention_ref``. Returns (B, H, R)
+    in q_lat's dtype:
 
-        s_k = (q_lat . c_k + q_rope . kr_k) * scale    for k <= pos
+        s_k = (q_lat . c_k + q_rope . kr_k) * scale    for live k
         out = sum_k softmax(s)_k c_k
     """
     c = c_cache.float()
     s = torch.einsum("bhr,bkr->bhk", q_lat.float(), c)
     s = s + torch.einsum("bhr,bkr->bhk", q_rope.float(), kr_cache.float())
     s = s * scale
-    slots = torch.arange(c_cache.shape[1], device=q_lat.device)
-    if isinstance(pos, torch.Tensor):
-        valid = slots[None, :] <= pos.to(q_lat.device)[:, None]  # (B, S)
-    else:
-        valid = (slots <= int(pos))[None, :]  # (1, S)
+    valid = live_slots(pos, c_cache.shape[1], window, q_lat.device)
     s = s.masked_fill(~valid[:, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhk,bkr->bhr", p, c).to(q_lat.dtype)

@@ -5,13 +5,17 @@ so far — the paper's CNNs and MLP (``family == "cnn"``), the dense decoder
 with GQA or MLA attention (qwen2-7b, glm4-9b, deepseek-coder-33b,
 minicpm3-4b), the MoE decoder with GQA or MLA attention (``family ==
 "moe"``: dbrx-132b, deepseek-v2-236b), the Mamba2 SSM (``family ==
-"ssm"``, mamba2-370m) and the hybrid of Mamba2 groups and one shared
-attention block (``family == "hybrid"``, zamba2-7b):
+"ssm"``, mamba2-370m), the hybrid of Mamba2 groups and one shared
+attention block (``family == "hybrid"``, zamba2-7b), the vision decoder
+with a prefix of patch embeddings (``family == "vlm"``, pixtral-12b) and
+the audio encoder-decoder (``family == "audio"``,
+seamless-m4t-large-v2), each with or without a sliding window:
 
 * ``init_policy(cfg, *, generator, device)``           -> params
 * ``policy_apply(params, cfg, obs)``  -> (logits, values, {})  (CNN family)
 * ``init_policy_cache(cfg, batch, max_len, *, device)``  -> decode cache
-* ``policy_prefill(params, cfg, tokens, …)``  -> (logits, values, cache)
+* ``policy_prefill(params, cfg, tokens, prefix_embeds=None, …)``
+  -> (logits, values, cache)
 * ``policy_decode(params, cfg, cache, tok, pos)`` -> (logits, value, cache)
 
 Logits and values are fp32. ``device`` defaults to ``"cuda"`` and raises
@@ -65,11 +69,17 @@ def _heads(params, cfg, hidden):
     return apply_heads(params["heads"], cfg, hidden, embed)
 
 
-def policy_prefill(params, cfg, tokens, *, window: Optional[int] = None,
+def policy_prefill(params, cfg, tokens, prefix_embeds=None, *,
+                   window: Optional[int] = None,
                    max_len: Optional[int] = None):
-    """tokens (B, S) -> (logits (B, S, A), values (B, S), cache)."""
-    hidden, cache = tfm.prefill(params["trunk"], cfg, tokens, window=window,
-                                max_len=max_len)
+    """tokens (B, S) -> (logits (B, S', A), values (B, S'), cache).
+    ``prefix_embeds`` (B, S_pre, frontend_dim): a vision trunk's patch
+    embeddings, put before the tokens (S' = S_pre + S), or an
+    encoder-decoder's frame embeddings, which its encoder reads (S' = S).
+    ``window`` (default ``cfg.sliding_window``) limits each query to its
+    ``window`` newest keys; ``max_len`` sizes the cache (default S')."""
+    hidden, cache = tfm.prefill(params["trunk"], cfg, tokens, prefix_embeds,
+                                window=window, max_len=max_len)
     logits, values = _heads(params, cfg, hidden)
     return logits, values, cache
 

@@ -1,12 +1,20 @@
-"""Attention: grouped-query (GQA) and multi-head latent (MLA), prefill and
-single-token decode over a cache.
+"""Attention: grouped-query (GQA, self and cross) and multi-head latent
+(MLA), prefill and single-token decode over a cache, with or without a
+sliding window.
 
-The port's counterpart of ``repro/models/attention.py``, GQA and MLA
-without sliding windows. Prefill attention runs in kernel K3 (MLA's with q/k
-wider than v), GQA decode in K4 and MLA's absorbed decode in K5, through
-``repro_torch.kernels.ops``: on CUDA tensors the hand-written kernels, on
-CPU tensors their plain versions. MLA's naive decode is plain PyTorch, as
-the reference computes it outside any Pallas kernel.
+The port's counterpart of ``repro/models/attention.py``. Prefill and
+cross-attention run in kernel K3 (MLA's with q/k wider than v), GQA decode
+and the decoder's one-token cross-attention in K4, MLA's absorbed decode in
+K5, through ``repro_torch.kernels.ops``: on CUDA tensors the hand-written
+kernels, on CPU tensors their plain versions. MLA's naive decode is plain
+PyTorch, as the reference computes it outside any Pallas kernel.
+
+A sliding window keeps a ring cache of ``min(max_len, sliding_window)``
+slots: token t lives at slot t % slots, and decode attends to the slots
+younger than ``min(window or slots, pos + 1)``, the reference's age rule.
+With the ring's own size that rule is what K4 and K5 compute without a
+window (slots <= pos, every slot once the ring has filled), so a decode
+passes the kernels a window only when it is narrower than the cache.
 
 Unlike the reference, whose arrays are immutable, ``gqa_decode`` and
 ``mla_decode`` write the new token's cache entries in place and return the
@@ -21,26 +29,29 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import NEG_INF
+from repro_torch.kernels.ref import NEG_INF, live_slots
 from repro_torch.models.common import (apply_rope, init_linear, init_rmsnorm,
                                        linear, rmsnorm)
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, item 11)"
+
+def _slots(cfg, max_len: int) -> int:
+    """Cache slots: a ring of ``min(max_len, sliding_window)`` when the
+    config has a window, else ``max_len``."""
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
 
 
-def _check_window(cfg, window: int) -> None:
-    if window or cfg.sliding_window:
-        raise NotImplementedError(f"sliding-window attention {_NOT_PORTED}")
+def _kernel_window(window: int, slots: int) -> int:
+    """The window a decode passes K4/K5: the reference's ``window or
+    slots``, or 0 where that covers the whole cache (the kernels' rule
+    without a window is the same there)."""
+    win = window or slots
+    return win if win < slots else 0
 
 
 def init_gqa(generator, cfg, dtype, *, cross: bool = False):
     """Weights for grouped-query attention, with QKV bias when the config
-    asks for it."""
-    if cross:
-        raise NotImplementedError(f"cross-attention {_NOT_PORTED}")
-    if cfg.attention != "gqa":
-        raise NotImplementedError(f"{cfg.attention} attention {_NOT_PORTED}")
-    _check_window(cfg, 0)
+    asks for it; ``cross`` (a decoder block's cross-attention) has the
+    same shapes."""
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
         "wq": init_linear(generator, cfg.d_model, H * D, dtype, bias=cfg.qkv_bias),
@@ -51,10 +62,43 @@ def init_gqa(generator, cfg, dtype, *, cross: bool = False):
     }
 
 
+def project_kv(p, cfg, src):
+    """K and V of src (B, Sk, d_model), each (B, Sk, Hkv, D), unroped: of
+    the encoder output, what a decoder block's cross-attention reads and
+    its cross cache holds."""
+    B, Sk, _ = src.shape
+    Hkv, D = cfg.num_kv_heads, cfg.head_dim
+    return (linear(p["wk"], src).reshape(B, Sk, Hkv, D),
+            linear(p["wv"], src).reshape(B, Sk, Hkv, D))
+
+
+def cross_forward(p, cfg, x, k, v):
+    """Cross-attention of x (B, S, d_model) over the K/V (B, Sk, Hkv, D)
+    that ``project_kv`` made of the encoder's output: K3, non-causal, no
+    rope, the function the reference's ``gqa_forward(kv_src=...,
+    causal=False, use_rope=False)`` computes. Returns (B, S, d_model)."""
+    B, S, _ = x.shape
+    H, D = cfg.num_heads, cfg.head_dim
+    q = linear(p["wq"], x).reshape(B, S, H, D)
+    out = ops.flash_attention(q, k, v, causal=False)
+    return linear(p["wo"], out.reshape(B, S, H * D))
+
+
+def cross_decode(p, cfg, x, ck, cv):
+    """One decoder token x (B, 1, d_model) against the cross cache ck/cv
+    (B, Sk, Hkv, D): K4 with every slot live (pos = Sk - 1), the function
+    the reference's ``_cross_decode`` computes."""
+    B = x.shape[0]
+    H, D = cfg.num_heads, cfg.head_dim
+    q = linear(p["wq"], x).reshape(B, H, D).to(ck.dtype)
+    out = ops.decode_attention(q, ck, cv, ck.shape[1] - 1)
+    return linear(p["wo"], out.reshape(B, 1, H * D).to(x.dtype))
+
+
 def gqa_prefill(p, cfg, x, *, window: int = 0):
-    """Causal self-attention over x (B, S, d_model) that also returns the
-    cache contents (roped K, V), each (B, S, Hkv, D)."""
-    _check_window(cfg, window)
+    """Causal self-attention over x (B, S, d_model), each query over the
+    ``window`` newest keys when it is > 0, that also returns the cache
+    contents (roped K, V), each (B, S, Hkv, D)."""
     B, S, _ = x.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = linear(p["wq"], x).reshape(B, S, H, D)
@@ -63,16 +107,18 @@ def gqa_prefill(p, cfg, x, *, window: int = 0):
     pos = torch.arange(S, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True)
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
     return linear(p["wo"], out.reshape(B, S, H * D)), (k, v)
 
 
 def init_gqa_cache(cfg, batch: int, max_len: int, dtype, device):
-    _check_window(cfg, 0)
+    """A ring of ``min(max_len, sliding_window)`` slots under a window,
+    else ``max_len`` slots."""
+    slots = _slots(cfg, max_len)
     Hkv, D = cfg.num_kv_heads, cfg.head_dim
     return {
-        "k": torch.zeros((batch, max_len, Hkv, D), dtype=dtype, device=device),
-        "v": torch.zeros((batch, max_len, Hkv, D), dtype=dtype, device=device),
+        "k": torch.zeros((batch, slots, Hkv, D), dtype=dtype, device=device),
+        "v": torch.zeros((batch, slots, Hkv, D), dtype=dtype, device=device),
     }
 
 
@@ -83,10 +129,11 @@ def gqa_decode(p, cfg, x, cache, pos, *, window: int = 0):
     ``pos`` is an int (every row at the same position — the lockstep
     launcher) or a (B,) int32 tensor on x's device (each row at its own
     position — the serving engine). Row b's token is written at slot
-    ``pos[b] % slots`` and attends to slots <= pos[b]; every op is per row,
-    so row b's output depends only on row b's token, position and cache.
+    ``pos[b] % slots`` and attends to slots <= pos[b], or to the slots
+    younger than ``min(window, pos[b] + 1)`` for a ``window`` narrower than
+    the cache; every op is per row, so row b's output depends only on row
+    b's token, position and cache.
     """
-    _check_window(cfg, window)
     B = x.shape[0]
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     ck, cv = cache["k"], cache["v"]
@@ -108,7 +155,8 @@ def gqa_decode(p, cfg, x, cache, pos, *, window: int = 0):
         k = apply_rope(k, at, cfg.rope_theta)
         ck[:, pos % slots] = k[:, 0].to(ck.dtype)
         cv[:, pos % slots] = v[:, 0].to(cv.dtype)
-    out = ops.decode_attention(q.reshape(B, H, D).to(ck.dtype), ck, cv, pos)
+    out = ops.decode_attention(q.reshape(B, H, D).to(ck.dtype), ck, cv, pos,
+                               window=_kernel_window(window, slots))
     out = out.reshape(B, 1, H * D).to(x.dtype)
     return linear(p["wo"], out), cache
 
@@ -122,7 +170,6 @@ def init_mla(generator, cfg, dtype):
     """Weights for MLA: low-rank queries (when ``q_lora_rank``), the shared
     latent projection to (c_kv || k_rope), and ``wukv`` from the latent to
     each head's (k_nope || v)."""
-    _check_window(cfg, 0)
     device = generator.device
     H = cfg.num_heads
     qk = cfg.qk_nope_dim + cfg.qk_rope_dim
@@ -166,11 +213,11 @@ def _mla_latent(p, cfg, x):
 
 
 def mla_forward(p, cfg, x, *, window: int = 0):
-    """Causal MLA over x (B, S, d_model), through K3 with q/k of width
-    qk_nope + qk_rope and v of width v_head. Returns (out, (c, kr)): the
-    cache contents, the normalised latent (B, S, rank) and the roped shared
-    keys (B, S, rope)."""
-    _check_window(cfg, window)
+    """Causal MLA over x (B, S, d_model), each query over the ``window``
+    newest keys when it is > 0, through K3 with q/k of width qk_nope +
+    qk_rope and v of width v_head. Returns (out, (c, kr)): the cache
+    contents, the normalised latent (B, S, rank) and the roped shared keys
+    (B, S, rope)."""
     B, S, _ = x.shape
     H, nope, rope = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     pos = torch.arange(S, device=x.device)
@@ -183,18 +230,19 @@ def mla_forward(p, cfg, x, *, window: int = 0):
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     v = kv[..., nope:].contiguous()
-    out = ops.flash_attention(q, k, v, causal=True,
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
                               scale=1.0 / math.sqrt(nope + rope))
     y = linear(p["wo"], out.reshape(B, S, H * cfg.v_head_dim))
     return y, (c, k_rope)
 
 
 def init_mla_cache(cfg, batch: int, max_len: int, dtype, device):
-    _check_window(cfg, 0)
+    """The latent cache, with ``init_gqa_cache``'s slots."""
+    slots = _slots(cfg, max_len)
     return {
-        "c": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+        "c": torch.zeros((batch, slots, cfg.kv_lora_rank), dtype=dtype,
                          device=device),
-        "kr": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+        "kr": torch.zeros((batch, slots, cfg.qk_rope_dim), dtype=dtype,
                           device=device),
     }
 
@@ -202,7 +250,7 @@ def init_mla_cache(cfg, batch: int, max_len: int, dtype, device):
 def mla_decode(p, cfg, x, cache, pos, *, window: int = 0):
     """Single-token MLA decode of x (B, 1, d_model) against ``cache`` (one
     layer's {"c" (B, slots, rank), "kr" (B, slots, rope)}). Returns (out,
-    cache); ``pos`` as in ``gqa_decode``.
+    cache); ``pos`` and ``window`` as in ``gqa_decode``.
 
     ``cfg.mla_absorb`` selects the latent-space path: W_uk folded into the
     query (``q_lat``), attention over the latent cache in K5, W_uv applied to
@@ -211,7 +259,6 @@ def mla_decode(p, cfg, x, cache, pos, *, window: int = 0):
     keep the cache dtype with fp32 accumulation and fp32 softmax, as the
     reference's do.
     """
-    _check_window(cfg, window)
     B = x.shape[0]
     H = cfg.num_heads
     nope, vdim, rank = cfg.qk_nope_dim, cfg.v_head_dim, cfg.kv_lora_rank
@@ -240,8 +287,9 @@ def mla_decode(p, cfg, x, cache, pos, *, window: int = 0):
     qr = q_rope[:, 0].to(ckr.dtype).contiguous()  # (B, H, rope)
     if cfg.mla_absorb:
         q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)
-        o_lat = ops.mla_decode_attention(q_lat.to(cc.dtype).contiguous(), qr,
-                                         cc, ckr, pos, scale)  # (B, H, rank)
+        o_lat = ops.mla_decode_attention(
+            q_lat.to(cc.dtype).contiguous(), qr, cc, ckr, pos, scale,
+            _kernel_window(window, slots))  # (B, H, rank)
         out = torch.einsum("bhr,rhv->bhv", o_lat.to(w_uv.dtype), w_uv)
     else:
         kv = torch.einsum("bkr,rhe->bkhe", cc, wukv.to(cc.dtype))
@@ -249,11 +297,9 @@ def mla_decode(p, cfg, x, cache, pos, *, window: int = 0):
         s = torch.einsum("bhn,bkhn->bhk", q_nope[:, 0].to(kv.dtype).float(),
                          k_nope.float())
         s = s + torch.einsum("bhr,bkr->bhk", qr.float(), ckr.float())
-        slot_idx = torch.arange(slots, device=x.device)
-        if isinstance(pos, torch.Tensor):
-            valid = slot_idx[None, :] <= pos[:, None]  # (B, slots)
-        else:
-            valid = (slot_idx <= pos)[None, :]  # (1, slots)
+        # (B or 1, slots): the slots K5 would read
+        valid = live_slots(pos, slots, _kernel_window(window, slots),
+                           x.device)
         s = (s * scale).masked_fill(~valid[:, None, :], NEG_INF)
         pr = torch.softmax(s, dim=-1)
         out = torch.einsum("bhk,bkhv->bhv", pr.to(v.dtype).float(), v.float())

@@ -1,8 +1,8 @@
-"""Decoder trunks of the dense and MoE (GQA or MLA), SSM and hybrid
-families: init, prefill, decode step, cache.
+"""Decoder trunks of the dense and MoE (GQA or MLA), SSM, hybrid, vision
+and audio encoder-decoder families: init, prefill, decode step, cache.
 
-The port's counterpart of ``repro/models/transformer.py`` for the families
-served so far. Layer parameters are stacked on a leading layer axis, as the
+The port's counterpart of ``repro/models/transformer.py``. Layer
+parameters are stacked on a leading layer axis, as the
 reference's scanned stack lays them out, and the layers run as a Python
 loop over that axis. An MoE trunk (DeepSeek-V2, DBRX) runs its
 ``first_dense_layers`` with a dense FFN as a stack of their own,
@@ -21,6 +21,22 @@ B, ...)}``: one K/V cache per application of the shared block.
 ``decode_step`` updates the cache in place (see ``attention.py`` and
 ``ssm.py``).
 
+A vision trunk (Pixtral) is a dense decoder whose input is a prefix of
+patch embeddings, through ``"frontend_proj"``, before the text tokens. An
+encoder-decoder trunk (SeamlessM4T) runs its frame embeddings, through
+``"frontend_proj"``, once through the ``"encoder"`` stack and its
+``"norm"``; each decoder block of ``"layers"`` adds a cross-attention
+(``"ln_x"``, ``"xattn"``) over the encoder's output, whose K/V the
+prefill computes once per layer into the cache's ``"cross"`` {"k", "v"}
+(L, B, encoder length, Hkv, D). The encoder is causal, as the
+reference's is (its ``_run_encoder`` passes ``causal=False``, which
+``attn_block_forward`` never hands on to ``gqa_prefill``).
+
+With a sliding window an attention cache is a ring (``attention.py``);
+the prefill places the last ``slots`` tokens where decoding them would
+have put them, token t at slot t % slots, as the reference's
+``_cache_from_kv`` does.
+
 Unlike the reference, whose hybrid ``prefill`` returns the zero cache, the
 port's fills it: every Mamba2 layer's final state and conv tails and each
 shared application's K/V, as decoding the prompt token by token from the
@@ -38,7 +54,9 @@ from repro_torch.models import ssm
 from repro_torch.models.common import (
     dtype_of,
     embed_init,
+    init_linear,
     init_rmsnorm,
+    linear,
     rmsnorm,
 )
 from repro_torch.models.mlp import init_mlp, mlp_forward
@@ -48,18 +66,27 @@ from repro_torch.utils.tree import tree_map
 
 def _check_family(cfg) -> None:
     attention = cfg.attention in ("gqa", "mla")
-    dense = (cfg.family == "dense" and attention and cfg.d_ff
-             and not cfg.num_experts and not cfg.first_dense_layers)
-    moe = cfg.family == "moe" and attention and cfg.num_experts
-    hybrid = (cfg.family == "hybrid" and attention and cfg.d_ff
-              and not cfg.num_experts
-              and 1 <= cfg.shared_attn_every <= cfg.num_layers)
-    if (not (dense or moe or hybrid or cfg.family == "ssm")
-            or cfg.is_encoder_decoder or cfg.frontend_dim or cfg.prefix_len):
+    # attention blocks with one dense FFN of d_ff
+    plain = (attention and cfg.d_ff and not cfg.num_experts
+             and not cfg.first_dense_layers)
+    trunk = {
+        "dense": plain,
+        "vlm": plain,
+        "audio": (plain and cfg.attention == "gqa" and cfg.is_encoder_decoder
+                  and cfg.encoder_layers >= 1),
+        "moe": attention and cfg.num_experts,
+        "hybrid": plain and 1 <= cfg.shared_attn_every <= cfg.num_layers,
+        "ssm": True,
+    }
+    front = cfg.family in ("vlm", "audio")
+    if (not trunk.get(cfg.family) or (cfg.is_encoder_decoder
+                                      and cfg.family != "audio")
+            or ((cfg.frontend_dim or cfg.prefix_len) and not front)):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, MoE, SSM and hybrid families are "
-            "ported yet; encoder-decoder and vision trunks wait for "
-            "ROADMAP.md Queue 1, item 11")
+            f"{cfg.name}: family {cfg.family!r} with these settings is not "
+            "a trunk of the port (dense, MoE, SSM, hybrid, vision, audio "
+            "encoder-decoder); a hybrid with experts waits for ROADMAP.md "
+            "Queue 1, item 11")
 
 
 # ---------------------------------------------------------------------------
@@ -67,15 +94,20 @@ def _check_family(cfg) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_attn_block(generator, cfg, dtype, *, dense_ff: int = 0):
-    """Transformer block: GQA or MLA + FFN, pre-norm. The FFN is a dense
-    MLP of width ``dense_ff`` when given, else the MoE block when the
-    config has experts, else a dense MLP of width ``d_ff``."""
+def init_attn_block(generator, cfg, dtype, *, dense_ff: int = 0,
+                    cross: bool = False):
+    """Transformer block: GQA or MLA (+ a GQA cross-attention when
+    ``cross``) + FFN, pre-norm. The FFN is a dense MLP of width
+    ``dense_ff`` when given, else the MoE block when the config has
+    experts, else a dense MLP of width ``d_ff``."""
     device = generator.device
     init = attn.init_mla if cfg.attention == "mla" else attn.init_gqa
     p = {"ln1": init_rmsnorm(cfg.d_model, dtype, device),
-         "attn": init(generator, cfg, dtype),
-         "ln2": init_rmsnorm(cfg.d_model, dtype, device)}
+         "attn": init(generator, cfg, dtype)}
+    if cross:
+        p["ln_x"] = init_rmsnorm(cfg.d_model, dtype, device)
+        p["xattn"] = attn.init_gqa(generator, cfg, dtype, cross=True)
+    p["ln2"] = init_rmsnorm(cfg.d_model, dtype, device)
     if dense_ff:
         p["mlp"] = init_mlp(generator, cfg.d_model, dense_ff, dtype, cfg.mlp)
     elif cfg.num_experts:
@@ -93,23 +125,33 @@ def _ffn(p, cfg, h):
     return mlp_forward(p["mlp"], h), 0.0
 
 
-def attn_block_forward(p, cfg, x, *, window: int = 0):
-    """Full-sequence block. Returns (x, aux loss, cache contents): (k, v)
-    for GQA, (c, kr) for MLA."""
+def attn_block_forward(p, cfg, x, *, window: int = 0, cross_kv=None):
+    """Full-sequence block, causal; a decoder block of an encoder-decoder
+    also attends to ``cross_kv``, the (k, v) ``attn.project_kv`` made of
+    the encoder's output. Returns (x, aux loss, cache contents): (k, v) for
+    GQA, (c, kr) for MLA."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     fwd = attn.mla_forward if cfg.attention == "mla" else attn.gqa_prefill
     y, kv = fwd(p["attn"], cfg, h, window=window)
     x = x + y
+    if cross_kv is not None:
+        h = rmsnorm(p["ln_x"], x, cfg.norm_eps)
+        x = x + attn.cross_forward(p["xattn"], cfg, h, *cross_kv)
     y, aux = _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x + y, aux, kv
 
 
-def attn_block_decode(p, cfg, x, cache, pos, *, window: int = 0):
-    """Single-token block step. cache: this layer's {"attn": {...}}."""
+def attn_block_decode(p, cfg, x, cache, pos, *, window: int = 0,
+                      cross=None):
+    """Single-token block step. cache: this layer's {"attn": {...}};
+    ``cross`` this decoder layer's {"k", "v"} of the cross cache."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     dec = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
     y, _ = dec(p["attn"], cfg, h, cache["attn"], pos, window=window)
     x = x + y
+    if cross is not None:
+        h = rmsnorm(p["ln_x"], x, cfg.norm_eps)
+        x = x + attn.cross_decode(p["xattn"], cfg, h, cross["k"], cross["v"])
     y, _ = _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x + y, cache
 
@@ -186,6 +228,9 @@ def init_model(generator, cfg):
     dtype = dtype_of(cfg.param_dtype)
     device = generator.device
     p = {"embed": embed_init(generator, cfg.vocab_size, cfg.d_model, dtype)}
+    if cfg.frontend_dim:
+        p["frontend_proj"] = init_linear(generator, cfg.frontend_dim,
+                                         cfg.d_model, dtype)
     if cfg.family == "ssm":
         p["layers"] = _stack_init(
             lambda: init_ssm_block(generator, cfg, dtype), cfg.num_layers)
@@ -201,16 +246,46 @@ def init_model(generator, cfg):
     else:
         for name, n in _stacks(cfg):
             ff = (cfg.dense_d_ff or cfg.d_ff) if name == "first" else 0
+            cross = cfg.is_encoder_decoder and name == "layers"
             p[name] = _stack_init(
-                lambda: init_attn_block(generator, cfg, dtype, dense_ff=ff),
-                n)
+                lambda: init_attn_block(generator, cfg, dtype, dense_ff=ff,
+                                        cross=cross), n)
+        if cfg.is_encoder_decoder:
+            p["encoder"] = {
+                "layers": _stack_init(
+                    lambda: init_attn_block(generator, cfg, dtype),
+                    cfg.encoder_layers),
+                "norm": init_rmsnorm(cfg.d_model, dtype, device)}
     p["final_norm"] = init_rmsnorm(cfg.d_model, dtype, device)
     return p
 
 
-def embed_tokens(p, cfg, tokens):
-    """tokens: (B, S) integer ids -> (B, S, d_model) in the compute dtype."""
-    return p["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+def _front(p, cfg, embeds):
+    """Front-end embeddings (B, S, frontend_dim) -> (B, S, d_model) in the
+    compute dtype, through ``frontend_proj`` when the trunk has one."""
+    x = embeds.to(dtype_of(cfg.compute_dtype))
+    return linear(p["frontend_proj"], x) if "frontend_proj" in p else x
+
+
+def embed_tokens(p, cfg, tokens, prefix_embeds=None):
+    """tokens: (B, S) integer ids -> (B, S, d_model) in the compute dtype;
+    ``prefix_embeds`` (B, S_pre, frontend_dim), when given, go through the
+    front end and come first: (B, S_pre + S, d_model)."""
+    x = p["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    if prefix_embeds is not None:
+        x = torch.cat([_front(p, cfg, prefix_embeds), x], dim=1)
+    return x
+
+
+def _run_encoder(p, cfg, frames):
+    """The encoder over front-end frame embeddings (B, S_enc, d_model),
+    then its norm. Causal, as the reference's is (F17): each layer is a
+    causal self-attention block without a window."""
+    enc = p["encoder"]
+    x = frames
+    for i in range(cfg.encoder_layers):
+        x, _, _ = attn_block_forward(layer(enc["layers"], i), cfg, x)
+    return rmsnorm(enc["norm"], x, cfg.norm_eps)
 
 
 def x_final(params, cfg, x):
@@ -236,6 +311,10 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device):
         init = (attn.init_mla_cache if cfg.attention == "mla"
                 else attn.init_gqa_cache)
         one = {"attn": init(cfg, batch, max_len, dtype, "meta")}
+    if cfg.is_encoder_decoder:
+        Hkv, D = cfg.num_kv_heads, cfg.head_dim
+        xkv = torch.empty((batch, cfg.encoder_seq_len, Hkv, D), dtype=dtype,
+                          device="meta")
     if cfg.family == "ssm":
         stacks = [("layers", mamba, (cfg.num_layers,))]
     elif cfg.family == "hybrid":
@@ -246,6 +325,8 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, *, device):
             stacks.append(("tail", mamba, (rem,)))
     else:
         stacks = [(name, one, (n,)) for name, n in _stacks(cfg)]
+    if cfg.is_encoder_decoder:
+        stacks.append(("cross", {"k": xkv, "v": xkv}, (cfg.num_layers,)))
     return {name: tree_map(lambda t: torch.zeros(dims + tuple(t.shape),
                                                  dtype=t.dtype, device=device),
                            leaves)
@@ -274,30 +355,73 @@ def _ssm_prefill(params, cache, cfg, x):
     return x
 
 
-def _attn_prefill(p, cfg, x, cache, window: int):
+def _place_prefill(cfg, dst, t) -> None:
+    """Write a prefill's per-token cache contents t (B, S, ...) into the
+    cache leaf dst (B, slots, ...), as the reference's ``_cache_from_kv``
+    places them: on a ring shorter than S (a sliding window) the last
+    ``slots`` tokens, token j at slot j % slots (the tail rolled by S %
+    slots); otherwise slots [0, S) with zero headroom after them (the last
+    ``slots`` tokens, unrolled, if there is no window and S > slots)."""
+    S, slots = t.shape[1], dst.shape[1]
+    if slots >= S:
+        dst[:, :S] = t
+        return
+    tail = t[:, S - slots:]
+    r = S % slots if cfg.sliding_window else 0
+    dst[:, r:] = tail[:, :slots - r]
+    dst[:, :r] = tail[:, slots - r:]
+
+
+def _attn_prefill(p, cfg, x, cache, window: int, enc_out=None, cross=None):
     """One attention block over x (B, S, d); its K/V or MLA latent land in
-    slots [0, S) of ``cache``, one layer's {"attn": ...}. Returns x."""
-    x, _, kv = attn_block_forward(p, cfg, x, window=window)
+    ``cache``, one layer's {"attn": ...}, as ``_place_prefill`` places
+    them. A decoder block of an encoder-decoder trunk also attends to
+    ``enc_out`` and writes its cross-attention K/V into ``cross`` (its
+    layer's {"k", "v"}). Returns x."""
+    cross_kv = None
+    if enc_out is not None:
+        cross_kv = attn.project_kv(p["xattn"], cfg, enc_out)
+        for leaf, t in zip(("k", "v"), cross_kv):
+            cross[leaf].copy_(t)
+    x, _, kv = attn_block_forward(p, cfg, x, window=window, cross_kv=cross_kv)
     lc = cache["attn"]
     for leaf, t in zip(lc, kv):  # (k, v) or (c, kr)
-        lc[leaf][:, :t.shape[1]] = t
+        _place_prefill(cfg, lc[leaf], t)
     return x
 
 
-def prefill(params, cfg, tokens, *, window: Optional[int] = None,
-            max_len: Optional[int] = None):
+def prefill(params, cfg, tokens, prefix_embeds=None, *,
+            window: Optional[int] = None, max_len: Optional[int] = None):
     """Full-sequence causal pass that also fills the cache: each layer's
     K/V or MLA latent, or its final SSM state and conv tails; a hybrid's
-    too, the shared block's K/V once an application.
+    too, the shared block's K/V once an application; an encoder-decoder's
+    cross K/V once a decoder layer.
 
-    ``max_len`` sizes an attention cache with decode headroom (defaults to
-    S); slots [S, max_len) stay zero. Returns (hidden (B, S, d), cache).
+    ``prefix_embeds`` are a vision trunk's patch embeddings, put before the
+    tokens (S counts them), or an encoder-decoder's frame embeddings, which
+    the encoder reads. ``max_len`` sizes an attention cache with decode
+    headroom (defaults to S); slots [S, max_len) stay zero. Returns
+    (hidden (B, S, d), cache).
     """
     _check_family(cfg)
     win = cfg.sliding_window if window is None else window
-    x = embed_tokens(params, cfg, tokens)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        if prefix_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder trunk needs "
+                             "prefix_embeds, the encoder's frame embeddings")
+        enc_out = _run_encoder(params, cfg, _front(params, cfg, prefix_embeds))
+        x = embed_tokens(params, cfg, tokens)
+    else:
+        x = embed_tokens(params, cfg, tokens, prefix_embeds)
     B, S, _ = x.shape
     cache = init_cache(cfg, B, max_len or S, device=x.device)
+    if enc_out is not None and enc_out.shape[1] != cfg.encoder_seq_len:
+        # the cross cache follows the frames given, as the reference's
+        n, _, _, Hkv, D = cache["cross"]["k"].shape
+        cache["cross"] = {k: torch.zeros((n, B, enc_out.shape[1], Hkv, D),
+                                         dtype=v.dtype, device=v.device)
+                          for k, v in cache["cross"].items()}
     if cfg.family == "ssm":
         x = _ssm_prefill(params["layers"], cache["layers"], cfg, x)
     elif cfg.family == "hybrid":
@@ -310,9 +434,11 @@ def prefill(params, cfg, tokens, *, window: Optional[int] = None,
             x = _ssm_prefill(params["tail"], cache["tail"], cfg, x)
     else:
         for name, n in _stacks(cfg):
-            for i in range(n):
+            for i in range(n):  # an encoder-decoder's one stack, "layers"
+                cross = (None if enc_out is None
+                         else layer(cache["cross"], i))
                 x = _attn_prefill(layer(params[name], i), cfg, x,
-                                  layer(cache[name], i), win)
+                                  layer(cache[name], i), win, enc_out, cross)
     return x_final(params, cfg, x), cache
 
 
@@ -328,7 +454,9 @@ def ssm_stack_decode(params, cfg, x, cache):
 def decode_step(params, cfg, cache, token, pos, *, window: Optional[int] = None):
     """One autoregressive step. token: (B, 1) integer ids; pos: an int
     (every row at the same position) or a (B,) int32 tensor (per-row
-    positions). Updates ``cache`` in place; returns (hidden (B, 1, d), cache).
+    positions). An encoder-decoder's blocks also attend to the cache's
+    ``"cross"``, which its prefill filled. Updates ``cache`` in place;
+    returns (hidden (B, 1, d), cache).
     """
     win = cfg.sliding_window if window is None else window
     x = embed_tokens(params, cfg, token)
@@ -347,6 +475,8 @@ def decode_step(params, cfg, cache, token, pos, *, window: Optional[int] = None)
         return x_final(params, cfg, x), cache
     for name, n in _stacks(cfg):
         for i in range(n):
+            cross = layer(cache["cross"], i) if "cross" in cache else None
             x, _ = attn_block_decode(layer(params[name], i), cfg, x,
-                                     layer(cache[name], i), pos, window=win)
+                                     layer(cache[name], i), pos, window=win,
+                                     cross=cross)
     return x_final(params, cfg, x), cache

@@ -125,6 +125,15 @@ class QuotaLedger:
             return self._outstanding
 
 
+def _live(actor) -> bool:
+    """A registered replica counts as live until it has run and ended.
+    ``PipelinedRL.run`` registers every replica, then starts them one after
+    another (thread and process backends alike), so a sibling that has not
+    started yet is still to come and can absorb an orphaned quota; a
+    respawned replica is started before it is registered."""
+    return actor.ident is None or actor.is_alive()
+
+
 class ActorSupervisor:
     """Recovery policy for dying actor replicas (see module docstring).
 
@@ -252,7 +261,7 @@ class ActorSupervisor:
         self._span(FAULT_GIVEUP, t2)
         self.episodes.append(("giveup", actor.slot_index, actor.actor_id))
         others = [a for a in self.all_actors()
-                  if a is not actor and a.is_alive()]
+                  if a is not actor and _live(a)]
         if others or remaining == 0:
             self._ledger.orphan(remaining)
             self._queue.producer_done()  # check the dead slot out

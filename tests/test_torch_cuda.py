@@ -22,7 +22,9 @@ deepseek-v2-236b (absorbed and naive), glm4-9b and deepseek-coder-33b on
 the card against the CPU, and a reduced MoE engine's admit and decode
 step sync-free under the transfers guard, continuous ≡ solo bitwise at
 capacity factor E / k; the hybrid trunk: K3, K4 and K6 at zamba2-7b's
-shapes and reduced zamba2-7b on the card against the CPU.
+shapes and reduced zamba2-7b on the card against the CPU; K4 and K5 with
+a window (F18), and reduced windowed qwen2-7b, minicpm3-4b and zamba2-7b,
+pixtral-12b and seamless-m4t-large-v2 on the card against the CPU.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one. This file imports no JAX, so it also runs on a machine that has
@@ -1081,3 +1083,105 @@ def test_reduced_moe_engine_on_the_card_is_sync_free_and_solo_bitwise(
                                device=cuda), feed([solo]),
                   continuous=False).run()
         assert np.array_equal(by[probe.rid].tokens, solo.tokens), probe.rid
+
+
+# ---------------------------------------------------------------- windows
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [1, 7, 64, 256])
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (16, 4), (28, 4)])
+def test_decode_kernel_with_a_window_matches_plain_version(cuda, dtype,
+                                                           window, H, Hkv):
+    """K4's age mask (F18) on a ring of 300 slots: not wrapped, wrapped
+    several times, per row with a negative row (zeros); window 0 and a
+    window as wide as the cache give the same bits."""
+    dt = getattr(torch, dtype)
+    S = 300
+    g = torch.Generator(cuda).manual_seed(window + H)
+    q = torch.randn(4, H, 128, generator=g, device=cuda).to(dt)
+    kc = torch.randn(4, S, Hkv, 128, generator=g, device=cuda).to(dt)
+    vc = torch.randn(4, S, Hkv, 128, generator=g, device=cuda).to(dt)
+    for pos in (200, 5 * S + 17, [3, S + 70, 4 * S - 1, -1]):
+        p = (torch.tensor(pos, dtype=torch.int32, device=cuda)
+             if isinstance(pos, list) else pos)
+        got = decode_attention_cuda(q, kc, vc, p, window=window)
+        want = ref.decode_attention_ref(q.float(), kc.float(), vc.float(), p,
+                                        window=window)
+        keep = slice(None) if not isinstance(pos, list) else slice(0, 3)
+        torch.testing.assert_close(got[keep].float(), want[keep],
+                                   rtol=_tol(dt), atol=_tol(dt))
+        if isinstance(pos, list):
+            assert bool((got[3] == 0).all())
+        assert torch.equal(decode_attention_cuda(q, kc, vc, p),
+                           decode_attention_cuda(q, kc, vc, p, window=S))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [1, 7, 64, 256])
+@pytest.mark.parametrize("H,R,Rr", [(40, 256, 32), (128, 512, 64)])
+def test_mla_kernel_with_a_window_matches_plain_version(cuda, dtype, window,
+                                                        H, R, Rr):
+    """K5's age mask (F18), as K4's: a first tile of a split with no live
+    slot must still load the queries."""
+    dt = getattr(torch, dtype)
+    S = 300
+    g = torch.Generator(cuda).manual_seed(window + R)
+    ql = torch.randn(4, H, R, generator=g, device=cuda).to(dt)
+    qr = torch.randn(4, H, Rr, generator=g, device=cuda).to(dt)
+    c = torch.randn(4, S, R, generator=g, device=cuda).to(dt)
+    kr = torch.randn(4, S, Rr, generator=g, device=cuda).to(dt)
+    for pos in (200, 5 * S + 17, [3, S + 70, 4 * S - 1, -1]):
+        p = (torch.tensor(pos, dtype=torch.int32, device=cuda)
+             if isinstance(pos, list) else pos)
+        got = mla_decode_attention_cuda(ql, qr, c, kr, p, 0.1, window)
+        want = ref.mla_decode_attention_ref(ql.float(), qr.float(), c.float(),
+                                            kr.float(), p, 0.1, window)
+        keep = slice(None) if not isinstance(pos, list) else slice(0, 3)
+        torch.testing.assert_close(got[keep].float(), want[keep],
+                                   rtol=_tol(dt), atol=_tol(dt))
+        assert torch.equal(mla_decode_attention_cuda(ql, qr, c, kr, p, 0.1),
+                           mla_decode_attention_cuda(ql, qr, c, kr, p, 0.1,
+                                                     S))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,change", [
+    ("qwen2-7b", {"sliding_window": 16}),
+    ("minicpm3-4b", {"sliding_window": 16, "mla_absorb": True}),
+    ("zamba2-7b", {"sliding_window": 16}),
+    ("pixtral-12b", {}),
+    ("seamless-m4t-large-v2", {}),
+])
+def test_reduced_windowed_and_prefixed_trunks_on_the_card_match_the_cpu(
+        cuda, arch, change):
+    """A ring the prompt wraps, and the vision and encoder-decoder trunks
+    with their front-end embeddings: prefill and two decode steps (per-row
+    and scalar pos), card against CPU within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_policy, policy_decode, policy_prefill
+
+    cfg = get_config(arch).reduced().replace(**change)
+    cpu = init_policy(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+    pre = None
+    if cfg.frontend_dim:
+        n = cfg.prefix_len if cfg.family == "vlm" else cfg.encoder_seq_len
+        pre = torch.from_numpy(rng.standard_normal(
+            (2, n, cfg.frontend_dim)).astype(np.float32))
+    off = cfg.prefix_len if cfg.family == "vlm" else 0
+    lc, _, cc = policy_prefill(cpu, cfg, toks, pre, max_len=off + 72)
+    lg, _, cg = policy_prefill(gpu, cfg, toks.to(cuda),
+                               None if pre is None else pre.to(cuda),
+                               max_len=off + 72)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for pos in (torch.tensor([off + 64, off + 60], dtype=torch.int32),
+                off + 65):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)))
+        pg = pos.to(cuda) if isinstance(pos, torch.Tensor) else pos
+        lc, _, cc = policy_decode(cpu, cfg, cc, tok, pos)
+        lg, _, cg = policy_decode(gpu, cfg, cg, tok.to(cuda), pg)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)

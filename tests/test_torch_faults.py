@@ -205,6 +205,40 @@ def test_degrade_to_fewer_actors_when_budget_exhausted():
     assert prl.telemetry._counters.get("fault.giveup") == 1
 
 
+def test_a_fault_before_a_sibling_has_started_degrades(monkeypatch):
+    """F15: ``PipelinedRL.run`` starts its replicas one after another, so
+    a replica can die before its sibling has started. Actor 1's start is
+    held back here until actor 0 has died: the supervisor must count the
+    registered, not yet started sibling as live and degrade to it, not
+    abort with "last live actor died"."""
+    from repro_torch.pipeline import actor as actor_mod
+
+    started = {}
+    real_start = actor_mod.ActorThread.start
+
+    def start(self):
+        if self.actor_id == 1 and 0 in started:
+            started[0].join(timeout=60)
+            assert not started[0].is_alive()
+        started[self.actor_id] = self
+        real_start(self)
+
+    monkeypatch.setattr(actor_mod.ActorThread, "start", start)
+    env, agent = _grid_agent()
+    prl = _piped(env, agent, queue_depth=2, num_actors=2, elastic=True,
+                 restart_budget=0,
+                 fault_plan=FaultPlan(kills=((0, 1, "error"),)))
+    res = prl.run(8)
+    assert set(started) == {0, 1}
+    assert np.isfinite(res.mean_metrics["loss"])
+    assert len(prl.learned_ids) == 8
+    sup = prl.supervisor
+    assert sup.fatal is None
+    assert any(e[0] == "giveup" and e[1] == 0 for e in sup.episodes)
+    survivor = [s for a, s in prl.learned_ids if a == 1]
+    assert len(survivor) == 7 and sorted(survivor) == list(range(7))
+
+
 def test_last_actor_death_is_fatal_not_a_hang():
     env, agent = _grid_agent()
     prl = _piped(env, agent, queue_depth=1, num_actors=1, elastic=True,

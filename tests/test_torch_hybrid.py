@@ -241,9 +241,7 @@ def test_prefill_and_decode_go_through_k6_k3_and_k4(monkeypatch):
     assert calls == ["decode_attention"] * 2
 
 
-@pytest.mark.parametrize("change", [{"sliding_window": 16},
-                                    {"num_experts": 4}],
-                         ids=["sliding_window", "moe"])
+@pytest.mark.parametrize("change", [{"num_experts": 4}], ids=["moe"])
 def test_unported_hybrid_settings_raise_and_name_the_roadmap(change):
     cfg = get_config("zamba2-7b").reduced().replace(**change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

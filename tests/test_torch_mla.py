@@ -176,12 +176,6 @@ def test_mla_decode_matches_jax(pair, absorb, mode):
         _close(ct[k], cj[k], MODULE_TOL)
 
 
-def test_mla_sliding_window_still_raises_and_names_the_roadmap(pair):
-    cfg = pair[1].replace(sliding_window=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_policy(cfg, generator=torch.Generator(), device="cpu")
-
-
 # ---------------------------------------------------------------- the slice
 @pytest.mark.parametrize("absorb", [True, False])
 def test_reduced_minicpm3_prefill_and_decode_match_jax(pair, absorb):

@@ -22,8 +22,7 @@ from repro.models import policy_decode as jax_decode  # noqa: E402
 from repro.models import policy_prefill as jax_prefill  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import (init_policy, init_policy_cache,  # noqa: E402
-                                policy_decode, policy_prefill)
-from repro_torch.models import attention as tattn  # noqa: E402
+                                policy_apply, policy_decode, policy_prefill)
 from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.utils.bridge import params_from_numpy  # noqa: E402
@@ -159,24 +158,14 @@ def test_entry_points_run_on_the_card_unless_asked_for_the_cpu(pair):
         init_policy(cfg, generator=torch.Generator(), device="meta")
 
 
-@pytest.mark.parametrize("change", ["sliding_window", "moe", "mla",
-                                    "encoder_decoder"])
-def test_unported_features_raise_and_name_the_roadmap(pair, change):
-    cfg = pair[1]
-    kw = {"sliding_window": {"sliding_window": 64},
-          # the MoE trunk is ported; its sliding window is not
-          "moe": {"family": "moe", "num_experts": 4,
-                  "num_experts_per_tok": 2, "sliding_window": 64},
-          "mla": {"attention": "mla", "sliding_window": 64},
-          # the hybrid trunk is ported; the encoder-decoder is not
-          "encoder_decoder": {"is_encoder_decoder": True}}[change]
+@pytest.mark.parametrize("arch", ["qwen2-7b", "pixtral-12b",
+                                  "seamless-m4t-large-v2"])
+def test_token_policy_apply_still_raises_and_names_the_roadmap(arch):
+    """The token families' full-sequence pass is training (ROADMAP Queue 1
+    item 11); their serving paths, windows and trunks are ported."""
+    cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_policy(cfg.replace(**kw), generator=torch.Generator(),
-                    device="cpu")
-    if change == "sliding_window":
-        x = torch.zeros(1, 1, cfg.d_model)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tattn.gqa_decode({}, cfg, x, {"k": None, "v": None}, 0, window=8)
+        policy_apply({}, cfg, None)
 
 
 def _cache_leaves(cache):
