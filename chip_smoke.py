@@ -86,6 +86,19 @@ paths:
               minicpm3-4b's and deepseek-v2-236b's widths, each holding
               window 0 bitwise against window 1024 (the same slots); both
               timed at window 256 beside window 0 (W=4, pos 600-900);
+              every K3 case also launched with its log-sum-exp: the
+              output bitwise the launch without it, the LSE (B, Sq, H)
+              fp32 within the same tolerances of the plain version's, and
+              the time with the LSE beside the time without at the timed
+              shapes; then K3's gradient (``ops.FlashAttention``: K3 with
+              its LSE and the plain backward ``ref.flash_attention_bwd``)
+              against autograd through the plain version in fp32 (atol
+              1e-4 + rtol 1e-4 on dq, dk, dv) over FLASH_GRAD: GQA causal
+              at qwen2-7b's training shape (B=4 T=512), windowed, MLA's
+              96/64 (minicpm3-4b, B=4 T=512) and 192/128, non-causal with
+              Sq < Sk and keys past one 512-key block; the backward alone
+              timed in bf16 at the two training shapes beside autograd
+              through the plain version and SDPA's backward;
 4. rl_model — paac_nature at full size in fp32, one set of weights on the
               CPU and on the card: logits and values of 32 frames agree
               within 1e-4, and one PAAC update on the same replayed
@@ -273,6 +286,34 @@ paths:
               patches before the text) and seamless-m4t-large-v2 (16
               frames through the encoder; K3 once an encoder layer and
               twice a decoder layer, K4 twice a decoder layer);
+   token training — right after phase 1: (a) qwen2-7b at every
+              published width (d_model 3584, 28/4 heads, d_ff 18944,
+              vocab 152064, bf16, remat "full") cut to 13 of 28 layers
+              and minicpm3-4b (d_model 2560, 40 MLA heads, vocab 73448)
+              cut to 58 of 62, the depth one card holds under the
+              functional RMSProp update, each in a fresh process
+              (``--train-cell``, expandable segments: a cell needs ~77 GB
+              and one long process fragments), 4 steps at B=4 T=512
+              through ``launch/train.py``'s synthetic code: K3 exactly
+              twice a layer a step (the forward and remat's recompute),
+              its backward once a layer, K1 once, nothing else; tokens/s,
+              a step's wall ms, a profiled step's busy ms, the peak
+              memory, every loss and global grad norm finite and the loss
+              changing; (b) one ``make_llm_train_step`` (RMSProp) of
+              reduced qwen2-7b, minicpm3-4b, dbrx-132b, deepseek-v2-236b,
+              pixtral-12b and seamless-m4t-large-v2 in fp32 on the card
+              (K3 with its LSE and backward, K1) and on the CPU from the
+              same weights and batch: metrics and new parameters within
+              1e-4, K3 once an attention layer and K1 once; (c) one step
+              each of reduced dbrx-132b and deepseek-v2-236b in bf16 with
+              remat, and of pixtral-12b (1024 patches + 128 tokens) and
+              seamless-m4t-large-v2 (1024 frames, 128 tokens) at every
+              published width cut to 2 (2 + 2) layers;
+   token cli — ``launch/train.py --arch qwen2-7b --reduced --iterations
+              20`` (K1 20), the same with ``--pipeline`` (K2 20) and
+              ``--mode synthetic --iterations 5 --t-max 64`` (K1 5, K3 10),
+              and ``examples/train_llm_rl_torch.py --smoke`` (300
+              iterations, K1 300), each with K3 launched;
 7. serving  — six cells, each at full width with random bf16 weights
               from a seed: qwen2-7b (28 layers, d_model 3584; K3
               prefill, K4 decode), minicpm3-4b with the absorbed decode
@@ -346,9 +387,12 @@ TF32 is off for matmuls and convolutions throughout. The line before the
 last is a JSON object with each kernel's numbers and its launches on each
 main path (training, pipeline, agents, train cli, host sync, host
 pipeline, host train cli, host process, host process train cli, replay,
-replay train cli, faults, faults train cli, the analysis legs, the
-six serving cells, the three window cells and the two prefixed cells,
-each read with the counts set to 0 just before it);
+replay train cli, faults, faults train cli, the analysis legs, token
+training, the token cli legs and the token example, the six serving
+cells, the three window cells and the two prefixed cells, each read with
+the counts set to 0 just before it); K3's row also carries its time with
+the LSE, the LSE's error and, under ``"backward"``, the plain backward's
+numbers and its calls on each path;
 the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
 phase fails, it exits non-zero and prints no result. ``--trace-dir DIR``
@@ -358,6 +402,8 @@ spans) there.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import importlib.util
 import json
 import math
@@ -678,6 +724,20 @@ DECODE_SWEEP = (  # (W, S, H, Hkv, D, Dv, pos, timed in bf16 as)
 )
 
 
+def lse_check(torch, fa, q, k, v, out, plain_lse, dtype: str, *,
+              causal: bool, window: int) -> float:
+    """K3 launched again with the LSE: its output must be bitwise ``out``
+    (the launch without one) and its LSE within ``within``'s tolerance of
+    the plain version's. Returns the LSE's max error."""
+    out_l, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window, return_lse=True)
+    check(torch.equal(out_l, out), "K3's output with the lse differs from "
+          "its output without it")
+    check(lse.dtype == torch.float32 and lse.shape == plain_lse.shape,
+          f"K3 lse {lse.dtype} {tuple(lse.shape)}")
+    return within(torch, lse, plain_lse, dtype)
+
+
 def phase_kernels(torch, np, F, ref, fa, da):
     """K3 and K4 against their plain versions on the card over their sweeps
     (qwen2-7b's shapes and the widths of the TPU kernels), and timed at the
@@ -697,17 +757,25 @@ def phase_kernels(torch, np, F, ref, fa, da):
             v = randn(B, S, Hkv, Dv, dtype=dtype)
             out = fa.flash_attention_cuda(q, k, v, causal=True, window=window)
             check(tuple(out.shape) == (B, S, H, Dv), f"K3 out {tuple(out.shape)}")
-            plain = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                            causal=True, window=window)
+            plain, plain_lse = ref.flash_attention_ref(
+                q.float(), k.float(), v.float(), causal=True, window=window,
+                return_lse=True)
             err = within(torch, out, plain, dtype)
+            lse_err = lse_check(torch, fa, q, k, v, out, plain_lse, dtype,
+                                causal=True, window=window)
             say("kernels", f"K3 flash_attention {dtype} B={B} S={S} H={H} "
                 f"Hkv={Hkv} D={D} Dv={Dv} causal window={window}: max_abs_err "
-                f"{err:.3g} ({tolerance(dtype)})")
-            row = rows.setdefault("flash_attention", {"max_abs_err": 0.0})
+                f"{err:.3g}, lse {lse_err:.3g} ({tolerance(dtype)}); output "
+                "with the lse bitwise the output without")
+            row = rows.setdefault("flash_attention", {"max_abs_err": 0.0,
+                                                      "lse_max_abs_err": 0.0})
             row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["lse_max_abs_err"] = max(row["lse_max_abs_err"], lse_err)
             if dtype == "bfloat16" and timed:
                 ms = time_ms(torch, lambda: fa.flash_attention_cuda(
                     q, k, v, window=window), flush)
+                lse_ms = time_ms(torch, lambda: fa.flash_attention_cuda(
+                    q, k, v, window=window, return_lse=True), flush)
                 plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
                     q, k, v, window=window), flush)
                 qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -723,8 +791,8 @@ def phase_kernels(torch, np, F, ref, fa, da):
                 nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
                 flops = 2 * (D + Dv) * flash_pairs(np, S, S, True, window) * H * B
                 b_ms, b_by = bound(nbytes, flops, dtype)
-                t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by,
+                t = dict(ms=ms, lse_ms=lse_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                          shape=f"bf16 B={B} S={S} H={H} Hkv={Hkv} D={D} "
                          f"Dv={Dv} causal window={window} ({timed})")
                 if "ms" in row:  # a later timed shape, beside the first
@@ -732,8 +800,8 @@ def phase_kernels(torch, np, F, ref, fa, da):
                 else:
                     row.update(t)
                 say("kernels", f"K3 timed ({t['shape']}): kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                    f"{b_ms:.4f} ms ({b_by})")
+                    f"with the lse {lse_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
     for dtype in ("float32", "bfloat16"):
         for B, Sq, Sk, H, Hkv, D, timed in FLASH_CROSS:
@@ -741,14 +809,19 @@ def phase_kernels(torch, np, F, ref, fa, da):
             k, v = randn(B, Sk, Hkv, D, dtype=dtype), randn(B, Sk, Hkv, D, dtype=dtype)
             out = fa.flash_attention_cuda(q, k, v, causal=False)
             check(tuple(out.shape) == (B, Sq, H, D), f"K3 out {tuple(out.shape)}")
-            plain = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                            causal=False)
+            plain, plain_lse = ref.flash_attention_ref(
+                q.float(), k.float(), v.float(), causal=False,
+                return_lse=True)
             err = within(torch, out, plain, dtype)
-            rows["flash_attention"]["max_abs_err"] = max(
-                rows["flash_attention"]["max_abs_err"], err)
+            lse_err = lse_check(torch, fa, q, k, v, out, plain_lse, dtype,
+                                causal=False, window=0)
+            row = rows["flash_attention"]
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["lse_max_abs_err"] = max(row["lse_max_abs_err"], lse_err)
             say("kernels", f"K3 flash_attention {dtype} B={B} Sq={Sq} Sk={Sk} "
                 f"H={H} Hkv={Hkv} D={D} non-causal (cross): max_abs_err "
-                f"{err:.3g} ({tolerance(dtype)})")
+                f"{err:.3g}, lse {lse_err:.3g} ({tolerance(dtype)}); output "
+                "with the lse bitwise the output without")
             if dtype == "bfloat16" and timed:
                 ms = time_ms(torch, lambda: fa.flash_attention_cuda(
                     q, k, v, causal=False), flush)
@@ -2285,6 +2358,431 @@ def phase_model(torch, np, configs, models, ops, tree, dev="cuda"):
             "and scalar pos), card "
             f"vs CPU max |dlogit| {worst:.3g} <= {MODEL_ATOL}; launches "
             + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+
+
+FLASH_GRAD = (  # (B, Sq, Sk, H, Hkv, D, Dv, causal, window, timed in bf16 as)
+    # qwen2-7b's and minicpm3-4b's attention in the training cells
+    (4, 512, 512, 28, 4, 128, 128, True, 0, "qwen2-7b training, B=4 T=512"),
+    (2, 512, 512, 28, 4, 128, 128, True, 100, ""),  # windowed
+    (4, 512, 512, 40, 40, 96, 64, True, 0, "minicpm3-4b training, B=4 T=512"),
+    (1, 300, 300, 16, 16, 192, 128, True, 0, ""),  # deepseek-v2's MLA, ragged
+    (2, 128, 1024, 16, 16, 64, 64, False, 0, ""),  # cross-attention, Sq < Sk
+    (1, 700, 700, 8, 2, 64, 64, True, 0, ""),  # two 512-key blocks
+)
+GRAD_TOL = 1e-4  # absolute + relative, fp32, TF32 off
+
+
+def phase_flash_grad(torch, np, F, ref, ops, rows, dev="cuda"):
+    """K3's gradient (``ops.FlashAttention``: K3 with its LSE, then the
+    plain backward ``ref.flash_attention_bwd``) against torch's autograd
+    through ``flash_attention_ref`` on the card in fp32, over
+    ``FLASH_GRAD``; the backward alone timed in bf16 at the training cells'
+    shapes beside autograd through the plain version and SDPA's backward.
+    The numbers go into the K3 row as ``"backward"``."""
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
+    back = {"route": "torch", "source": "src/repro_torch/kernels/ref.py",
+            "ports": "src/repro/models/attention.py:109", "max_abs_err": 0.0,
+            "tolerance": f"atol {GRAD_TOL} + rtol {GRAD_TOL} (fp32)"}
+    for B, Sq, Sk, H, Hkv, D, Dv, causal, window, timed in FLASH_GRAD:
+        shapes = ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, Dv))
+        base = [torch.randn(s, generator=g, device=dev) for s in shapes]
+        do = torch.randn((B, Sq, H, Dv), generator=g, device=dev)
+        x = [t.clone().requires_grad_(True) for t in base]
+        y = [t.clone().requires_grad_(True) for t in base]
+        before = ops.launches["flash_attention"]
+        out = ops.flash_attention(*x, causal=causal, window=window)
+        check(ops.launches["flash_attention"] == before + 1,
+              "the differentiable K3 did not launch the kernel")
+        out.backward(do)
+        ref.flash_attention_ref(*y, causal=causal, window=window).backward(do)
+        worst = 0.0
+        for name, a, b in zip("qkv", x, y):
+            err = (a.grad - b.grad).abs()
+            ok = bool((err <= GRAD_TOL + GRAD_TOL * b.grad.abs()).all())
+            check(bool(torch.isfinite(a.grad).all()) and ok,
+                  f"K3's d{name} disagrees with autograd through the plain "
+                  f"version: max err {err.max().item():.3g}")
+            worst = max(worst, err.max().item())
+        back["max_abs_err"] = max(back["max_abs_err"], worst)
+        say("flash grad", f"fp32 B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} D={D} "
+            f"Dv={Dv} {'causal' if causal else 'non-causal'} window={window}: "
+            f"dq, dk, dv max_abs_err {worst:.3g} (atol {GRAD_TOL} + rtol "
+            f"{GRAD_TOL})")
+        if not timed:
+            continue
+        bf = [t.to(torch.bfloat16) for t in base]
+        dob = do.to(torch.bfloat16)
+        with torch.no_grad():
+            o, lse = ops.flash_attention_cuda(*bf, causal=causal,
+                                              window=window, return_lse=True)
+        ms = time_ms(torch, lambda: ref.flash_attention_bwd(
+            *bf, o, lse, dob, causal=causal, window=window), flush, iters=10)
+        p = [t.clone().requires_grad_(True) for t in bf]
+        o_ref = ref.flash_attention_ref(*p, causal=causal, window=window)
+        plain_ms = time_ms(torch, lambda: torch.autograd.grad(
+            o_ref, p, dob, retain_graph=True), flush, iters=10)
+        st = [t.transpose(1, 2).detach().requires_grad_(True) for t in bf]
+        o_lib = F.scaled_dot_product_attention(*st, is_causal=causal,
+                                               enable_gqa=True)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            o_lib, st, dob.transpose(1, 2), retain_graph=True), flush,
+            iters=10)
+        pairs = flash_pairs(np, Sq, Sk, causal, window)
+        # read q, k, v, o, dO (bf16) and the lse; write dq, dk, dv
+        nbytes = (2 * (2 * sum(t.numel() for t in bf) + o.numel()
+                       + dob.numel()) + 4 * lse.numel())
+        flops = 2 * (3 * D + 2 * Dv) * pairs * H * B
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        t = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                 bound_by=b_by, shape=f"bf16 B={B} S={Sq} H={H} Hkv={Hkv} "
+                 f"D={D} Dv={Dv} causal ({timed})")
+        if "ms" in back:
+            back.setdefault("other", []).append(t)
+        else:
+            back.update(t)
+        say("flash grad", f"K3 backward timed ({t['shape']}): "
+            f"ref.flash_attention_bwd {ms:.4f} ms, autograd through the plain "
+            f"version {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        del p, o_ref, st, o_lib
+    rows["flash_attention"]["backward"] = back
+    del flush
+
+
+TRAIN_TOL = 1e-4  # card (kernels) vs CPU (plain versions), fp32, TF32 off
+TRAIN_ARCHS = ("qwen2-7b", "minicpm3-4b", "dbrx-132b", "deepseek-v2-236b",
+               "pixtral-12b", "seamless-m4t-large-v2")
+# The full-width training cells: (arch, layers kept, B, T, steps). Depth is
+# what one card's 80 GB forces under the functional RMSProp update, whose
+# peak holds params, grads, their clipped copy, the old and new fp32
+# squares and the new params, about 18.7 bytes a parameter in all: 13 of
+# qwen2-7b's 28 layers peak at 77.3 GB and 14 do not fit; minicpm3-4b's
+# peak grows 1.24 GB a layer, 74.7 GB at 56 (PERF.md §4).
+TRAIN_CELLS = (
+    ("qwen2-7b", 13, 4, 512, 4),
+    ("minicpm3-4b", 58, 4, 512, 4),
+)
+# One step each of the other attention families on the card: a reduced
+# MoE in bf16 with remat, and pixtral-12b and seamless-m4t-large-v2 at
+# every published width, cut to 2 layers (2 + 2), with 1024 patch or
+# frame embeddings before or beside 128 text tokens.
+TRAIN_ONE_STEP = (
+    ("dbrx-132b", "reduced", 4, 512),
+    ("deepseek-v2-236b", "reduced", 4, 512),
+    ("pixtral-12b", {"num_layers": 2}, 2, 128),
+    ("seamless-m4t-large-v2", {"num_layers": 2, "encoder_layers": 2}, 2, 128),
+)
+
+
+def train_batch(torch, np, cfg, B: int, T: int, seed: int):
+    """A numpy-drawn trajectory batch, dones at a 20% rate, and the
+    prefix or frames a vision or encoder-decoder trunk reads."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, T + 1)),
+             "rewards": rng.random((B, T), dtype=np.float32),
+             "dones": rng.random((B, T)) < 0.2}
+    if cfg.modality == "vision":
+        batch["prefix"] = rng.standard_normal(
+            (B, cfg.prefix_len, cfg.frontend_dim), dtype=np.float32)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq_len, cfg.frontend_dim), dtype=np.float32)
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def k3_a_step(cfg) -> int:
+    """K3's launches in one train step: each attention layer's forward
+    (an encoder-decoder's encoder layers, and self and cross in each
+    decoder layer), twice under remat (the backward runs it again)."""
+    return kernel_layers(cfg, "flash_attention") * (
+        2 if cfg.remat != "none" else 1)
+
+
+def phase_token_training(torch, np, configs, models, ops, paac, optim, train,
+                         tree, card, dev="cuda"):
+    """The token policies' training path: (a) the full-width cells
+    ``TRAIN_CELLS`` through ``launch/train.py``'s synthetic code, each in
+    a fresh process (``run_train_cell``); (b) one ``make_llm_train_step``
+    of each of ``TRAIN_ARCHS`` reduced, fp32, on the card (kernels) and on
+    the CPU (plain versions) from the same weights and batch; (c) one step
+    of each of ``TRAIN_ONE_STEP``. Returns the launch counts of (a) and
+    (c)."""
+    gc.collect()
+    torch.cuda.empty_cache()  # the cells' processes need the card's memory
+    path = {"flash_attention backward": 0}
+    for spec in TRAIN_CELLS:
+        arch, layers = spec[:2]
+        cfg = configs.get_config(arch)
+        cfg = cfg.replace(num_layers=layers) if layers else cfg
+        cell = run_train_cell(spec)
+        check_train_cell(cell, cfg, card)
+        for name, n in cell["counts"].items():
+            path[name] = path.get(name, 0) + n
+        path["flash_attention backward"] += cell["backward_calls"]
+
+    for arch in TRAIN_ARCHS:
+        cfg = configs.get_config(arch).reduced()
+        cpu = models.init_policy(
+            cfg, generator=torch.Generator().manual_seed(SEED), device="cpu")
+        gpu = tree.tree_map(lambda t: t.to(dev), cpu)
+        batch = train_batch(torch, np, cfg, 2, 16, SEED)
+        out = {}
+        for where, params, d in (("cpu", cpu, "cpu"), ("card", gpu, dev)):
+            opt = optim.make_optimizer("rmsprop")
+            step = paac.PAACAgent(cfg, paac.PAACConfig()).make_llm_train_step(
+                opt, optim.constant(1e-3))
+            ops.reset_launches()
+            new, _, m = step(params, opt.init(params),
+                             {k: v.to(d) for k, v in batch.items()}, 0)
+            out[where] = (new, m, dict(ops.launches))
+        (pc, mc, _), (pg, mg, counts) = out["cpu"], out["card"]
+        want = {k: 0 for k in counts}
+        want["flash_attention"] = k3_a_step(cfg)
+        want["nstep_returns"] = 1
+        check(counts == want, f"reduced {arch} train step launches {counts}, "
+              f"expected {want}")
+        dl = max(abs(float(mc[k]) - float(mg[k])) / max(abs(float(mc[k])), 1.0)
+                 for k in mc)
+        dp = max((a - b.cpu()).abs().max().item() for a, b in
+                 zip(tree.tree_leaves(pc), tree.tree_leaves(pg)))
+        check(dl <= TRAIN_TOL and dp <= TRAIN_TOL,
+              f"reduced {arch} train step: card vs CPU metrics {dl:.3g}, "
+              f"params {dp:.3g}")
+        say("token training", f"reduced {arch} fp32 (L={cfg.num_layers} "
+            f"d={cfg.d_model}), one make_llm_train_step (RMSProp) at B=2 "
+            f"T=16, card vs CPU: loss {float(mg['loss']):.5f}, metrics "
+            f"within {dl:.3g}, new parameters within {dp:.3g} (<= "
+            f"{TRAIN_TOL}); launches " + ", ".join(
+                f"{k} {v}" for k, v in counts.items() if v))
+        del cpu, gpu, pc, pg
+
+    with grad_norms() as norms:
+        for arch, change, B, T in TRAIN_ONE_STEP:
+            cfg = configs.get_config(arch)
+            if change == "reduced":
+                cfg = cfg.reduced().replace(param_dtype="bfloat16",
+                                            compute_dtype="bfloat16",
+                                            remat="full")
+            else:
+                cfg = cfg.replace(**change)
+            norms.clear()
+            ops.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            res = train.synthetic_steps(cfg, B, T, 1, SEED, dev)
+            counts = dict(ops.launches)
+            for name, n in counts.items():
+                path[name] = path.get(name, 0) + n
+            path["flash_attention backward"] += ops.backward_calls[
+                "flash_attention"]
+            gn = float(norms[0])
+            check(counts["flash_attention"] == k3_a_step(cfg)
+                  and counts["nstep_returns"] == 1,
+                  f"{arch} one training step launched {counts}")
+            check(math.isfinite(res["losses"][0]) and math.isfinite(gn),
+                  f"{arch} one training step: loss {res['losses']}, grad "
+                  f"norm {gn}")
+            say("token training", f"{arch} ({change}) bf16, remat "
+                f"{cfg.remat!r}: one step at B={B} T={T}, loss "
+                f"{res['losses'][0]:.4f}, grad norm {gn:.4g}, K3 "
+                f"{counts['flash_attention']}, K1 {counts['nstep_returns']}, "
+                f"{res['seconds'] * 1e3:.0f} ms with the batch, peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            torch.cuda.empty_cache()
+    return path
+
+
+@contextlib.contextmanager
+def grad_norms():
+    """Yields a list that gets the global gradient norm of each optimizer
+    update inside the block, read where the optimizer clips."""
+    from repro_torch.optim import optimizer as opt_mod
+
+    norms = []
+    real_clip = opt_mod.clip_by_global_norm
+
+    def watched_clip(grads, max_norm):
+        grads, norm = real_clip(grads, max_norm)
+        norms.append(norm)
+        return grads, norm
+
+    opt_mod.clip_by_global_norm = watched_clip
+    try:
+        yield norms
+    finally:
+        opt_mod.clip_by_global_norm = real_clip
+
+
+def train_cell(torch, configs, ops, train, spec, dev="cuda") -> dict:
+    """One full-width training cell of ``TRAIN_CELLS``, ``spec`` = (arch,
+    layers kept, B, T, steps): the steps through ``train.synthetic_steps``
+    with the launches read after each, the global grad norm read where
+    RMSProp clips, step 3 in a profiler window, and the peak memory.
+    Returns the numbers as a JSON-able dict."""
+    from torch.profiler import ProfilerActivity, profile
+
+    arch, layers, B, T, iters = spec
+    cfg = configs.get_config(arch)
+    full = cfg.num_layers
+    cfg = cfg.replace(num_layers=layers) if layers else cfg
+    steps = []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = []
+
+    def on_step(i, metrics):
+        steps.append((time.perf_counter(), dict(ops.launches)))
+        if i == 1:  # profile step 3 alone
+            prof.__enter__()
+            window.append(i)
+        elif i == 2:
+            prof.__exit__(None, None, None)
+            window.append(i)
+
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with grad_norms() as norms:
+            res = train.synthetic_steps(cfg, B, T, iters, SEED, dev,
+                                        on_step=on_step)
+    finally:
+        if len(window) == 1:
+            prof.__exit__(None, None, None)
+    wall = time.perf_counter() - t0
+
+    def per_step(name):
+        before = [{name: 0}] + [c for _, c in steps[:-1]]
+        return [c[name] - b[name] for b, (_, c) in zip(before, steps)]
+
+    walls = [b[0] - a[0] for a, b in zip(steps, steps[1:])]
+    return {"arch": arch, "layers": cfg.num_layers, "of": full, "B": B,
+            "T": T, "steps": iters, "n_params": res["n_params"],
+            "losses": res["losses"], "grad_norms": [float(n) for n in norms],
+            "k3_a_step": per_step("flash_attention"),
+            "k1_a_step": per_step("nstep_returns"),
+            "counts": dict(ops.launches),
+            "backward_calls": ops.backward_calls["flash_attention"],
+            "step_ms": 1e3 * sum(walls) / len(walls),
+            "busy_ms": device_window(prof, 1)[0],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "wall_s": wall}
+
+
+def run_train_cell(spec) -> dict:
+    """``train_cell`` in a fresh process (``chip_smoke.py --train-cell``)
+    on the caching allocator's expandable segments: a cell needs all but a
+    few GB of the card, and in one long process its peak met the
+    fragmentation of the blocks around it."""
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--train-cell", ",".join(map(str, spec))],
+                       capture_output=True, text=True, env=env, timeout=900)
+    check(r.returncode == 0, f"training cell {spec} failed (exit "
+          f"{r.returncode}):\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    return json.loads([ln for ln in r.stdout.splitlines()
+                       if ln.startswith("{")][-1])
+
+
+def check_train_cell(cell, cfg, card) -> None:
+    """The gates of a training cell, then its report line."""
+    arch, iters = cell["arch"], cell["steps"]
+    counts = cell["counts"]
+    k3 = k3_a_step(cfg)
+    check(cell["k3_a_step"] == [k3] * iters,
+          f"{arch} training: K3 launches a step {cell['k3_a_step']}, "
+          f"expected {k3}")
+    check(cell["k1_a_step"] == [1] * iters,
+          f"{arch} training: K1 a step {cell['k1_a_step']}")
+    check(all(v == 0 for k, v in counts.items()
+              if k not in ("flash_attention", "nstep_returns")),
+          f"{arch} training launched {counts}")
+    bwd = cell["backward_calls"]
+    check(bwd == iters * kernel_layers(cfg, "flash_attention"),
+          f"{arch} training: K3's backward ran {bwd} times")
+    losses, gn = cell["losses"], cell["grad_norms"]
+    check(len(gn) == iters and all(math.isfinite(x) for x in losses + gn),
+          f"{arch} training: losses {losses}, grad norms {gn}")
+    check(len(set(losses)) > 1, f"{arch} training: the loss did not "
+          f"change: {losses}")
+    B, T = cell["B"], cell["T"]
+    say("token training", f"{arch} bf16 at every published width "
+        f"(d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), {cell['layers']} of "
+        f"{cell['of']} layers, {cell['n_params'] / 1e9:.3f} B params, remat "
+        f"{cfg.remat!r}, RMSProp, in a fresh process: {iters} steps at "
+        f"B={B} T={T}: K3 {k3} a step "
+        f"({kernel_layers(cfg, 'flash_attention')} forward + the remat "
+        f"recompute), its backward {bwd // iters} a step, K1 1 a step; "
+        f"{B * T / (cell['step_ms'] / 1e3):.1f} tokens/s, a step "
+        f"{cell['step_ms']:.1f} ms wall (steps 2-{iters}), profiled step 3 "
+        f"busy {cell['busy_ms']:.1f} ms; peak memory {cell['peak_gb']:.2f} "
+        "GB; losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + "; global grad norms " + ", ".join(f"{x:.4g}" for x in gn)
+        + f"; {cell['wall_s']:.1f} s with the init ({card})")
+
+
+def phase_token_cli(torch, ops, train, root, example_iters: int = 300,
+                    example_argv=()):
+    """``launch/train.py`` with a token arch, ``--mode rl`` synchronous and
+    ``--pipeline`` and ``--mode synthetic``, and
+    ``examples/train_llm_rl_torch.py --smoke --iters example_iters`` (and
+    ``example_argv``); the launches of each."""
+    by_path = {}
+    legs = (
+        ("token train cli", ["--arch", "qwen2-7b", "--reduced",
+                             "--iterations", "20"], {"nstep_returns": 20}),
+        ("token train cli pipeline", ["--arch", "qwen2-7b", "--reduced",
+                                      "--iterations", "20", "--pipeline"],
+         {"vtrace_returns": 20}),
+        ("token train cli synthetic", ["--arch", "qwen2-7b", "--reduced",
+                                       "--mode", "synthetic", "--iterations",
+                                       "5", "--t-max", "64"],
+         {"nstep_returns": 5, "flash_attention": 5 * 2}),
+    )
+    for name, argv, want in legs:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = train.main(argv)
+        counts = dict(ops.launches)
+        by_path[name] = counts
+        for k, n in want.items():
+            check(counts[k] == n, f"{name}: {k} launched {counts[k]}, "
+                  f"expected {n}")
+        check(counts["flash_attention"] > 0, f"{name}: K3 never launched")
+        if isinstance(out, dict):
+            detail = (f"{out['tokens_per_s']:.1f} tokens/s, losses "
+                      + ", ".join(f"{x:.4f}" for x in out["losses"]))
+        else:
+            (res,) = out
+            check(all(math.isfinite(v) for v in res.mean_metrics.values()),
+                  f"{name}: metrics {res.mean_metrics}")
+            detail = (f"{res.timesteps_per_sec:.1f} timesteps/s, mean loss "
+                      f"{res.mean_metrics['loss']:.4f}")
+        say("token cli", f"train.py {' '.join(argv)}: {detail}; launches "
+            + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+            + f"; {time.perf_counter() - t0:.1f} s")
+    spec = importlib.util.spec_from_file_location(
+        "train_llm_rl_torch", root / "examples" / "train_llm_rl_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = mod.main(["--smoke", "--iters", str(example_iters),
+                        *example_argv])
+    counts = dict(ops.launches)
+    by_path["token example"] = counts
+    iters = example_iters
+    check(counts["nstep_returns"] == iters and counts["flash_attention"] > 0,
+          f"train_llm_rl_torch --smoke launches {counts}")
+    last = results[-1].mean_metrics
+    check(math.isfinite(last["loss"]), f"example metrics {last}")
+    say("token cli", f"examples/train_llm_rl_torch.py --smoke: {iters} "
+        f"iterations, last chunk reward/step "
+        f"{last['reward_sum'] / (8 * 4):.3f}, loss {last['loss']:.4f}; "
+        "launches " + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        + f"; {time.perf_counter() - t0:.1f} s")
+    return by_path
 
 
 SERVING_CELLS = (
@@ -5012,6 +5510,9 @@ def main(argv=None) -> int:
                                  "CUDA card")
     ap.add_argument("--trace-dir", default="",
                     help="also write the pipeline runs' Chrome traces here")
+    ap.add_argument("--train-cell", default="",
+                    help="(internal) run one TRAIN_CELLS entry, given as "
+                    "arch,layers,B,T,steps, and print its JSON line")
     args = ap.parse_args(argv)
     import torch
 
@@ -5019,6 +5520,16 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if args.train_cell:
+        from repro_torch import configs
+        from repro_torch.kernels import ops
+        from repro_torch.launch import train
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        arch, *dims = args.train_cell.split(",")
+        print(json.dumps(train_cell(torch, configs, ops, train,
+                                    (arch, *map(int, dims)))))
+        return 0
     import numpy as np
     import torch.nn.functional as F
 
@@ -5048,17 +5559,23 @@ def main(argv=None) -> int:
 
     card = phase_card(torch, _build)
     lap("card")
+    # first on the card: the full-width training cells need all but a few
+    # GB of its memory, which later phases leave fragmented
+    by_path = {}
+    by_path["token training"] = phase_token_training(
+        torch, np, configs, models, ops, paac, optim, train, tree, card)
+    lap("token training")
     rows = {"nstep_returns": phase_returns(torch, ref, nr),
             "vtrace_returns": phase_vtrace(torch, ref, vt)}
     lap("returns, vtrace")
     rows.update(phase_kernels(torch, np, F, ref, fa, da))
     phase_latent_kernels(torch, np, F, ref, fa, mk, sk, rows)
     phase_window_kernels(torch, np, F, ref, da, mk, rows)
+    phase_flash_grad(torch, np, F, ref, ops, rows)
     lap("kernels")
     phase_rl_model(torch, configs, models, envs, paac, optim, tree)
     # launches of each kernel on each main path, every path driven with the
     # counts set to 0 just before it and read just after
-    by_path = {}
     by_path["training"], trained = phase_training(torch, paper_atari, ops,
                                                   tree, card)
     lap("rl_model, training")
@@ -5100,6 +5617,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_model(torch, np, configs, models, ops, tree)
     lap("model")
+    by_path.update(phase_token_cli(torch, ops, train,
+                                   Path(__file__).resolve().parent))
+    lap("token cli")
     for cell in SERVING_CELLS:
         by_path.update(phase_serving(
             torch, np, configs, models, ops, serve, serving, tree, card, cell,
@@ -5123,7 +5643,16 @@ def main(argv=None) -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             **{k: row[k] for k in ("shape", "host_us", "launch_floor_ms",
+                                   "lse_ms", "lse_max_abs_err", "backward",
                                    "other") if k in row}})
+        if "backward" in row:  # K3's plain backward: its calls on each path
+            row["backward"]["calls_by_path"] = {
+                path: c[f"{name} backward"] for path, c in by_path.items()
+                if c.get(f"{name} backward")}
+            row["backward"]["calls"] = sum(
+                row["backward"]["calls_by_path"].values())
+            check(row["backward"]["calls"] > 0,
+                  f"{name}'s backward ran on no training path")
     say("done", "seconds a phase: " + ", ".join(f"{n} {t:.1f}"
                                                   for n, t in laps))
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -79,7 +79,7 @@ def build(build_mod, out: Path):
         print(f"{name}: built by {time.perf_counter() - t0:.1f} s; <128, 128>: "
               f"{info}", flush=True)
         fn = ctypes.CDLL(str(out / f"{name}.so")).flash_attention_bf16_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -116,8 +116,8 @@ def main(argv=None) -> int:
         B, Sq, H, D = q.shape
         _, Sk, Hkv, Dv = v.shape
         o = torch.empty(B, Sq, H, Dv, dtype=q.dtype, device=q.device)
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq,
-                Sk, H, Hkv, D, Dv, int(causal), window, D ** -0.5,
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
+                B, Sq, Sk, H, Hkv, D, Dv, int(causal), window, D ** -0.5,
                 torch.cuda.current_stream().cuda_stream)
         cs.check(rc == 0, f"launch failed: CUDA error {rc}")
         return o

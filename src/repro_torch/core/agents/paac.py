@@ -11,9 +11,15 @@ full Algorithm-1 iteration: collect (rollout and the bootstrap value), then
 update (the learning forward over all n_e·t_max frames with gradients,
 n-step returns through K1, the losses, the backward and the optimizer).
 The two halves are separate steps, so that an update can be fed a
-trajectory from elsewhere. The token policies' trajectory-batch train step
-(``make_llm_train_step``) comes with the token training path (ROADMAP
-Queue 1 item 11).
+trajectory from elsewhere.
+
+``make_llm_train_step`` is the trajectory-batch form for the token
+policies: the batch is {tokens (B, T+1), rewards (B, T), dones (B, T)},
+one sequence one actor's trajectory, and one call is the learning forward
+with gradients (K3 and its backward in every attention layer), the n-step
+returns (K1), the losses with the MoE aux loss, the backward and one
+optimizer update. Token policies act on their last position. The SSM and
+hybrid policies have no training pass yet (ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ class PAACConfig(NamedTuple):
     entropy_beta: float = 0.01
     t_max: int = 5
     value_coef: float = 0.5
+    moe_aux_coef: float = 0.01
 
 
 def paac_losses(logits, values, actions, returns, beta, value_coef,
@@ -68,6 +75,8 @@ def trajectory_logits_values(params, cfg, traj):
     T, E = traj.action.shape
     obs = traj.obs.reshape((T * E,) + tuple(traj.obs.shape[2:]))
     logits, values, _ = policy_apply(params, cfg, obs)
+    if cfg.family != "cnn":  # token policies: the last position
+        logits, values = logits[:, -1], values[:, -1]
     return logits, values
 
 
@@ -90,15 +99,66 @@ def loss_and_grads(params, cfg, hp, traj, bootstrap):
     parameter. ``bootstrap`` (E,) is V(s_{t_max+1}) without a gradient.
     Returns ``(loss, metrics, grads)``: 0-d tensors and a tree shaped like
     ``params``, all without a graph."""
+    def loss_fn(p):
+        logits, values, actions, returns = trajectory_forward(
+            p, cfg, hp, traj, bootstrap)
+        return paac_losses(logits, values, actions, returns,
+                           hp.entropy_beta, hp.value_coef)
+
+    return value_and_grad(loss_fn, params)
+
+
+def value_and_grad(loss_fn, params):
+    """``loss_fn(params) -> (loss, metrics)`` and the loss's gradient with
+    respect to every parameter. Returns ``(loss, metrics, grads)``: 0-d
+    tensors and a tree shaped like ``params``, all without a graph."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
-        logits, values, actions, returns = trajectory_forward(
-            tree_unflatten(params, leaves), cfg, hp, traj, bootstrap)
-        loss, metrics = paac_losses(logits, values, actions, returns,
-                                    hp.entropy_beta, hp.value_coef)
+        loss, metrics = loss_fn(tree_unflatten(params, leaves))
         grads = torch.autograd.grad(loss, leaves)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_unflatten(params, grads)
+
+
+def returns_through_bootstrap(rewards, dones, bootstrap, gamma: float):
+    """Batch-major n-step returns (B, T) of rewards/dones (B, T) from
+    ``bootstrap`` (B,) through K1, with the gradient the reference's
+    autodiff of its scan gives the bootstrap: dR_t/db = prod over s >= t of
+    gamma (1 - done_s). K1 takes no input that needs a gradient, so it gets
+    the bootstrap detached and that gradient rides on a term that is 0."""
+    returns = n_step_returns(rewards.T, dones.T, bootstrap.detach(),
+                             gamma)  # (T, B)
+    if bootstrap.requires_grad:
+        disc = gamma * (1.0 - dones.T.float())
+        coef = torch.flip(torch.cumprod(torch.flip(disc, (0,)), 0), (0,))
+        returns = returns + coef * (bootstrap - bootstrap.detach())
+    return returns.T
+
+
+def llm_loss(params, cfg, hp, batch):
+    """The trajectory-batch PAAC loss of the reference's
+    ``make_llm_train_step``: inputs tokens[:, :-1] and actions
+    tokens[:, 1:], a vision trunk's text positions only, returns
+    bootstrapped from the last value, ``paac_losses`` plus ``moe_aux_coef``
+    times the MoE aux loss. Returns (loss, metrics)."""
+    tokens = batch["tokens"]  # (B, T+1)
+    inputs, actions = tokens[:, :-1], tokens[:, 1:]
+    prefix = batch.get("prefix", batch.get("frames"))
+    logits, values, aux = policy_apply(params, cfg, inputs, prefix,
+                                       train=True)
+    if cfg.prefix_len:  # score text positions only (vlm)
+        logits = logits[:, cfg.prefix_len:]
+        values = values[:, cfg.prefix_len:]
+    B, T = actions.shape
+    returns = returns_through_bootstrap(batch["rewards"], batch["dones"],
+                                        values[:, -1], hp.gamma)
+    total, metrics = paac_losses(
+        logits.reshape(B * T, -1), values.reshape(B * T),
+        actions.reshape(B * T).long(), returns.reshape(B * T),
+        hp.entropy_beta, hp.value_coef)
+    if "moe_aux" in aux:
+        total = total + hp.moe_aux_coef * aux["moe_aux"]
+    return total, metrics
 
 
 class PAACAgent(Agent):
@@ -116,6 +176,10 @@ class PAACAgent(Agent):
 
         def fn(params, obs):
             logits, value, _ = policy_apply(params, cfg, obs)
+            if cfg.family != "cnn":
+                # token policies: obs is the token context; act on its last
+                # position
+                return logits[:, -1], value[:, -1]
             return logits, value
 
         return fn
@@ -167,5 +231,23 @@ class PAACAgent(Agent):
             metrics["reward_sum"] = traj.reward.sum()
             metrics["episodes"] = traj.done.sum()
             return params, opt_state, env_state, last_obs, metrics
+
+        return train_step
+
+    # -- trajectory-batch train step (token archs) ---------------------------
+    def make_llm_train_step(self, optimizer, lr_schedule):
+        """``train_step(params, opt_state, batch, step) -> (params,
+        opt_state, metrics)``; ``batch`` holds ``tokens`` (B, T+1),
+        ``rewards`` and ``dones`` (B, T), and ``prefix`` (a vision trunk's
+        patch embeddings) or ``frames`` (an encoder-decoder's)."""
+        cfg, hp = self.cfg, self.hp
+
+        def train_step(params, opt_state, batch, step):
+            loss, metrics, grads = value_and_grad(
+                lambda p: llm_loss(p, cfg, hp, batch), params)
+            params, opt_state = optimizer.update(grads, opt_state, params,
+                                                 lr_schedule(step))
+            metrics["loss"] = loss
+            return params, opt_state, metrics
 
         return train_step

@@ -13,6 +13,10 @@
 // query row that sees no key at all (possible only with Sq > Sk and a
 // window) has no defined output: ref.py averages every value row, the TPU
 // kernel and this one average the rows of the tiles they ran.
+// When the caller passes an lse buffer (B, Sq, H) fp32, each row also writes
+// its log-sum-exp m + log(max(l, 1e-30)), what the reference's _flash_fwd
+// returns for the backward (src/repro/models/attention.py:95); a row that
+// saw no key keeps m = -1e30, the reference's clamped value.
 //
 // This file is the float32 instantiation, the parity path: the card is held
 // against the CPU in fp32 with TF32 off (chip_smoke.py's model phase,
@@ -54,8 +58,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int Hkv, int causal, int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
+                 int causal, int window, float scale) {
   constexpr int OPT = DV / TX;  // output columns per thread
   static_assert(DV % TX == 0, "v width must be a multiple of the thread grid");
   extern __shared__ float smem[];
@@ -204,12 +209,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < OPT; ++j) store(out + tx + TX * j, acc[i][j] * inv);
     }
   }
+  if (lse != nullptr && tid < BQ && q0 + tid < Sq)
+    lse[((long)b * Sq + q0 + tid) * H + h] =
+        sM[tid] + logf(fmaxf(sL[tid], 1e-30f));
 }
 
 template <typename T, int D, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int H, int Hkv, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int Hkv, int causal, int window,
+           float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, DV>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -218,24 +226,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, D, DV><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, Hkv, causal,
-      window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, Hkv,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int dispatch_dv(int DV, const void* q, const void* k, const void* v, void* o,
-                int B, int Sq, int Sk, int H, int Hkv, int causal, int window,
+                float* lse, int B, int Sq, int Sk, int H, int Hkv, int causal, int window,
                 float scale, cudaStream_t stream) {
   switch (DV) {
     case 32:
-      return launch<T, D, 32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return launch<T, D, 32>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 64:
-      return launch<T, D, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return launch<T, D, 64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 112:
-      return launch<T, D, 112>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return launch<T, D, 112>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 128:
-      return launch<T, D, 128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return launch<T, D, 128>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -243,23 +251,23 @@ int dispatch_dv(int DV, const void* q, const void* k, const void* v, void* o,
 
 template <typename T>
 int dispatch_d(int D, int DV, const void* q, const void* k, const void* v,
-               void* o, int B, int Sq, int Sk, int H, int Hkv, int causal,
+               void* o, float* lse, int B, int Sq, int Sk, int H, int Hkv, int causal,
                int window, float scale, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return dispatch_dv<T, 32>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<T, 32>(DV, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 48:
-      return dispatch_dv<T, 48>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<T, 48>(DV, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 64:
-      return dispatch_dv<T, 64>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<T, 64>(DV, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 96:
-      return dispatch_dv<T, 96>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<T, 96>(DV, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 112:
-      return dispatch_dv<T, 112>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<T, 112>(DV, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 128:
-      return dispatch_dv<T, 128>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<T, 128>(DV, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 192:
-      return dispatch_dv<T, 192>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<T, 192>(DV, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -268,15 +276,16 @@ int dispatch_d(int D, int DV, const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace repro_torch
 
-// C interface, bound with ctypes; float32 tensors only. Returns the CUDA
-// error code of the launch (0 = launched).
+// C interface, bound with ctypes; float32 tensors only, lse (B, Sq, H)
+// float32 or null. Returns the CUDA error code of the launch (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int Sq, int Sk, int H,
-                                   int Hkv, int D, int Dv, int causal,
+                                   void* o, void* lse, int B, int Sq, int Sk,
+                                   int H, int Hkv, int D, int Dv, int causal,
                                    int window, float scale, void* stream) {
   using namespace repro_torch;
-  return dispatch_d<float>(D, Dv, q, k, v, o, B, Sq, Sk, H, Hkv, causal,
-                           window, scale, static_cast<cudaStream_t>(stream));
+  return dispatch_d<float>(D, Dv, q, k, v, o, static_cast<float*>(lse), B, Sq,
+                           Sk, H, Hkv, causal, window, scale,
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

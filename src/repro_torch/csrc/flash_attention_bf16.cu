@@ -8,6 +8,11 @@
 // sliding-window masks, GQA by h / (H / Hkv), masked scores of -1e30, the
 // denominator clamped at 1e-30, ragged Sq and Sk masked in the kernel with
 // no padded copy, tiles past the diagonal or before the window never read.
+// When the caller passes an lse buffer (B, Sq, H) fp32, each row also writes
+// its log-sum-exp m + log(l) in natural-log units, what the reference's
+// _flash_fwd returns for the backward (src/repro/models/attention.py:95):
+// the row max kept in base 2 is turned back once, at the write. A row that
+// saw no key keeps m = -1e30, the reference's clamped value.
 //
 // What bounds it on the H100: at the serving shapes (S = 512, D = 128,
 // G = 7, causal) the work is ~4*D*S^2/2 flops a head over ~0.3 MB a head,
@@ -56,6 +61,7 @@ constexpr int WARPS = 4;      // 16 query rows each
 constexpr int THREADS = 32 * WARPS;
 constexpr int SPAD = 8;       // row pad in bf16 elements (16 bytes)
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // 2^x; ex2.approx.ftz flushes results below 2^-126 to 0 (a p that small
 // adds nothing to a sum whose largest term is 1).
@@ -80,8 +86,8 @@ template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                      int Sq, int Sk, int H, int Hkv, int causal, int window,
-                      float scale_log2) {
+                      float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
+                      int causal, int window, float scale_log2) {
   using L = Tiles<D, DV>;
   constexpr int KSTEPS = D / 16;   // k-steps of Q K^T
   constexpr int NS = BK / 8;       // n-tiles of the scores (keys)
@@ -272,14 +278,18 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int j = 0; j < NO; ++j)
         *reinterpret_cast<uint32_t*>(out + 8 * j) =
             pack_bf16x2(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+      if (lse != nullptr && t == 0) {  // m from base 2 to natural log
+        const float mn = m[r] == NEG_INF ? NEG_INF : m[r] * LN2;
+        lse[((long)b * Sq + qp) * H + h] = mn + logf(fmaxf(l[r], 1e-30f));
+      }
     }
   }
 }
 
 template <int D, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int H, int Hkv, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int Hkv, int causal, int window,
+           float scale, cudaStream_t stream) {
   constexpr size_t smem = Tiles<D, DV>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16_kernel<D, DV>,
@@ -288,47 +298,47 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
   flash_fwd_bf16_kernel<D, DV><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, Hkv,
-      causal, window, scale * LOG2E);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Sq, Sk, H,
+      Hkv, causal, window, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int dispatch_dv(int DV, const void* q, const void* k, const void* v, void* o,
-                int B, int Sq, int Sk, int H, int Hkv, int causal, int window,
+                float* lse, int B, int Sq, int Sk, int H, int Hkv, int causal, int window,
                 float scale, cudaStream_t stream) {
   switch (DV) {
     case 32:
-      return launch<D, 32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return launch<D, 32>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 64:
-      return launch<D, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return launch<D, 64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 112:
-      return launch<D, 112>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return launch<D, 112>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 128:
-      return launch<D, 128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return launch<D, 128>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 int dispatch_d(int D, int DV, const void* q, const void* k, const void* v,
-               void* o, int B, int Sq, int Sk, int H, int Hkv, int causal,
+               void* o, float* lse, int B, int Sq, int Sk, int H, int Hkv, int causal,
                int window, float scale, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return dispatch_dv<32>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<32>(DV, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 48:
-      return dispatch_dv<48>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<48>(DV, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 64:
-      return dispatch_dv<64>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<64>(DV, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 96:
-      return dispatch_dv<96>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<96>(DV, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 112:
-      return dispatch_dv<112>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<112>(DV, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 128:
-      return dispatch_dv<128>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<128>(DV, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     case 192:
-      return dispatch_dv<192>(DV, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
+      return dispatch_dv<192>(DV, q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -337,16 +347,17 @@ int dispatch_d(int D, int DV, const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace repro_torch
 
-// C interface, bound with ctypes; bfloat16 tensors only. Returns the CUDA
-// error code of the launch (0 = launched).
+// C interface, bound with ctypes; bfloat16 tensors only, lse (B, Sq, H)
+// float32 or null. Returns the CUDA error code of the launch (0 = launched).
 extern "C" int flash_attention_bf16_fwd(const void* q, const void* k,
-                                        const void* v, void* o, int B, int Sq,
-                                        int Sk, int H, int Hkv, int D, int Dv,
-                                        int causal, int window, float scale,
-                                        void* stream) {
+                                        const void* v, void* o, void* lse,
+                                        int B, int Sq, int Sk, int H, int Hkv,
+                                        int D, int Dv, int causal, int window,
+                                        float scale, void* stream) {
   using namespace repro_torch;
-  return dispatch_d(D, Dv, q, k, v, o, B, Sq, Sk, H, Hkv, causal, window,
-                    scale, static_cast<cudaStream_t>(stream));
+  return dispatch_d(D, Dv, q, k, v, o, static_cast<float*>(lse), B, Sq, Sk,
+                    H, Hkv, causal, window, scale,
+                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_attention_bf16_error_string(int code) {

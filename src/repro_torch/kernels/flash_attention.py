@@ -6,9 +6,11 @@ The hand-written CUDA kernels that replace
 ``repro/kernels/flash_attention.py::flash_attention_pallas``. As the TPU
 kernel does, they take v narrower or wider than q and k (MLA prefill: q/k
 96 wide and v 64 for minicpm3-4b, 192 and 128 for deepseek-v2) and write
-the output as wide as v. Its plain version is ``ref.flash_attention_ref``;
-``ops.flash_attention`` picks between the two by the device of the tensors
-it is given.
+the output as wide as v. Asked for it, they also write each row's
+log-sum-exp (B, Sq, H) in fp32, what the backward of ``ops.flash_attention``
+recomputes the probabilities from; the output's bits do not depend on it.
+Its plain version is ``ref.flash_attention_ref``; ``ops.flash_attention``
+picks between the two by the device of the tensors it is given.
 """
 from __future__ import annotations
 
@@ -68,18 +70,18 @@ def check_inputs(q, k, v, *, window: int = 0) -> None:
 def _kernel(name: str):
     fn = getattr(_build.library(name), f"{name}_fwd")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                         scale=None) -> torch.Tensor:
+                         scale=None, return_lse: bool = False):
     """Launch K3 on ``q``'s card: q (B, Sq, H, D), k (B, Sk, Hkv, D), v
-    (B, Sk, Hkv, Dv) -> (B, Sq, H, Dv) in q's dtype. Raises on CPU tensors
-    and on any input the kernel does not take; a refused launch raises
-    too."""
+    (B, Sk, Hkv, Dv) -> (B, Sq, H, Dv) in q's dtype; with ``return_lse``
+    also the rows' log-sum-exp (B, Sq, H) fp32. Raises on CPU tensors and
+    on any input the kernel does not take; a refused launch raises too."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda: tensors are on {q.device}, "
                          "not on a CUDA device")
@@ -89,15 +91,17 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     Dv = v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     name = LIBRARIES[q.dtype]
     fn = _kernel(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, Sq, Sk, H, Hkv, D, Dv, int(bool(causal)), int(window),
-                float(scale), stream)
+                None if lse is None else lse.data_ptr(), B, Sq, Sk, H, Hkv,
+                D, Dv, int(bool(causal)), int(window), float(scale), stream)
     if rc != 0:
         msg = _build.error_string(name, rc)
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} "
                            f"(CUDA error {rc})")
-    return out
+    return (out, lse) if return_lse else out

@@ -5,8 +5,16 @@ CUDA device goes to the hand-written kernel, which launches or raises.
 Nothing falls back from one to the other. ``launches`` counts, per kernel,
 the launches made through this module, so a run can show that its path
 went through the kernels.
+
+K3 is differentiable: when grad mode is on and q, k or v needs a gradient,
+``flash_attention`` runs through ``FlashAttention``, whose forward is K3
+writing each row's log-sum-exp too (the plain version on the CPU) and whose
+backward is ``ref.flash_attention_bwd``, plain tensor algebra, as the
+reference's custom VJP is plain XLA (F4: the TPU kernel has no backward).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
@@ -20,11 +28,14 @@ from repro_torch.kernels.vtrace import vtrace_returns_cuda
 
 launches = {"nstep_returns": 0, "vtrace_returns": 0, "flash_attention": 0,
             "decode_attention": 0, "mla_decode_attention": 0, "ssd_scan": 0}
+# calls of each kernel's backward (plain tensor algebra, not a launch)
+backward_calls = {"flash_attention": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, backward_calls):
+        for name in counts:
+            counts[name] = 0
 
 
 def nstep_returns(rewards, dones, bootstrap, gamma: float):
@@ -54,17 +65,48 @@ def vtrace_returns(rewards, dones, values, bootstrap, rho, gamma: float,
     return out
 
 
+def _flash_attention(q, k, v, causal, window, scale, return_lse=False):
+    """K3 on q's device: the kernel (counted) on a CUDA tensor, the plain
+    version on a CPU one."""
+    if q.device.type == "cpu":
+        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                        scale=scale, return_lse=return_lse)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               scale=scale, return_lse=return_lse)
+    launches["flash_attention"] += 1
+    return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """K3 with a gradient: the forward keeps (q, k, v, out, lse) and the
+    backward recomputes each block's probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = _flash_attention(q, k, v, causal, window, scale,
+                                    return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = {"causal": causal, "window": window, "scale": scale}
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _ref.flash_attention_bwd(q, k, v, out, lse, d_out,
+                                              **ctx.opts)
+        backward_calls["flash_attention"] += 1
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale=None):
     """K3. q (B, Sq, H, D); k (B, Sk, Hkv, D); v (B, Sk, Hkv, Dv) ->
-    (B, Sq, H, Dv)."""
-    if q.device.type == "cpu":
-        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                        scale=scale)
-    out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                               scale=scale)
-    launches["flash_attention"] += 1
-    return out
+    (B, Sq, H, Dv). Differentiable through ``FlashAttention`` when one of
+    q, k, v needs a gradient; otherwise the launch writes no LSE."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, scale)
+    return _flash_attention(q, k, v, causal, window, scale)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, scale=None,

@@ -59,26 +59,89 @@ def vtrace_returns_ref(rewards, dones, values, bootstrap, rho, gamma: float,
     return vs, pg_adv
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None,
+                        return_lse=False):
     """q: (B, Sq, H, D); k: (B, Sk, Hkv, D); v: (B, Sk, Hkv, Dv). Returns
-    (B, Sq, H, Dv)."""
+    (B, Sq, H, Dv); with ``return_lse`` also each row's log-sum-exp
+    m + log(max(l, 1e-30)) of the scaled, masked scores, (B, Sq, H) fp32,
+    what the reference's ``_flash_fwd`` returns (a row that sees no key
+    gets m = -1e30)."""
     B, Sq, H, D = q.shape
     _, Sk, Hkv, Dv = v.shape
     G = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qg = q.reshape(B, Sq, Hkv, G, D).float()
     s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.float()) * scale
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
-    k_pos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window:
-        mask &= k_pos > q_pos - window
-    s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
+    s = s.masked_fill(~attention_mask(Sq, Sk, causal, window, q.device)
+                      [None, :, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
-    return o.reshape(B, Sq, H, Dv).to(q.dtype)
+    o = o.reshape(B, Sq, H, Dv).to(q.dtype)
+    if not return_lse:
+        return o
+    m = s.amax(dim=-1)
+    lse = m + torch.log(torch.clamp(torch.exp(s - m[..., None]).sum(-1),
+                                    min=1e-30))
+    return o, lse.reshape(B, Sq, H)
+
+
+def attention_mask(Sq: int, Sk: int, causal: bool, window: int, device,
+                   k0: int = 0, k1=None):
+    """(Sq, k1 - k0) bool: which of keys k0..k1 - 1 (default all Sk) each
+    query sees, causal (key <= query) and within ``window`` when it is > 0
+    (key > query - window)."""
+    k1 = Sk if k1 is None else k1
+    q_pos = torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(k0, k1, device=device)[None, :]
+    mask = k_pos < Sk
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window:
+        mask = mask & (k_pos > q_pos - window)
+    return mask
+
+
+def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal=True, window=0,
+                        scale=None, block_k: int = 512):
+    """The gradient of ``flash_attention_ref`` given its output and LSE: the
+    port of the reference's ``_flash_attention_xla_bwd``
+    (``repro/models/attention.py:109-146``), which is plain XLA outside any
+    Pallas kernel. delta = sum(dO * O) a row; then for each block of
+    ``block_k`` keys P = exp(S - lse) is recomputed from (q, k, lse), and
+    dV += P^T dO, dP = dO V^T, dS = P (dP - delta), dQ += dS K and
+    dK = dS^T q. The operands are rounded to q's dtype and the products
+    summed in fp32, as the reference's ``preferred_element_type`` does; q
+    is scaled before the products, as the reference pre-scales it. GQA
+    sums dK and dV over each KV head's query group. Returns (dq, dk, dv)
+    in the dtypes of q, k and v."""
+    B, Sq, H, D = q.shape
+    _, Sk, Hkv, Dv = v.shape
+    G = H // Hkv
+    dtype = q.dtype
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qs = (q * scale).reshape(B, Sq, Hkv, G, D).float()
+    do = d_out.to(dtype).reshape(B, Sq, Hkv, G, Dv).float()
+    lse = lse.reshape(B, Sq, Hkv, G)
+    delta = (d_out.float() * out.float()).sum(-1).reshape(B, Sq, Hkv, G)
+    dq = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for k0 in range(0, Sk, block_k):
+        k1 = min(k0 + block_k, Sk)
+        kb, vb = k[:, k0:k1].float(), v[:, k0:k1].float()
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qs, kb)
+        mask = attention_mask(Sq, Sk, causal, window, q.device, k0, k1)
+        s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
+        p = torch.exp(s - lse[..., None])
+        dvs.append(torch.einsum("bqhgk,bqhgd->bkhd", p.to(dtype).float(), do)
+                   .to(v.dtype))
+        dp = torch.einsum("bqhgd,bkhd->bqhgk", do, vb)
+        ds = (p * (dp - delta[..., None])).to(dtype).float()
+        dq = dq + torch.einsum("bqhgk,bkhd->bqhgd", ds, kb)
+        dks.append(torch.einsum("bqhgk,bqhgd->bkhd", ds, qs).to(k.dtype))
+    # dq is the gradient of the pre-scaled q; the scaling's own chain rule
+    dq = dq.to(dtype) * scale
+    return (dq.reshape(B, Sq, H, D), torch.cat(dks, dim=1),
+            torch.cat(dvs, dim=1))
 
 
 def live_slots(pos, S: int, window: int, device):

@@ -3,7 +3,14 @@
 ``--mode rl`` runs full PAAC RL (Algorithm 1) against the k-back echo
 ``TokenEnv`` — rollout with the current policy, synchronous update — on
 the card, or on the CPU with ``--device cpu`` (without a CUDA device the
-default raises). ``--algo dqn`` selects the value-based agent: the
+default raises). A token arch (the attention families: qwen2-7b,
+glm4-9b, deepseek-coder-33b, minicpm3-4b, dbrx-132b, deepseek-v2-236b,
+pixtral-12b) acts on the token context's last position and learns through
+K3 and its backward; ``paac_vector`` acts on the raw token ids.
+``--mode synthetic`` is the profiling path with no env loop: a random
+trajectory batch (B = ``--n-envs``, T = ``--t-max``) through the token
+arch's trajectory train step (``launch.steps.build_train_step``), timed
+with the card synchronised. ``--algo dqn`` selects the value-based agent: the
 synchronous DQN with its own replay buffer. ``--host-env`` swaps the
 TokenEnv for the paper's host env plane: a ``HostEnvPool`` of GIL-holding
 Python emulators (``PyBoundEnv``, ``--env-spin`` pure-Python work a step,
@@ -43,13 +50,12 @@ K1.
 The parser takes every flag of the reference, with its defaults, plus
 ``--device``. Every ``SystemExit`` of the reference's flag validation comes
 in the reference's order with its text. What the port does not run yet
-raises ``NotImplementedError`` naming its ROADMAP Queue 1 item: the token
-archs and ``--mode synthetic`` (their training pass needs a backward
-through K3 and K6: item 11), and ``--mesh`` > 1 and ``--rollout-plane
-mesh`` (item 14). So
-``--arch`` defaults to ``paac_vector``, the vector policy acting on the
-raw observations (the reference's default, ``mamba2-370m``, waits for
-item 11).
+raises ``NotImplementedError`` naming its ROADMAP Queue 1 item: the SSM
+and hybrid archs, mamba2-370m and zamba2-7b, in either mode (their
+training pass needs a backward through K6: item 11), and ``--mesh`` > 1
+and ``--rollout-plane mesh`` (item 14). So ``--arch`` defaults to
+``paac_vector``, the vector policy acting on the raw observations (the
+reference's default, ``mamba2-370m``, waits for item 11).
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --iterations 50
@@ -76,7 +82,10 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import time
 from typing import List, Tuple
+
+import torch
 
 from repro_torch.analysis import (disable_sanitizers, enable_sanitizers,
                                   parse_modes)
@@ -88,9 +97,12 @@ from repro_torch.core.agents import (DQNAgent, DQNConfig, PAACAgent,
 from repro_torch.core.framework import ParallelRL, RunResult
 from repro_torch.device import resolve_device
 from repro_torch.envs import TokenEnv, py_bound_spec
+from repro_torch.launch.steps import build_train_step
+from repro_torch.models import init_policy
 from repro_torch.optim import constant
 from repro_torch.pipeline import FaultPlan, PipelinedRL
 from repro_torch.utils import get_logger
+from repro_torch.utils.tree import tree_leaves
 
 log = get_logger("train")
 
@@ -107,6 +119,8 @@ ASSIGNED_ARCHS = [
     "pixtral-12b",
     "mamba2-370m",
 ]
+# the SSM and hybrid archs: no training pass until item 11
+UNTRAINED_ARCHS = ("mamba2-370m", "zamba2-7b")
 
 
 def _refuse_invalid(args) -> None:
@@ -169,9 +183,9 @@ def _refuse_unported(args) -> None:
     """``NotImplementedError`` for each setting the port does not run yet,
     naming the ROADMAP Queue 1 item that ports it."""
     unported = [
-        (args.arch != "paac_vector", f"--arch {args.arch} (the token archs' "
-         "training pass, which needs a backward through K3 and K6) is item "
-         "11"),
+        (args.arch in UNTRAINED_ARCHS, f"--arch {args.arch} (the SSM and "
+         "hybrid archs' training pass, which needs a backward through K6) "
+         "is item 11"),
         (args.mesh > 1 or args.rollout_plane == "mesh", "--mesh > 1 and "
          "--rollout-plane mesh (the mesh plane) are item 14"),
     ]
@@ -255,8 +269,9 @@ def _run_rl(args) -> Tuple[object, List[RunResult]]:
     else:
         env = TokenEnv(args.n_envs, vocab=min(cfg.vocab_size, 64),
                        ctx=args.ctx, k=2, horizon=64, device=dev)
-        # the vector policy acts on the raw token ids
-        cfg = cfg.replace(num_actions=env.vocab, obs_shape=env.obs_shape)
+        cfg = cfg.replace(num_actions=env.vocab)
+        if cfg.family == "cnn":  # the vector policy acts on the raw ids
+            cfg = cfg.replace(obs_shape=env.obs_shape)
     if args.algo == "dqn":
         agent = DQNAgent(cfg, DQNConfig(t_max=args.t_max))
     else:
@@ -329,12 +344,83 @@ def _run_rl(args) -> Tuple[object, List[RunResult]]:
     return rl, results
 
 
+def synthetic_batch(cfg, B: int, T: int, generator, device):
+    """The synthetic trajectory batch: tokens (B, T+1) uniform over the
+    vocabulary, rewards (B, T) uniform in [0, 1), no dones. A vision trunk
+    also gets ``prefix`` and an encoder-decoder ``frames``, standard normal
+    embeddings of ``prefix_len`` and ``encoder_seq_len`` rows (the
+    reference's batch has neither, and its step needs them)."""
+    batch = {
+        "tokens": torch.randint(0, cfg.vocab_size, (B, T + 1),
+                                generator=generator, device=device),
+        "rewards": torch.rand((B, T), generator=generator, device=device),
+        "dones": torch.zeros((B, T), dtype=torch.bool, device=device),
+    }
+    if cfg.modality == "vision":
+        batch["prefix"] = torch.randn((B, cfg.prefix_len, cfg.frontend_dim),
+                                      generator=generator, device=device)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn(
+            (B, cfg.encoder_seq_len, cfg.frontend_dim or cfg.d_model),
+            generator=generator, device=device)
+    return batch
+
+
+def synthetic_steps(cfg, B: int, T: int, iterations: int, seed: int = 0,
+                    device="cuda", on_step=None) -> dict:
+    """``iterations`` PAAC trajectory train steps (RMSProp,
+    ``paac_scaled_lr(B)``) of ``cfg`` on one synthetic batch from ``seed``.
+    ``on_step(i, metrics)``, when given, is called after each step with
+    the card synchronised. Returns {"seconds": the steps' wall time,
+    "tokens_per_s", "losses": the loss of each step, "n_params"}."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_policy(cfg, generator=gen, device=dev)
+    step_fn, opt = build_train_step(cfg, n_e=B)
+    opt_state = opt.init(params)
+    batch = synthetic_batch(cfg, B, T, gen, dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    losses = []
+    sync()
+    t0 = time.perf_counter()
+    for i in range(iterations):
+        params, opt_state, metrics = step_fn(params, opt_state, batch, i)
+        losses.append(metrics["loss"])
+        if on_step is not None:
+            sync()
+            on_step(i, metrics)
+    sync()
+    dt = time.perf_counter() - t0
+    return {"seconds": dt, "tokens_per_s": iterations * B * T / dt,
+            "losses": [float(x) for x in losses],
+            "n_params": sum(p.numel() for p in tree_leaves(params))}
+
+
+def run_synthetic(args) -> dict:
+    """``--mode synthetic``: the reference's profiling path, ``--n-envs``
+    rows of ``--t-max`` tokens for ``--iterations`` steps, and its log
+    line."""
+    _refuse_unported(args)
+    if args.arch == "paac_vector":
+        raise SystemExit("--mode synthetic trains a token arch's trajectory "
+                         "step: give --arch one of the token archs")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    out = synthetic_steps(cfg, args.n_envs, args.t_max, args.iterations,
+                          args.seed, args.device)
+    log.info("synthetic: %d iters, %.1f tokens/s, loss=%.4f",
+             args.iterations, out["tokens_per_s"], out["losses"][-1])
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ASSIGNED_ARCHS + ["paac_vector"],
                     default="paac_vector",
-                    help="paac_vector (the token archs are ROADMAP Queue 1 "
-                    "item 11)")
+                    help="paac_vector (default), or a token arch; the "
+                    "reference's default, mamba2-370m, and zamba2-7b wait "
+                    "for ROADMAP Queue 1 item 11 (a backward through K6)")
     ap.add_argument("--mode", choices=("rl", "synthetic"), default="rl")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--iterations", type=int, default=50)
@@ -439,12 +525,12 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> List[RunResult]:
+def main(argv=None):
+    """``--mode rl``: one ``RunResult`` an epoch; ``--mode synthetic``: the
+    dict of ``synthetic_steps``."""
     args = build_parser().parse_args(argv)
-    if args.mode != "rl":
-        raise NotImplementedError(
-            "repro_torch.launch.train: --mode synthetic (the token archs' "
-            "trajectory train step) is item 11 of ROADMAP Queue 1")
+    if args.mode == "synthetic":
+        return run_synthetic(args)
     _, results = run_rl(args)
     return results
 

@@ -12,7 +12,10 @@ the audio encoder-decoder (``family == "audio"``,
 seamless-m4t-large-v2), each with or without a sliding window:
 
 * ``init_policy(cfg, *, generator, device)``           -> params
-* ``policy_apply(params, cfg, obs)``  -> (logits, values, {})  (CNN family)
+* ``policy_apply(params, cfg, obs/tokens, prefix_embeds=None, *, train,
+  window)`` -> (logits, values, aux): the full pass, the training pass of
+  the token families (not yet of the SSM and hybrid ones: ROADMAP Queue 1
+  item 11)
 * ``init_policy_cache(cfg, batch, max_len, *, device)``  -> decode cache
 * ``policy_prefill(params, cfg, tokens, prefix_embeds=None, …)``
   -> (logits, values, cache)
@@ -45,17 +48,24 @@ def init_policy(cfg, *, generator, device="cuda"):
     return {"trunk": trunk, "heads": init_heads(generator, cfg)}
 
 
-def policy_apply(params, cfg, obs):
-    """Full batched evaluation of the CNN family: obs (B, *obs_shape) ->
-    (logits (B, A), values (B,), {}). The token families' full-sequence
-    pass comes with the token training path (ROADMAP Queue 1 item 11)."""
-    if cfg.family != "cnn":
-        raise NotImplementedError(
-            f"policy_apply: family {cfg.family!r} is not ported yet; the "
-            "token families' training pass is ROADMAP Queue 1 item 11")
-    h = cnn_forward(params["trunk"], cfg, obs)
-    logits, value = apply_heads(params["heads"], cfg, h)
-    return logits, value, {}
+def policy_apply(params, cfg, obs, prefix_embeds=None, *, train: bool = False,
+                 window: Optional[int] = None):
+    """Full batched evaluation.
+
+    CNN family: obs (B, *obs_shape) -> (logits (B, A), values (B,), {}).
+    Token families: obs = tokens (B, S) -> per-position (logits (B, S', A),
+    values (B, S')) and the aux dict of ``transformer.forward``;
+    ``prefix_embeds`` as in ``policy_prefill``, ``train`` turns on
+    ``cfg.remat``. The SSM and hybrid families raise (ROADMAP Queue 1 item
+    11: a backward through K6)."""
+    if cfg.family == "cnn":
+        h = cnn_forward(params["trunk"], cfg, obs)
+        logits, value = apply_heads(params["heads"], cfg, h)
+        return logits, value, {}
+    hidden, aux = tfm.forward(params["trunk"], cfg, obs, prefix_embeds,
+                              train=train, window=window)
+    logits, values = _heads(params, cfg, hidden)
+    return logits, values, aux
 
 
 def init_policy_cache(cfg, batch: int, max_len: int, dtype=None, *,

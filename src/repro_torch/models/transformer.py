@@ -41,6 +41,12 @@ Unlike the reference, whose hybrid ``prefill`` returns the zero cache, the
 port's fills it: every Mamba2 layer's final state and conv tails and each
 shared application's K/V, as decoding the prompt token by token from the
 zero cache would leave them.
+
+``forward`` is the training pass of the attention trunks (dense, MoE,
+vision, audio encoder-decoder): no cache, gradients through K3's backward
+(``kernels.ops.FlashAttention``) and the MoE aux loss. The SSM and hybrid
+trunks have no training pass yet: it needs a gradient through K6 (ROADMAP
+Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
@@ -277,19 +284,87 @@ def embed_tokens(p, cfg, tokens, prefix_embeds=None):
     return x
 
 
-def _run_encoder(p, cfg, frames):
-    """The encoder over front-end frame embeddings (B, S_enc, d_model),
-    then its norm. Causal, as the reference's is (F17): each layer is a
-    causal self-attention block without a window."""
-    enc = p["encoder"]
-    x = frames
-    for i in range(cfg.encoder_layers):
-        x, _, _ = attn_block_forward(layer(enc["layers"], i), cfg, x)
-    return rmsnorm(enc["norm"], x, cfg.norm_eps)
 
 
 def x_final(params, cfg, x):
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence training pass
+# ---------------------------------------------------------------------------
+
+
+def _maybe_remat(fn, cfg, train: bool):
+    """The reference's ``_maybe_remat`` as ``torch.utils.checkpoint``
+    (non-reentrant): with ``train`` and ``cfg.remat`` "full" or "dots", a
+    block keeps only its inputs and runs again in the backward. "dots"
+    (save the products) recomputes the whole block too: remat changes no
+    result, and one rule keeps the saved bytes a layer at one input."""
+    if not train or cfg.remat == "none":
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _run_encoder(p, cfg, frames, train: bool = False):
+    """The encoder over front-end frame embeddings (B, S_enc, d_model),
+    then its norm; with ``train``, each layer under ``_maybe_remat``.
+    Causal, as the reference's is (F17): each layer is a causal
+    self-attention block without a window."""
+    enc = p["encoder"]
+    block = _maybe_remat(lambda lp, x: attn_block_forward(lp, cfg, x)[0],
+                         cfg, train)
+    x = frames
+    for i in range(cfg.encoder_layers):
+        x = block(layer(enc["layers"], i), x)
+    return rmsnorm(enc["norm"], x, cfg.norm_eps)
+
+
+def _train_block(p, cfg, x, window: int, enc_out):
+    """One attention block of the training pass, its cross-attention K/V
+    projected from ``enc_out`` inside it (so that remat recomputes them).
+    Returns (x, aux loss)."""
+    cross_kv = None if enc_out is None else attn.project_kv(p["xattn"], cfg,
+                                                            enc_out)
+    x, aux, _ = attn_block_forward(p, cfg, x, window=window,
+                                   cross_kv=cross_kv)
+    return x, aux
+
+
+def forward(params, cfg, tokens, prefix_embeds=None, *, train: bool = False,
+            window: Optional[int] = None):
+    """Causal full-sequence pass of an attention trunk, the reference's
+    ``forward``: tokens (B, S) and, for a vision trunk, patch embeddings
+    put before them, or, for an encoder-decoder, the frame embeddings its
+    encoder reads. ``train`` turns on ``cfg.remat`` (``_maybe_remat``);
+    gradients flow whenever grad mode is on. Writes no cache. Returns
+    (hidden (B, S', d), {"moe_aux": the Switch aux loss summed over the
+    MoE layers, 0 for a dense trunk})."""
+    _check_family(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} trunk's training pass needs a "
+            "gradient through the SSD scan: ROADMAP Queue 1 item 11 (a "
+            "backward through K6)")
+    win = cfg.sliding_window if window is None else window
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        if prefix_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder trunk needs "
+                             "prefix_embeds, the encoder's frame embeddings")
+        enc_out = _run_encoder(params, cfg,
+                               _front(params, cfg, prefix_embeds), train)
+        x = embed_tokens(params, cfg, tokens)
+    else:
+        x = embed_tokens(params, cfg, tokens, prefix_embeds)
+    block = _maybe_remat(
+        lambda p, x, e: _train_block(p, cfg, x, win, e), cfg, train)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for name, n in _stacks(cfg):
+        for i in range(n):
+            x, aux = block(layer(params[name], i), x, enc_out)
+            aux_total = aux_total + aux
+    return x_final(params, cfg, x), {"moe_aux": aux_total}
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,10 @@ step sync-free under the transfers guard, continuous ≡ solo bitwise at
 capacity factor E / k; the hybrid trunk: K3, K4 and K6 at zamba2-7b's
 shapes and reduced zamba2-7b on the card against the CPU; K4 and K5 with
 a window (F18), and reduced windowed qwen2-7b, minicpm3-4b and zamba2-7b,
-pixtral-12b and seamless-m4t-large-v2 on the card against the CPU.
+pixtral-12b and seamless-m4t-large-v2 on the card against the CPU; K3's
+log-sum-exp against the plain version's with the output bitwise the
+launch without it, and K3's gradient against autograd through the plain
+version.
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one. This file imports no JAX, so it also runs on a machine that has
@@ -84,6 +87,60 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, B, Sq, Sk, H, Hkv,
     got = flash_attention_cuda(q, k, v, causal=causal, window=window)
     assert got.dtype == dt
     torch.testing.assert_close(got.float(), want, rtol=_tol(dt), atol=_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,Dv,causal,window", [
+    (1, 77, 77, 28, 4, 128, 128, True, 0),
+    (2, 100, 100, 8, 1, 64, 64, True, 37),
+    (1, 64, 64, 4, 4, 192, 128, True, 0),
+    (2, 12, 150, 4, 2, 64, 64, False, 0),
+])
+def test_flash_kernel_lse_and_unchanged_output(cuda, dtype, B, Sq, Sk, H, Hkv,
+                                               D, Dv, causal, window):
+    """K3's LSE against the plain version's (fp32 1e-4; bf16 2e-2 on the
+    same bf16 inputs), and the output bitwise the launch without one."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(Sq + Dv)
+    q = torch.randn(B, Sq, H, D, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, Sk, Hkv, D, generator=g, device=cuda).to(dt)
+    v = torch.randn(B, Sk, Hkv, Dv, generator=g, device=cuda).to(dt)
+    _, want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                      causal=causal, window=window,
+                                      return_lse=True)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, Sq, H)
+    torch.testing.assert_close(lse, want, rtol=_tol(dt), atol=_tol(dt))
+    assert torch.equal(out, flash_attention_cuda(q, k, v, causal=causal,
+                                                 window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,Dv,causal,window", [
+    (2, 64, 64, 8, 2, 64, 64, True, 0),
+    (1, 80, 80, 4, 1, 32, 32, True, 17),
+    (1, 40, 40, 4, 4, 96, 64, True, 0),
+    (2, 16, 48, 4, 2, 64, 64, False, 0),
+])
+def test_flash_gradient_matches_autograd_through_the_plain_version(
+        cuda, B, Sq, Sk, H, Hkv, D, Dv, causal, window):
+    """The differentiable K3 launches the kernel once a forward and its
+    dq, dk, dv agree with torch's autograd through ``flash_attention_ref``
+    on the card in fp32 within 1e-4."""
+    g = torch.Generator(cuda).manual_seed(Sk)
+    a = [torch.randn(shape, generator=g, device=cuda)
+         for shape in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, Dv))]
+    do = torch.randn(B, Sq, H, Dv, generator=g, device=cuda)
+    x = [t.clone().requires_grad_(True) for t in a]
+    y = [t.clone().requires_grad_(True) for t in a]
+    before = ops.launches["flash_attention"]
+    ops.flash_attention(*x, causal=causal, window=window).backward(do)
+    assert ops.launches["flash_attention"] == before + 1
+    ref.flash_attention_ref(*y, causal=causal, window=window).backward(do)
+    for gx, gy in zip(x, y):
+        torch.testing.assert_close(gx.grad, gy.grad, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

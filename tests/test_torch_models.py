@@ -4,7 +4,8 @@
 ``params_from_numpy``; the same numpy tokens go through both sides.
 Prefill is held on logits, values and every layer's cache; then several
 decode steps follow, with a scalar and with a per-row position. Tolerance
-1e-4.
+1e-4. The full-sequence pass (``policy_apply``) of qwen2-7b, pixtral-12b
+and seamless-m4t-large-v2 is held the same way.
 """
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro.models import init_policy as jax_init  # noqa: E402
+from repro.models import policy_apply as jax_apply  # noqa: E402
 from repro.models import policy_decode as jax_decode  # noqa: E402
 from repro.models import policy_prefill as jax_prefill  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -161,11 +163,27 @@ def test_entry_points_run_on_the_card_unless_asked_for_the_cpu(pair):
 @pytest.mark.parametrize("arch", ["qwen2-7b", "pixtral-12b",
                                   "seamless-m4t-large-v2"])
 def test_token_policy_apply_still_raises_and_names_the_roadmap(arch):
-    """The token families' full-sequence pass is training (ROADMAP Queue 1
-    item 11); their serving paths, windows and trunks are ported."""
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        policy_apply({}, cfg, None)
+    """Once a refusal (ROADMAP Queue 1 item 11), now the training pass:
+    ``policy_apply`` of a dense, a vision (8 patch embeddings before the
+    text) and an encoder-decoder (16 frames) trunk against the
+    reference's, logits and values within 1e-4."""
+    cfg_j, cfg, pj, pt = _pair(arch)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab_size, (2, S)).astype(np.int32)
+    pre = None
+    if cfg.modality == "vision":
+        pre = rng.standard_normal((2, cfg.prefix_len, cfg.frontend_dim),
+                                  dtype=np.float32)
+    if cfg.is_encoder_decoder:
+        pre = rng.standard_normal((2, cfg.encoder_seq_len, cfg.frontend_dim),
+                                  dtype=np.float32)
+    lj, vj, _ = jax_apply(pj, cfg_j, jnp.asarray(tokens),
+                          None if pre is None else jnp.asarray(pre))
+    lt, vt, aux = policy_apply(pt, cfg, torch.from_numpy(tokens),
+                               None if pre is None else torch.from_numpy(pre))
+    assert set(aux) == {"moe_aux"} and float(aux["moe_aux"]) == 0.0
+    _close(lt.detach(), lj)
+    _close(vt.detach(), vj)
 
 
 def _cache_leaves(cache):

@@ -17,7 +17,8 @@ The same numpy inputs go through ``repro`` and ``repro_torch``:
 Torch against torch: same-seed runs are bitwise equal, and PAAC learns
 GridWorld and Catch (mirrors of ``tests/test_system.py`` and
 ``tests/test_agents.py``). Entry points raise without a card unless the
-CPU is asked for.
+CPU is asked for. A token policy acts and learns on the last position of
+its context, as the reference's does.
 """
 import math
 
@@ -31,9 +32,12 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jax_config  # noqa: E402
+from repro.core.agents.paac import PAACAgent as JPAACAgent  # noqa: E402
 from repro.core.agents.paac import PAACConfig as JPAACConfig  # noqa: E402
 from repro.core.agents.paac import paac_losses as jax_losses  # noqa: E402
 from repro.core.agents.paac import trajectory_forward as jax_forward  # noqa: E402
+from repro.core.agents.paac import (  # noqa: E402
+    trajectory_logits_values as jax_traj_lv)
 from repro.core.rollout import Transition as JTransition  # noqa: E402
 from repro.envs import AtariLike as JAtariLike  # noqa: E402
 from repro.envs import Catch as JCatch  # noqa: E402
@@ -46,7 +50,8 @@ from repro.optim import schedules as jsched  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import ParallelRL  # noqa: E402
 from repro_torch.core.agents import PAACAgent, PAACConfig  # noqa: E402
-from repro_torch.core.agents.paac import loss_and_grads  # noqa: E402
+from repro_torch.core.agents.paac import (  # noqa: E402
+    loss_and_grads, trajectory_logits_values)
 from repro_torch.core.framework import MetricsAccumulator  # noqa: E402
 from repro_torch.core.rollout import Transition, rollout  # noqa: E402
 from repro_torch.envs import (AtariLike, Catch, FrameStack,  # noqa: E402
@@ -196,8 +201,33 @@ def test_port_init_has_the_reference_tree_and_bridge_round_trips(arch):
 
 
 def test_token_families_have_no_training_pass_yet():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        policy_apply({}, get_config("qwen2-7b").reduced(), None)
+    """Once a refusal (ROADMAP Queue 1 item 11), now the token policies'
+    acting and learning forwards: ``act_fn`` and
+    ``trajectory_logits_values`` of reduced qwen2-7b take the last position
+    of each token context, as the reference's do (1e-4)."""
+    cfg_j = jax_config("qwen2-7b").reduced().replace(num_actions=16)
+    cfg = get_config("qwen2-7b").reduced().replace(num_actions=16)
+    pj = jax_init(jax.random.PRNGKey(3), cfg_j)
+    pt = params_from_numpy(_np_tree(pj), "cpu")
+    rng = np.random.default_rng(4)
+    obs = rng.integers(0, 16, (3, 2, 8)).astype(np.int32)  # (T, E, ctx)
+    lj, vj = JPAACAgent(cfg_j).act_fn()(pj, jnp.asarray(obs[0]))
+    lt, vt = PAACAgent(cfg).act_fn()(pt, torch.from_numpy(obs[0]))
+    assert lt.shape == (2, 16) and vt.shape == (2,)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=1e-4, atol=1e-4)
+    zeros = np.zeros((3, 2), np.float32)
+    tr = dict(obs=obs, action=np.zeros((3, 2), np.int32), reward=zeros,
+              done=zeros.astype(bool), value=zeros, logp=zeros)
+    lj, vj = jax_traj_lv(pj, cfg_j, JTransition(
+        **{k: jnp.asarray(v) for k, v in tr.items()}))
+    lt, vt = trajectory_logits_values(pt, cfg, Transition(
+        **{k: torch.from_numpy(v) for k, v in tr.items()}))
+    assert lt.shape == (6, 16) and vt.shape == (6,)
+    np.testing.assert_allclose(lt.detach().numpy(), np.asarray(lj), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(vt.detach().numpy(), np.asarray(vj), rtol=1e-4,
+                               atol=1e-4)
 
 
 # ---------------------------------------------------------------- envs

@@ -2,14 +2,18 @@
 ``repro.launch.train`` (CPU, small shapes), and the port's two examples.
 
 * The parser has every flag of the reference with the reference's
-  defaults, except ``--arch``'s (``paac_vector`` until the token archs'
+  defaults, except ``--arch``'s (``paac_vector`` until the SSM archs'
   training pass is ported) and the added ``--device``.
 * Every ``SystemExit`` of the reference's flag validation comes in the
   reference's order with the reference's text: each case below goes
   through both ``run_rl``s, several with more than one fault at once.
 * Each flag the port does not run raises ``NotImplementedError`` naming
-  its ROADMAP Queue 1 item (11 or 14). ``--sanitize`` runs
-  (``tests/test_torch_analysis.py`` holds its legs).
+  its ROADMAP Queue 1 item (11: mamba2-370m and zamba2-7b in either mode;
+  14: the mesh). ``--sanitize`` runs (``tests/test_torch_analysis.py``
+  holds its legs).
+* The token archs run: ``--mode rl`` on the TokenEnv, synchronous and
+  ``--pipeline``, and ``--mode synthetic`` (a dense, a vision and an
+  encoder-decoder trunk).
 * ``--device cpu`` runs the three ported legs (PAAC synchronous,
   ``--pipeline`` and ``--algo dqn``) on the reference's ``TokenEnv``
   setting, the ``--host-env`` legs (synchronous and ``--pipeline``, with
@@ -25,8 +29,9 @@
   DIR`` saves the synchronous run's params; a malformed ``--fault-kill``
   or ``--fault-stall-learner`` exits with the reference's text.
 * ``examples/quickstart_torch.py`` (its device and host legs bitwise equal
-  to the synchronous run) and ``examples/compare_baselines_torch.py`` run
-  at a tiny size on the CPU.
+  to the synchronous run), ``examples/compare_baselines_torch.py`` and
+  ``examples/train_llm_rl_torch.py --smoke`` run at a tiny size on the
+  CPU.
 """
 import importlib.util
 import json
@@ -119,9 +124,11 @@ def test_every_reference_exit_is_among_the_cases(reference_exits):
 
 
 UNPORTED = [
-    (["--arch", "qwen2-7b"], "item 11"),
     (["--arch", "mamba2-370m", "--reduced"], "item 11"),
-    (["--mode", "synthetic"], "item 11"),
+    (["--arch", "zamba2-7b", "--reduced"], "item 11"),
+    (["--mode", "synthetic", "--arch", "mamba2-370m", "--reduced"],
+     "item 11"),
+    (["--mode", "synthetic", "--arch", "zamba2-7b", "--reduced"], "item 11"),
     (["--pipeline", "--mesh", "2"], "item 14"),
     (["--pipeline", "--rollout-plane", "mesh"], "item 14"),
 ]
@@ -132,6 +139,52 @@ UNPORTED = [
 def test_what_is_not_ported_raises_naming_its_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         train.main(argv + ["--device", "cpu"])
+
+
+TOKEN_LEGS = [
+    ["--arch", "qwen2-7b", "--reduced"],
+    ["--arch", "qwen2-7b", "--reduced", "--pipeline"],
+    ["--arch", "dbrx-132b", "--reduced", "--pipeline", "--num-actors", "2"],
+]
+
+
+@pytest.mark.parametrize("leg", TOKEN_LEGS, ids=[" ".join(a) for a in TOKEN_LEGS])
+def test_the_token_legs_run_on_the_cpu(leg):
+    """A token arch under ``--mode rl``: the reference's TokenEnv (vocab
+    64, ctx 16 here), the arch's own config with 64 actions, acting on the
+    context's last position."""
+    rl, results = train.run_rl(train.build_parser().parse_args(
+        TINY + ["--ctx", "16"] + leg))
+    assert isinstance(rl.env, TokenEnv) and rl.env.ctx == 16
+    cfg = rl.agent.cfg
+    assert cfg.name == leg[1] and cfg.num_actions == 64
+    assert cfg.obs_shape == train.get_config(leg[1]).obs_shape
+    (res,) = results
+    assert res.steps == 4 * 4 * 3 // (2 if "2" in leg else 1)
+    assert all(math.isfinite(v) for v in res.mean_metrics.values())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "pixtral-12b",
+                                  "seamless-m4t-large-v2"])
+def test_mode_synthetic_runs_on_the_cpu(arch, caplog):
+    """``--mode synthetic``: 3 steps on one random batch (a vision trunk
+    with its patch embeddings, an encoder-decoder with its frames), every
+    loss finite, and the reference's log line."""
+    with caplog.at_level("INFO", logger="repro_torch.train"):
+        out = train.main(["--mode", "synthetic", "--arch", arch, "--reduced",
+                          "--device", "cpu", "--n-envs", "2", "--t-max", "8",
+                          "--iterations", "3"])
+    assert len(out["losses"]) == 3
+    assert all(math.isfinite(x) for x in out["losses"])
+    assert out["losses"][0] != out["losses"][-1]
+    assert out["tokens_per_s"] > 0
+    assert any(r.getMessage().startswith("synthetic: 3 iters, ")
+               for r in caplog.records)
+
+
+def test_mode_synthetic_refuses_the_vector_policy():
+    with pytest.raises(SystemExit, match="token arch"):
+        train.main(["--mode", "synthetic", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("leg", [[], ["--pipeline"], ["--algo", "dqn"]],
@@ -316,6 +369,15 @@ def _example(name):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def test_train_llm_rl_example_runs_on_the_cpu(capsys):
+    results = _example("train_llm_rl_torch").main(
+        ["--smoke", "--device", "cpu", "--iters", "4", "--n-envs", "4"])
+    (res,) = results
+    assert res.steps == 4 * 4 * 4
+    assert math.isfinite(res.mean_metrics["loss"])
+    assert "policy params: 0.3M (2L d=128)" in capsys.readouterr().out
 
 
 def test_quickstart_runs_on_the_cpu(capsys):
