@@ -98,7 +98,22 @@ paths:
               96/64 (minicpm3-4b, B=4 T=512) and 192/128, non-causal with
               Sq < Sk and keys past one 512-key block; the backward alone
               timed in bf16 at the two training shapes beside autograd
-              through the plain version and SDPA's backward;
+              through the plain version and SDPA's backward; then K6's
+              gradient (``ops.SSDScan``: K6, then the plain backward
+              ``ref.ssd_scan_bwd``, exponents in float64) against autograd
+              through the plain version in fp32 over SSD_GRAD: K6's y
+              and state within 1e-4 (absolute and relative) of the
+              plain version's, all six gradients with cotangents on y
+              and on the state, finite and within 1e-4 (1 + max
+              |grad|), at mamba2-370m's and
+              zamba2-7b's training shapes (B=4 T=512, H 32 N 128 and H
+              112 N 64), one chunk, and one chunk past e^88 of decay
+              (F21: ``ssd_chunked``'s gradient is NaN there); the bf16
+              y within 2e-2 and state within 1e-4 of the plain
+              version's, and the forward with a gradient bitwise the one
+              without; the
+              forward and the backward alone timed in bf16 at the two
+              training shapes beside autograd through the plain version;
 4. rl_model — paac_nature at full size in fp32, one set of weights on the
               CPU and on the card: logits and values of 32 frames agree
               within 1e-4, and one PAAC update on the same replayed
@@ -291,20 +306,26 @@ paths:
               vocab 152064, bf16, remat "full") cut to 13 of 28 layers
               and minicpm3-4b (d_model 2560, 40 MLA heads, vocab 73448)
               cut to 58 of 62, the depth one card holds under the
-              functional RMSProp update, each in a fresh process
+              functional RMSProp update, mamba2-370m at full depth (48
+              layers) and zamba2-7b cut to 45 of 81 (7 groups of 6 and
+              the tail of 3), each in a fresh process
               (``--train-cell``, expandable segments: a cell needs ~77 GB
               and one long process fragments), 4 steps at B=4 T=512
               through ``launch/train.py``'s synthetic code: K3 exactly
-              twice a layer a step (the forward and remat's recompute),
-              its backward once a layer, K1 once, nothing else; tokens/s,
+              twice an attention layer (zamba2: a group) a step (the
+              forward and remat's recompute) and its backward once, K6
+              twice a Mamba2 layer a step and its backward once, K1 once,
+              nothing else; tokens/s,
               a step's wall ms, a profiled step's busy ms, the peak
               memory, every loss and global grad norm finite and the loss
               changing; (b) one ``make_llm_train_step`` (RMSProp) of
               reduced qwen2-7b, minicpm3-4b, dbrx-132b, deepseek-v2-236b,
               pixtral-12b and seamless-m4t-large-v2 in fp32 on the card
               (K3 with its LSE and backward, K1) and on the CPU from the
-              same weights and batch: metrics and new parameters within
-              1e-4, K3 once an attention layer and K1 once; (c) one step
+              same weights and batch (also mamba2-370m and zamba2-7b: K6
+              and its backward): metrics and new parameters within
+              1e-4, K3 once an attention layer, K6 once a Mamba2 layer and
+              K1 once; (c) one step
               each of reduced dbrx-132b and deepseek-v2-236b in bf16 with
               remat, and of pixtral-12b (1024 patches + 128 tokens) and
               seamless-m4t-large-v2 (1024 frames, 128 tokens) at every
@@ -312,24 +333,29 @@ paths:
    token cli — ``launch/train.py --arch qwen2-7b --reduced --iterations
               20`` (K1 20), the same with ``--pipeline`` (K2 20) and
               ``--mode synthetic --iterations 5 --t-max 64`` (K1 5, K3 10),
-              and ``examples/train_llm_rl_torch.py --smoke`` (300
-              iterations, K1 300), each with K3 launched;
+              each with K3 launched; ``--arch mamba2-370m --reduced``
+              (K1 20, K6), ``--arch zamba2-7b --reduced --pipeline`` (K2
+              20, K6, K3) and ``--mode synthetic --arch zamba2-7b
+              --reduced --t-max 64`` (K1 5, K6 10, K3 5); the reference's
+              default command, ``--iterations 20`` with no ``--arch``
+              (mamba2-370m at full width on the TokenEnv: K1 20, K6; its
+              timesteps/s); and ``examples/train_llm_rl_torch.py --smoke``
+              (300 iterations, K1 300);
 7. serving  — six cells, each at full width with random bf16 weights
               from a seed: qwen2-7b (28 layers, d_model 3584; K3
               prefill, K4 decode), minicpm3-4b with the absorbed decode
-              (62 layers, d_model 2560, MLA; K3 prefill with q/k 96 and v
-              64 wide, K5 decode), mamba2-370m (48 layers, d_model
+              (31 of 62 layers, d_model 2560, MLA; K3 prefill with q/k 96
+              and v 64 wide, K5 decode), mamba2-370m (48 layers, d_model
               1024; K6 prefill, recurrent decode in plain PyTorch), and
-              the MoE
-              cells at the depth one card holds: deepseek-v2-236b (8 of
-              60 layers: the dense first layer and 7 MoE layers of 160
-              experts, top-6, 2 shared; MLA with the absorbed decode; K3
+              the MoE cells at the depth one card holds: deepseek-v2-236b
+              (8 of 60 layers: the dense first layer and 7 MoE layers of
+              160 experts, top-6, 2 shared; MLA with the absorbed decode; K3
               with q/k 192 and v 128, K5 at R 512) and dbrx-132b (8 of 40
               layers, 16 experts, top-4; K3, K4), and the hybrid
-              zamba2-7b at full depth (81 layers: 13 groups of 6 Mamba2
+              zamba2-7b cut to 45 of 81 layers (7 groups of 6 Mamba2
               layers, each followed by the one shared attention block, 32
-              heads of 112, and a tail of 3; K6 81 and K3 13 times a
-              prefill, K4 13 times a step). Each: the peak memory of the
+              heads of 112, and the tail of 3; K6 45 and K3 7 times a
+              prefill, K4 7 times a step). Each: the peak memory of the
               init beside the parameters' bytes (at most 12 GB over;
               zamba2: one group of Mamba2 layers), 8 requests over 4
               slots, prompts of 128 to 512 tokens (whole 128-token chunks
@@ -392,7 +418,7 @@ training, the token cli legs and the token example, the six serving
 cells, the three window cells and the two prefixed cells, each read with
 the counts set to 0 just before it); K3's row also carries its time with
 the LSE, the LSE's error and, under ``"backward"``, the plain backward's
-numbers and its calls on each path;
+numbers and its calls on each path, and so does K6's;
 the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or when any
 phase fails, it exits non-zero and prints no result. ``--trace-dir DIR``
@@ -1278,26 +1304,64 @@ def phase_window_kernels(torch, np, F, ref, da, mk, rows, dev="cuda"):
     del flush
 
 
+def raw_events(prof):
+    """The profiler's own records of a finished window, read without
+    building torch's event tree (``prof.events()``, which over a training
+    step's ~22,000 kernels and their ops takes longer than the step:
+    PERF.md §6, PR 29)."""
+    return getattr(prof, "profiler", prof).kineto_results.events()
+
+
 def device_window(prof, n: int):
     """Device activity of a profiler window of ``n`` iterations: (busy ms an
     iteration as the union of the kernels' and copies' intervals on the
     card, {name: [ms an iteration, launches an iteration]})."""
     from torch.autograd import DeviceType
 
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [e for e in raw_events(prof)
+              if e.device_type() == DeviceType.CUDA]
     busy, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end)
+    for start, stop in sorted((e.start_ns() / 1e3, e.end_ns() / 1e3)
                               for e in events):
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
     by_name = {}
     for e in events:
-        row = by_name.setdefault(e.name, [0.0, 0])
-        row[0] += (e.time_range.end - e.time_range.start) / n / 1e3
+        row = by_name.setdefault(e.name(), [0.0, 0])
+        row[0] += e.duration_ns() / n / 1e6
         row[1] += 1
     for row in by_name.values():
         row[1] /= n
     return busy / n / 1e3, by_name
+
+
+WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+         "cudaEventSynchronize", "cudaMemcpy", "cuStreamSynchronize",
+         "cuCtxSynchronize")  # runtime calls that wait on the card
+
+
+def host_window(prof) -> dict:
+    """The host's runtime calls in a profiler window: the kernel launches,
+    the calls that wait on the card (``WAITS``: their count and host ms),
+    and the three runtime calls with the most host ms."""
+    from torch.autograd import DeviceType
+
+    launches = waits = 0
+    wait_ms = 0.0
+    runtime = {}
+    for e in raw_events(prof):
+        name = e.name()
+        if e.device_type() != DeviceType.CPU or not name.startswith("cu"):
+            continue
+        ms = e.duration_ns() / 1e6
+        launches += "LaunchKernel" in name
+        if name in WAITS:
+            waits += 1
+            wait_ms += ms
+        runtime[name] = runtime.get(name, 0.0) + ms
+    top = sorted(runtime.items(), key=lambda kv: -kv[1])[:3]
+    return {"launches": launches, "waits": waits, "wait_ms": wait_ms,
+            "top_runtime_ms": dict(top)}
 
 
 def kernel_class(name: str) -> str:
@@ -2451,18 +2515,158 @@ def phase_flash_grad(torch, np, F, ref, ops, rows, dev="cuda"):
     del flush
 
 
+SSD_GRAD = (  # (B, S, H, P, N, chunk, timed in bf16 as)
+    # mamba2-370m's and zamba2-7b's Mamba2 layers in the training cells
+    (4, 512, 32, 64, 128, 128, "mamba2-370m training, B=4 T=512"),
+    (4, 512, 112, 64, 64, 128, "zamba2-7b training, B=4 T=512"),
+    (2, 64, 8, 64, 16, 64, ""),  # one chunk
+    (1, 128, 112, 64, 64, 128, ""),  # F21: past e^88 in one chunk
+)
+SSD_DT_MAX = 0.1  # dt in [1e-3, 0.1), the span init_mamba2 gives dt
+
+
+def ssd_grad_inputs(torch, g, dev, B, S, H, P, N):
+    """A Mamba2 layer's scan inputs as the model feeds them (dt in
+    [1e-3, SSD_DT_MAX), A_log = log(1..H) as ``init_mamba2`` sets it) and
+    the two cotangents, fp32."""
+    return ([torch.randn(B, S, H, P, generator=g, device=dev),
+             1e-3 + (SSD_DT_MAX - 1e-3) * torch.rand(B, S, H, generator=g,
+                                                      device=dev),
+             torch.log(torch.arange(1, H + 1, dtype=torch.float32,
+                                    device=dev)),
+             torch.randn(B, S, N, generator=g, device=dev) / N ** 0.5,
+             torch.randn(B, S, N, generator=g, device=dev) / N ** 0.5,
+             torch.randn(H, generator=g, device=dev)],
+            torch.randn(B, S, H, P, generator=g, device=dev),
+            torch.randn(B, H, P, N, generator=g, device=dev))
+
+
+def phase_ssd_grad(torch, ref, ops, rows, dev="cuda"):
+    """K6's gradient (``ops.SSDScan``: K6 forward, the plain backward
+    ``ref.ssd_scan_bwd``) against torch's autograd through
+    ``ssd_scan_ref`` on the card in fp32, over ``SSD_GRAD``: K6's y and
+    state within SSD_TOL of the plain version's; all six gradients,
+    cotangents on y and on the state, finite and within GRAD_TOL of each
+    gradient's largest value; the largest decay a chunk sums (past 88,
+    ``ssd_chunked``'s gradient is NaN: F21). At the training shapes, in
+    bf16: K6's y within BF16_TOL and its state within SSD_TOL of the plain
+    version's, the forward with a gradient bitwise the one without, the
+    forward (K6) and the backward alone timed beside autograd through the
+    plain version. The numbers go into the K6 row as ``"backward"``; the
+    forwards' errors into its ``max_abs_err``."""
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
+    back = {"route": "torch", "source": "src/repro_torch/kernels/ref.py",
+            "ports": "src/repro/models/ssm.py:71", "max_abs_err": 0.0,
+            "tolerance": f"{GRAD_TOL} (1 + max |grad|) (fp32)"}
+    for B, S, H, P, N, Q, timed in SSD_GRAD:
+        base, dy, ds = ssd_grad_inputs(torch, g, dev, B, S, H, P, N)
+        a = (-torch.exp(base[2]) * base[1]).reshape(B, S // Q, Q, H)
+        decay = float(-a.sum(2).min())
+        x = [t.clone().requires_grad_(True) for t in base]
+        y = [t.clone().requires_grad_(True) for t in base]
+        before = ops.launches["ssd_scan"]
+        out = ops.ssd_scan(*x, chunk=Q)
+        check(ops.launches["ssd_scan"] == before + 1,
+              "the differentiable K6 did not launch the kernel")
+        out_ref = ref.ssd_scan_ref(*y, chunk=Q)
+        fwd_err = max(within_rel(torch, o.detach(), r.detach(), SSD_TOL,
+                                 SSD_TOL, f"K6 {what} fp32")
+                      for what, o, r in zip(("y", "state"), out, out_ref))
+        rows["ssd_scan"]["max_abs_err"] = max(
+            rows["ssd_scan"]["max_abs_err"], fwd_err)
+        torch.autograd.backward(out, (dy, ds))
+        torch.autograd.backward(out_ref, (dy, ds))
+        worst = 0.0
+        for name, u, v in zip(("x", "dt", "A_log", "B", "C", "D"), x, y):
+            err = (u.grad - v.grad).abs().max().item()
+            scale = 1.0 + v.grad.abs().max().item()
+            check(bool(torch.isfinite(u.grad).all())
+                  and err <= GRAD_TOL * scale,
+                  f"K6's d{name} disagrees with autograd through the plain "
+                  f"version: max err {err:.3g} at max |grad| {scale - 1:.3g}")
+            worst = max(worst, err / scale)
+        back["max_abs_err"] = max(back["max_abs_err"], worst)
+        say("ssd grad", f"fp32 B={B} S={S} H={H} P={P} N={N} chunk={Q}, dt "
+            f"up to {SSD_DT_MAX}: largest decay a chunk sums {decay:.1f} "
+            f"({'past' if decay > 88 else 'below'} e^88); K6's y and state "
+            f"max_abs_err {fwd_err:.3g} (atol {SSD_TOL} + rtol {SSD_TOL}); "
+            f"all six gradients finite, max err {worst:.3g} of (1 + max "
+            f"|grad|) (<= {GRAD_TOL})")
+        if not timed:
+            continue
+        bf = [t.to(torch.bfloat16) if i in (0, 3, 4) else t
+              for i, t in enumerate(base)]
+        dyb = dy.to(torch.bfloat16)
+        with torch.no_grad():
+            y0, s0 = ops.ssd_scan(*bf, chunk=Q)
+            y_ref, s_ref = ref.ssd_scan_ref(*[t.float() for t in bf],
+                                            chunk=Q)
+        bf_err = max(within_rel(torch, y0, y_ref, BF16_TOL, BF16_TOL,
+                                "K6 y bf16"),
+                     within_rel(torch, s0, s_ref, SSD_TOL, SSD_TOL,
+                                "K6 state bf16"))
+        rows["ssd_scan"]["max_abs_err"] = max(
+            rows["ssd_scan"]["max_abs_err"], bf_err)
+        p = [t.clone().requires_grad_(True) for t in bf]
+        y1, s1 = ops.ssd_scan(*p, chunk=Q)
+        check(torch.equal(y1.detach(), y0) and torch.equal(s1.detach(), s0),
+              "K6's bf16 forward with a gradient differs from the one "
+              "without")
+        fwd_ms = time_ms(torch, lambda: ops.ssd_scan_cuda(*bf, chunk=Q),
+                         flush, iters=10)
+        ms = time_ms(torch, lambda: ref.ssd_scan_bwd(*bf, dyb, ds, chunk=Q),
+                     flush, iters=10)
+        q = [t.clone().requires_grad_(True) for t in bf]
+        out = ref.ssd_scan_ref(*q, chunk=Q)
+        plain_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, q, (dyb, ds), retain_graph=True), flush, iters=10)
+        # read the six inputs and both cotangents, write the six gradients
+        nbytes = 2 * sum(t.numel() * t.element_size() for t in bf) + (
+            dyb.numel() * 2 + ds.numel() * 4)
+        nc, tri = S // Q, Q * (Q + 1) // 2
+        fwd_flops = B * H * (nc * (2 * N * tri + 2 * P * tri + 2 * Q * P * N)
+                             + (nc - 1) * 2 * Q * N * P)
+        b_ms, b_by = bound(nbytes, 2 * fwd_flops, "bfloat16")
+        t = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                 bound_by=b_by, forward_ms=fwd_ms,
+                 shape=f"bf16 B={B} S={S} H={H} P={P} N={N} chunk={Q} "
+                 f"({timed})")
+        if "ms" in back:
+            back.setdefault("other", []).append(t)
+        else:
+            back.update(t)
+        say("ssd grad", f"K6 forward and backward timed ({t['shape']}): K6's "
+            f"y and state max_abs_err {bf_err:.3g} (y: atol {BF16_TOL} + rtol "
+            f"{BF16_TOL}; state: atol {SSD_TOL} + rtol {SSD_TOL}); K6 "
+            f"{fwd_ms:.4f} ms; ref.ssd_scan_bwd (exponents in float64) {ms:.4f} "
+            f"ms, autograd through the plain version (fp32) {plain_ms:.4f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}), library none; the forward "
+            "with a gradient bitwise the one without")
+        del p, q, out, y1, s1, y_ref, s_ref
+    rows["ssd_scan"]["backward"] = back
+    del flush
+
+
 TRAIN_TOL = 1e-4  # card (kernels) vs CPU (plain versions), fp32, TF32 off
 TRAIN_ARCHS = ("qwen2-7b", "minicpm3-4b", "dbrx-132b", "deepseek-v2-236b",
-               "pixtral-12b", "seamless-m4t-large-v2")
+               "pixtral-12b", "seamless-m4t-large-v2", "mamba2-370m",
+               "zamba2-7b")
 # The full-width training cells: (arch, layers kept, B, T, steps). Depth is
 # what one card's 80 GB forces under the functional RMSProp update, whose
 # peak holds params, grads, their clipped copy, the old and new fp32
 # squares and the new params, about 18.7 bytes a parameter in all: 13 of
 # qwen2-7b's 28 layers peak at 77.3 GB and 14 do not fit; minicpm3-4b's
-# peak grows 1.24 GB a layer, 74.7 GB at 56 (PERF.md §4).
+# peak grows 1.24 GB a layer, 74.7 GB at 56 (PERF.md §4). mamba2-370m
+# trains at full depth; zamba2-7b at 45 of 81 layers, 7 groups of 6 and
+# the published tail of 3 (~3.9 B parameters, beside qwen2-7b's 4.1 B at
+# 77.3 GB; scripts/train_depth_probe.py).
 TRAIN_CELLS = (
     ("qwen2-7b", 13, 4, 512, 4),
     ("minicpm3-4b", 58, 4, 512, 4),
+    ("mamba2-370m", 48, 4, 512, 4),
+    ("zamba2-7b", 45, 4, 512, 4),
 )
 # One step each of the other attention families on the card: a reduced
 # MoE in bf16 with remat, and pixtral-12b and seamless-m4t-large-v2 at
@@ -2492,35 +2696,51 @@ def train_batch(torch, np, cfg, B: int, T: int, seed: int):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def k3_a_step(cfg) -> int:
-    """K3's launches in one train step: each attention layer's forward
-    (an encoder-decoder's encoder layers, and self and cross in each
-    decoder layer), twice under remat (the backward runs it again)."""
-    return kernel_layers(cfg, "flash_attention") * (
-        2 if cfg.remat != "none" else 1)
+def train_counts(cfg):
+    """(launches, backward calls) of one ``make_llm_train_step`` of
+    ``cfg``, by kernel. K3 runs in each attention layer's forward (an
+    encoder-decoder's encoder layers, self and cross in each decoder
+    layer; a hybrid's shared block once a group), K6 in each Mamba2
+    layer's, each twice under remat (the backward runs the layer or the
+    group again); each plain backward runs once a layer; K1 once; every
+    other kernel never."""
+    twice = 2 if cfg.remat != "none" else 1
+    mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    attn = (0 if cfg.family == "ssm"
+            else kernel_layers(cfg, "flash_attention"))
+    return ({"flash_attention": twice * attn, "ssd_scan": twice * mamba,
+             "nstep_returns": 1}, {"flash_attention": attn, "ssd_scan": mamba})
 
 
 def phase_token_training(torch, np, configs, models, ops, paac, optim, train,
-                         tree, card, dev="cuda"):
+                         tree, card, first_cell, dev="cuda"):
     """The token policies' training path: (a) the full-width cells
     ``TRAIN_CELLS`` through ``launch/train.py``'s synthetic code, each in
-    a fresh process (``run_train_cell``); (b) one ``make_llm_train_step``
+    a fresh process (``first_cell``, from ``start_train_cell``, is the
+    first's; each starts the next while it runs); (b) one ``make_llm_train_step``
     of each of ``TRAIN_ARCHS`` reduced, fp32, on the card (kernels) and on
     the CPU (plain versions) from the same weights and batch; (c) one step
     of each of ``TRAIN_ONE_STEP``. Returns the launch counts of (a) and
     (c)."""
     gc.collect()
     torch.cuda.empty_cache()  # the cells' processes need the card's memory
-    path = {"flash_attention backward": 0}
-    for spec in TRAIN_CELLS:
+    path = {}
+
+    def add(counts, backward):
+        for name, n in counts.items():
+            path[name] = path.get(name, 0) + n
+        for name, n in backward.items():
+            path[f"{name} backward"] = path.get(f"{name} backward", 0) + n
+
+    proc = first_cell
+    for i, spec in enumerate(TRAIN_CELLS):
         arch, layers = spec[:2]
         cfg = configs.get_config(arch)
         cfg = cfg.replace(num_layers=layers) if layers else cfg
-        cell = run_train_cell(spec)
+        cell, proc = run_train_cell(proc, spec, TRAIN_CELLS[i + 1]
+                                    if i + 1 < len(TRAIN_CELLS) else None)
         check_train_cell(cell, cfg, card)
-        for name, n in cell["counts"].items():
-            path[name] = path.get(name, 0) + n
-        path["flash_attention backward"] += cell["backward_calls"]
+        add(cell["counts"], cell["backward_calls"])
 
     for arch in TRAIN_ARCHS:
         cfg = configs.get_config(arch).reduced()
@@ -2539,8 +2759,7 @@ def phase_token_training(torch, np, configs, models, ops, paac, optim, train,
             out[where] = (new, m, dict(ops.launches))
         (pc, mc, _), (pg, mg, counts) = out["cpu"], out["card"]
         want = {k: 0 for k in counts}
-        want["flash_attention"] = k3_a_step(cfg)
-        want["nstep_returns"] = 1
+        want.update(train_counts(cfg)[0])
         check(counts == want, f"reduced {arch} train step launches {counts}, "
               f"expected {want}")
         dl = max(abs(float(mc[k]) - float(mg[k])) / max(abs(float(mc[k])), 1.0)
@@ -2572,13 +2791,10 @@ def phase_token_training(torch, np, configs, models, ops, paac, optim, train,
             torch.cuda.reset_peak_memory_stats()
             res = train.synthetic_steps(cfg, B, T, 1, SEED, dev)
             counts = dict(ops.launches)
-            for name, n in counts.items():
-                path[name] = path.get(name, 0) + n
-            path["flash_attention backward"] += ops.backward_calls[
-                "flash_attention"]
+            add(counts, ops.backward_calls)
             gn = float(norms[0])
-            check(counts["flash_attention"] == k3_a_step(cfg)
-                  and counts["nstep_returns"] == 1,
+            want, _ = train_counts(cfg)
+            check(all(counts[k] == n for k, n in want.items()),
                   f"{arch} one training step launched {counts}")
             check(math.isfinite(res["losses"][0]) and math.isfinite(gn),
                   f"{arch} one training step: loss {res['losses']}, grad "
@@ -2622,6 +2838,7 @@ def train_cell(torch, configs, ops, train, spec, dev="cuda") -> dict:
     Returns the numbers as a JSON-able dict."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_run = time.perf_counter()
     arch, layers, B, T, iters = spec
     cfg = configs.get_config(arch)
     full = cfg.num_layers
@@ -2656,91 +2873,149 @@ def train_cell(torch, configs, ops, train, spec, dev="cuda") -> dict:
         return [c[name] - b[name] for b, (_, c) in zip(before, steps)]
 
     walls = [b[0] - a[0] for a, b in zip(steps, steps[1:])]
+    t_read = time.perf_counter()
+    busy_ms, host = device_window(prof, 1)[0], host_window(prof)
     return {"arch": arch, "layers": cfg.num_layers, "of": full, "B": B,
             "T": T, "steps": iters, "n_params": res["n_params"],
             "losses": res["losses"], "grad_norms": [float(n) for n in norms],
-            "k3_a_step": per_step("flash_attention"),
-            "k1_a_step": per_step("nstep_returns"),
+            "a_step": {name: per_step(name) for name in ops.launches},
             "counts": dict(ops.launches),
-            "backward_calls": ops.backward_calls["flash_attention"],
-            "step_ms": 1e3 * sum(walls) / len(walls),
-            "busy_ms": device_window(prof, 1)[0],
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "wall_s": wall}
+            "backward_calls": dict(ops.backward_calls),
+            "step_ms": 1e3 * sum(walls) / len(walls), "busy_ms": busy_ms,
+            "host": host, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "wall_s": wall, "read_s": time.perf_counter() - t_read,
+            "run_s": time.perf_counter() - t_run}
 
 
-def run_train_cell(spec) -> dict:
-    """``train_cell`` in a fresh process (``chip_smoke.py --train-cell``)
-    on the caching allocator's expandable segments: a cell needs all but a
-    few GB of the card, and in one long process its peak met the
-    fragmentation of the blocks around it."""
+def start_train_cell(spec):
+    """Starts ``train_cell`` for ``spec`` in a fresh process
+    (``chip_smoke.py --train-cell``) on the caching allocator's expandable
+    segments: a cell needs all but a few GB of the card, and in one long
+    process its peak met the fragmentation of the blocks around it. The
+    process imports what it needs, then waits for ``run_train_cell`` before
+    it touches the card, so its start overlaps the work before it."""
     env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
-    r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--train-cell", ",".join(map(str, spec))],
-                       capture_output=True, text=True, env=env, timeout=900)
-    check(r.returncode == 0, f"training cell {spec} failed (exit "
-          f"{r.returncode}):\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
-    return json.loads([ln for ln in r.stdout.splitlines()
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--train-cell",
+         ",".join(map(str, spec))], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def run_train_cell(proc, spec, next_spec=None):
+    """Lets the process ``start_train_cell`` gave run its cell, starts
+    ``next_spec``'s while it runs, and returns (the cell's numbers, the
+    next cell's process)."""
+    t0 = time.perf_counter()
+    proc.stdin.write("go\n")
+    proc.stdin.flush()
+    nxt = start_train_cell(next_spec) if next_spec else None
+    out, err = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"training cell {spec} failed (exit "
+          f"{proc.returncode}):\n{out[-2000:]}\n{err[-4000:]}")
+    cell = json.loads([ln for ln in out.splitlines()
                        if ln.startswith("{")][-1])
+    cell["process_s"] = time.perf_counter() - t0
+    return cell, nxt
+
+
+KERNEL_NAMES = {"flash_attention": "K3", "ssd_scan": "K6",
+                "nstep_returns": "K1"}
 
 
 def check_train_cell(cell, cfg, card) -> None:
-    """The gates of a training cell, then its report line."""
+    """The gates of a training cell, then its report line: each kernel's
+    launches in every step and each plain backward's calls as
+    ``train_counts`` gives them, every other kernel never."""
     arch, iters = cell["arch"], cell["steps"]
-    counts = cell["counts"]
-    k3 = k3_a_step(cfg)
-    check(cell["k3_a_step"] == [k3] * iters,
-          f"{arch} training: K3 launches a step {cell['k3_a_step']}, "
-          f"expected {k3}")
-    check(cell["k1_a_step"] == [1] * iters,
-          f"{arch} training: K1 a step {cell['k1_a_step']}")
-    check(all(v == 0 for k, v in counts.items()
-              if k not in ("flash_attention", "nstep_returns")),
-          f"{arch} training launched {counts}")
-    bwd = cell["backward_calls"]
-    check(bwd == iters * kernel_layers(cfg, "flash_attention"),
-          f"{arch} training: K3's backward ran {bwd} times")
-    losses, gn = cell["losses"], cell["grad_norms"]
+    launches, backward = train_counts(cfg)
+    for name, steps in cell["a_step"].items():
+        n = launches.get(name, 0)
+        check(steps == [n] * iters, f"{arch} training: {name} launches a "
+              f"step {steps}, expected {n}")
+    for name, n in backward.items():
+        got = cell["backward_calls"][name]
+        check(got == iters * n, f"{arch} training: {name}'s backward ran "
+              f"{got} times, expected {iters * n}")
+    losses, gn, host = cell["losses"], cell["grad_norms"], cell["host"]
     check(len(gn) == iters and all(math.isfinite(x) for x in losses + gn),
           f"{arch} training: losses {losses}, grad norms {gn}")
     check(len(set(losses)) > 1, f"{arch} training: the loss did not "
           f"change: {losses}")
     B, T = cell["B"], cell["T"]
+    widths = (f"d_model {cfg.d_model}, vocab {cfg.vocab_size}"
+              + (f", {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff "
+                 f"{cfg.d_ff}" if cfg.family != "ssm" else "")
+              + (f", {cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} "
+                 f"SSD heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}"
+                 if cfg.family in ("ssm", "hybrid") else ""))
+    kernels = "; ".join(
+        f"{KERNEL_NAMES[k]} {n} a step" + (
+            f" (the forward and the remat recompute) and its backward "
+            f"{backward[k]}" if backward.get(k) else "")
+        for k, n in launches.items() if n)
     say("token training", f"{arch} bf16 at every published width "
-        f"(d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), {cell['layers']} of "
-        f"{cell['of']} layers, {cell['n_params'] / 1e9:.3f} B params, remat "
-        f"{cfg.remat!r}, RMSProp, in a fresh process: {iters} steps at "
-        f"B={B} T={T}: K3 {k3} a step "
-        f"({kernel_layers(cfg, 'flash_attention')} forward + the remat "
-        f"recompute), its backward {bwd // iters} a step, K1 1 a step; "
+        f"({widths}), {cell['layers']} of {cell['of']} layers, "
+        f"{cell['n_params'] / 1e9:.3f} B params, remat {cfg.remat!r}, "
+        f"RMSProp, in a fresh process: {iters} steps at B={B} T={T}: "
+        f"{kernels}; "
         f"{B * T / (cell['step_ms'] / 1e3):.1f} tokens/s, a step "
         f"{cell['step_ms']:.1f} ms wall (steps 2-{iters}), profiled step 3 "
-        f"busy {cell['busy_ms']:.1f} ms; peak memory {cell['peak_gb']:.2f} "
+        f"busy {cell['busy_ms']:.1f} ms; {host['launches']} kernel "
+        f"launches in it, " + (
+            f"{cell['step_ms'] * 1e3 / host['launches']:.1f} us"
+            if host["launches"] else "no time") + " "
+        f"of the unprofiled step's wall a launch; {host['waits']} runtime "
+        f"calls that wait on the card, {host['wait_ms']:.1f} ms in all; most "
+        "host ms: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                host["top_runtime_ms"].items())
+        + f"; peak memory {cell['peak_gb']:.2f} "
         "GB; losses " + ", ".join(f"{x:.4f}" for x in losses)
         + "; global grad norms " + ", ".join(f"{x:.4g}" for x in gn)
-        + f"; {cell['wall_s']:.1f} s with the init ({card})")
+        + f"; {cell['wall_s']:.1f} s with the init, {cell['read_s']:.1f} s "
+        f"reading the profile, {cell['run_s']:.1f} s in train_cell, "
+        f"{cell['process_s']:.1f} s from its go to its exit ({card})")
 
 
 def phase_token_cli(torch, ops, train, root, example_iters: int = 300,
                     example_argv=()):
     """``launch/train.py`` with a token arch, ``--mode rl`` synchronous and
-    ``--pipeline`` and ``--mode synthetic``, and
+    ``--pipeline`` and ``--mode synthetic`` (qwen2-7b, mamba2-370m and
+    zamba2-7b reduced), the reference's default command (``--iterations
+    20`` and no ``--arch``: mamba2-370m at full width on the TokenEnv), and
     ``examples/train_llm_rl_torch.py --smoke --iters example_iters`` (and
     ``example_argv``); the launches of each."""
     by_path = {}
+    # (path, argv, exact launches, kernels that must launch); a reduced
+    # mamba2-370m or zamba2-7b acts and learns at ctx 32 (one chunk)
     legs = (
         ("token train cli", ["--arch", "qwen2-7b", "--reduced",
-                             "--iterations", "20"], {"nstep_returns": 20}),
+                             "--iterations", "20"], {"nstep_returns": 20},
+         K3),
         ("token train cli pipeline", ["--arch", "qwen2-7b", "--reduced",
                                       "--iterations", "20", "--pipeline"],
-         {"vtrace_returns": 20}),
+         {"vtrace_returns": 20}, K3),
         ("token train cli synthetic", ["--arch", "qwen2-7b", "--reduced",
                                        "--mode", "synthetic", "--iterations",
                                        "5", "--t-max", "64"],
-         {"nstep_returns": 5, "flash_attention": 5 * 2}),
+         {"nstep_returns": 5, "flash_attention": 5 * 2}, K3),
+        ("ssm train cli", ["--arch", "mamba2-370m", "--reduced",
+                           "--iterations", "20"],
+         {"nstep_returns": 20, "flash_attention": 0}, ("ssd_scan",)),
+        ("hybrid train cli pipeline", ["--arch", "zamba2-7b", "--reduced",
+                                       "--iterations", "20", "--pipeline"],
+         {"vtrace_returns": 20}, ("ssd_scan", "flash_attention")),
+        # one group of 2 Mamba2 layers and the shared block, no remat,
+        # over 64 tokens (two chunks of 32)
+        ("hybrid train cli synthetic", ["--mode", "synthetic", "--arch",
+                                        "zamba2-7b", "--reduced",
+                                        "--iterations", "5", "--t-max",
+                                        "64"],
+         {"nstep_returns": 5, "ssd_scan": 5 * 2, "flash_attention": 5},
+         ("ssd_scan",)),
+        ("default train cli", ["--iterations", "20"],
+         {"nstep_returns": 20, "flash_attention": 0}, ("ssd_scan",)),
     )
-    for name, argv, want in legs:
+    for name, argv, want, kernels in legs:
         ops.reset_launches()
         t0 = time.perf_counter()
         out = train.main(argv)
@@ -2749,7 +3024,8 @@ def phase_token_cli(torch, ops, train, root, example_iters: int = 300,
         for k, n in want.items():
             check(counts[k] == n, f"{name}: {k} launched {counts[k]}, "
                   f"expected {n}")
-        check(counts["flash_attention"] > 0, f"{name}: K3 never launched")
+        for k in kernels:
+            check(counts[k] > 0, f"{name}: {k} never launched")
         if isinstance(out, dict):
             detail = (f"{out['tokens_per_s']:.1f} tokens/s, losses "
                       + ", ".join(f"{x:.4f}" for x in out["losses"]))
@@ -2794,8 +3070,12 @@ SERVING_CELLS = (
      # the ring wraps in prefill (333, 512) and in decode (200 + 64)
      "window": {"prompt_lens": (128, 200, 333, 512), "gen": 64,
                 "parity": True}},
-    {"arch": "minicpm3-4b", "change": {"mla_absorb": True},
-     "full": {"num_layers": 62, "d_model": 2560, "num_heads": 40,
+    # minicpm3-4b and zamba2-7b at every published width, cut in depth for
+    # the smoke run's time limit: each cell's time is host-bound a layer
+    # (84.5 s at 62 layers, 137.0 s at 81; PERF.md §4)
+    {"arch": "minicpm3-4b", "change": {"mla_absorb": True, "num_layers": 31},
+     "reduced": "num_layers 62 -> 31",
+     "full": {"d_model": 2560, "num_heads": 40,
               "q_lora_rank": 768, "kv_lora_rank": 256, "qk_nope_dim": 64,
               "qk_rope_dim": 32, "v_head_dim": 64, "d_ff": 6400,
               "param_dtype": "bfloat16"},
@@ -2833,10 +3113,12 @@ SERVING_CELLS = (
               "moe_capacity_factor": 1.25, "param_dtype": "bfloat16"},
      "prompt_lens": (128, 200, 333, 512), "prefill": K3,
      "decode": "decode_attention"},
-    # the hybrid at full depth: 13 groups of 6 Mamba2 layers, each followed
-    # by the one shared attention block, and a tail of 3 (13.50 GB)
-    {"arch": "zamba2-7b", "change": {},
-     "full": {"num_layers": 81, "d_model": 3584, "num_heads": 32,
+    # the hybrid cut to 45 of 81 layers: 7 groups of 6 Mamba2 layers, each
+    # followed by the one shared attention block, and the published tail
+    # of 3, so K6, K3 and K4 run on the same paths as at 81
+    {"arch": "zamba2-7b", "change": {"num_layers": 45},
+     "reduced": "num_layers 81 -> 45 (7 groups of 6 and the tail of 3)",
+     "full": {"d_model": 3584, "num_heads": 32,
               "num_kv_heads": 32, "head_dim": 112, "d_ff": 14336,
               "ssm_state": 64, "ssm_head_dim": 64, "ssm_expand": 2,
               "ssm_chunk": 128, "shared_attn_every": 6, "vocab_size": 32000,
@@ -5526,6 +5808,8 @@ def main(argv=None) -> int:
         from repro_torch.launch import train
 
         torch.backends.cuda.matmul.allow_tf32 = False
+        if sys.stdin.readline().strip() != "go":  # the parent is gone
+            return 1
         arch, *dims = args.train_cell.split(",")
         print(json.dumps(train_cell(torch, configs, ops, train,
                                     (arch, *map(int, dims)))))
@@ -5557,13 +5841,15 @@ def main(argv=None) -> int:
         done = sum(t for _, t in laps)
         laps.append((name, time.perf_counter() - t0 - done))
 
+    first_cell = start_train_cell(TRAIN_CELLS[0])  # it waits to run
     card = phase_card(torch, _build)
     lap("card")
     # first on the card: the full-width training cells need all but a few
     # GB of its memory, which later phases leave fragmented
     by_path = {}
     by_path["token training"] = phase_token_training(
-        torch, np, configs, models, ops, paac, optim, train, tree, card)
+        torch, np, configs, models, ops, paac, optim, train, tree, card,
+        first_cell)
     lap("token training")
     rows = {"nstep_returns": phase_returns(torch, ref, nr),
             "vtrace_returns": phase_vtrace(torch, ref, vt)}
@@ -5572,6 +5858,7 @@ def main(argv=None) -> int:
     phase_latent_kernels(torch, np, F, ref, fa, mk, sk, rows)
     phase_window_kernels(torch, np, F, ref, da, mk, rows)
     phase_flash_grad(torch, np, F, ref, ops, rows)
+    phase_ssd_grad(torch, ref, ops, rows)
     lap("kernels")
     phase_rl_model(torch, configs, models, envs, paac, optim, tree)
     # launches of each kernel on each main path, every path driven with the
@@ -5645,7 +5932,7 @@ def main(argv=None) -> int:
             **{k: row[k] for k in ("shape", "host_us", "launch_floor_ms",
                                    "lse_ms", "lse_max_abs_err", "backward",
                                    "other") if k in row}})
-        if "backward" in row:  # K3's plain backward: its calls on each path
+        if "backward" in row:  # K3's, K6's plain backward: calls by path
             row["backward"]["calls_by_path"] = {
                 path: c[f"{name} backward"] for path, c in by_path.items()
                 if c.get(f"{name} backward")}

@@ -16,10 +16,10 @@ trajectory from elsewhere.
 ``make_llm_train_step`` is the trajectory-batch form for the token
 policies: the batch is {tokens (B, T+1), rewards (B, T), dones (B, T)},
 one sequence one actor's trajectory, and one call is the learning forward
-with gradients (K3 and its backward in every attention layer), the n-step
-returns (K1), the losses with the MoE aux loss, the backward and one
-optimizer update. Token policies act on their last position. The SSM and
-hybrid policies have no training pass yet (ROADMAP Queue 1 item 11).
+with gradients (K3 and its backward in every attention layer, K6 and its
+backward in every Mamba2 layer), the n-step returns (K1), the losses with
+the MoE aux loss, the backward and one optimizer update. Token policies
+act on their last position.
 """
 from __future__ import annotations
 

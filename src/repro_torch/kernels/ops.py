@@ -11,6 +11,11 @@ K3 is differentiable: when grad mode is on and q, k or v needs a gradient,
 writing each row's log-sum-exp too (the plain version on the CPU) and whose
 backward is ``ref.flash_attention_bwd``, plain tensor algebra, as the
 reference's custom VJP is plain XLA (F4: the TPU kernel has no backward).
+K6 is differentiable the same way: ``ssd_scan`` runs through ``SSDScan``,
+whose forward is K6 (the plain version on the CPU) and whose backward is
+``ref.ssd_scan_bwd``, autograd through the plain version recomputed with
+its exponents in float64 and its decay masked before ``exp`` (F21), as the
+reference differentiates ``ssd_chunked`` with XLA's autodiff.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from repro_torch.kernels.vtrace import vtrace_returns_cuda
 launches = {"nstep_returns": 0, "vtrace_returns": 0, "flash_attention": 0,
             "decode_attention": 0, "mla_decode_attention": 0, "ssd_scan": 0}
 # calls of each kernel's backward (plain tensor algebra, not a launch)
-backward_calls = {"flash_attention": 0}
+backward_calls = {"flash_attention": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -138,13 +143,43 @@ def mla_decode_attention(q_lat, q_rope, c_cache, kr_cache, pos, scale: float,
     return out
 
 
-def ssd_scan(x, dt, A_log, B_mat, C_mat, D_vec, *, chunk: int):
-    """K6. x (B, S, H, P); dt (B, S, H) fp32; A_log, D_vec (H,) fp32;
-    B_mat/C_mat (B, S, N) -> ``(y (B, S, H, P), final state (B, H, P, N)
-    fp32)``. S must be a multiple of ``chunk`` on both routes."""
+def _ssd_scan(x, dt, A_log, B_mat, C_mat, D_vec, chunk):
+    """K6 on x's device: the kernel (counted) on a CUDA tensor, the plain
+    version on a CPU one."""
     if x.device.type == "cpu":
         return _ref.ssd_scan_ref(x, dt, A_log, B_mat, C_mat, D_vec,
                                  chunk=chunk)
     out = ssd_scan_cuda(x, dt, A_log, B_mat, C_mat, D_vec, chunk=chunk)
     launches["ssd_scan"] += 1
     return out
+
+
+class SSDScan(torch.autograd.Function):
+    """K6 with a gradient: the forward keeps its six inputs and the
+    backward recomputes the plain version from them."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A_log, B_mat, C_mat, D_vec, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A_log, B_mat, C_mat, D_vec)
+        ctx.chunk = chunk
+        return _ssd_scan(x, dt, A_log, B_mat, C_mat, D_vec, chunk)
+
+    @staticmethod
+    def backward(ctx, d_y, d_state):
+        grads = _ref.ssd_scan_bwd(*ctx.saved_tensors, d_y, d_state,
+                                  chunk=ctx.chunk)
+        backward_calls["ssd_scan"] += 1
+        return grads + (None,)
+
+
+def ssd_scan(x, dt, A_log, B_mat, C_mat, D_vec, *, chunk: int):
+    """K6. x (B, S, H, P); dt (B, S, H) fp32; A_log, D_vec (H,) fp32;
+    B_mat/C_mat (B, S, N) -> ``(y (B, S, H, P), final state (B, H, P, N)
+    fp32)``. S must be a multiple of ``chunk`` on both routes.
+    Differentiable through ``SSDScan`` when one of the inputs needs a
+    gradient; otherwise the launch is the same as without one."""
+    args = (x, dt, A_log, B_mat, C_mat, D_vec)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return SSDScan.apply(*args, chunk)
+    return _ssd_scan(*args, chunk)

@@ -214,7 +214,20 @@ def ssd_scan_ref(x, dt, A_log, B_mat, C_mat, D_vec, *, chunk: int):
         y_i = sum_{j<=i} exp(cum_i - cum_j) (C_i . B_j) dt_j x_j
               + exp(cum_i) C_i . state + D x_i
         state <- exp(cum_Q) state + sum_j exp(cum_Q - cum_j) (dt_j x_j) B_j^T
+
+    The decay mask is applied before ``exp``: above the diagonal cum_i -
+    cum_j is a positive sum that passes 88 within a chunk once exp(A_log)
+    dt is large (F21), and exp of it is inf. The forward drops those
+    entries either way; masking them to -inf first keeps autograd's 0 *
+    inf out of the gradients of dt and A_log (``ssd_scan_bwd``).
     """
+    return _ssd_chunked(x, dt, A_log, B_mat, C_mat, D_vec, chunk,
+                        torch.float32)
+
+
+def _ssd_chunked(x, dt, A_log, B_mat, C_mat, D_vec, chunk: int, exponents):
+    """``ssd_scan_ref`` with a, cum and the differences of cum taken in the
+    ``exponents`` dtype; each exp and every product is fp32."""
     Bsz, S, H, P = x.shape
     N = B_mat.shape[-1]
     if S % chunk:
@@ -222,7 +235,7 @@ def ssd_scan_ref(x, dt, A_log, B_mat, C_mat, D_vec, *, chunk: int):
     nc = S // chunk
     xf = x.float()
     dtf = dt.float()
-    a = -torch.exp(A_log.float())[None, None, :] * dtf  # (B, S, H)
+    a = -torch.exp(A_log.to(exponents))[None, None, :] * dt.to(exponents)
     xc = xf.reshape(Bsz, nc, chunk, H, P)
     dtc = dtf.reshape(Bsz, nc, chunk, H)
     Bc = B_mat.float().reshape(Bsz, nc, chunk, N)
@@ -230,25 +243,57 @@ def ssd_scan_ref(x, dt, A_log, B_mat, C_mat, D_vec, *, chunk: int):
     cum = torch.cumsum(a.reshape(Bsz, nc, chunk, H), dim=2)  # inclusive
     total = cum[:, :, -1, :]  # (B, nc, H)
 
+    def exp(z):
+        return torch.exp(z.float())
+
     scores = torch.einsum("bcis,bcjs->bcij", Cc, Bc)
     dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, Q, Q, H)
     tril = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                  device=x.device))
-    L = torch.where(tril[None, None, :, :, None], torch.exp(dec),
-                    torch.zeros((), device=x.device))
+    L = exp(dec.masked_fill(~tril[None, None, :, :, None], -math.inf))
     xdt = xc * dtc[..., None]  # (B, nc, Q, H, P)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * L, xdt)
 
-    w_state = torch.exp(total[:, :, None, :] - cum)  # (B, nc, Q, H)
+    w_state = exp(total[:, :, None, :] - cum)  # (B, nc, Q, H)
     s_chunk = torch.einsum("bcjh,bcjs,bcjhp->bchps", w_state, Bc, xdt)
     state = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     s_in = []
     for c in range(nc):  # the inter-chunk carry
         s_in.append(state)
-        state = state * torch.exp(total[:, c])[:, :, None, None] + s_chunk[:, c]
+        state = state * exp(total[:, c])[:, :, None, None] + s_chunk[:, c]
     s_in = torch.stack(s_in, dim=1)  # (B, nc, H, P, N)
-    y_inter = torch.einsum("bcih,bcis,bchps->bcihp", torch.exp(cum), Cc, s_in)
+    y_inter = torch.einsum("bcih,bcis,bchps->bcihp", exp(cum), Cc, s_in)
 
     y = (y_intra + y_inter).reshape(Bsz, S, H, P)
     y = y + D_vec.float()[None, None, :, None] * xf
     return y.to(x.dtype), state
+
+
+def ssd_scan_bwd(x, dt, A_log, B_mat, C_mat, D_vec, d_y, d_state, *,
+                 chunk: int):
+    """The gradient of ``ssd_scan_ref`` with respect to its six inputs,
+    given the cotangents ``d_y`` of y and ``d_state`` of the final state
+    (either may be None): autograd through the chunked scan recomputed from
+    the detached inputs, as the reference differentiates ``ssd_chunked``
+    with XLA's autodiff (F4: the TPU kernel has no backward). The masked
+    decay keeps it finite where ``ssd_chunked``'s gradient is NaN (F21).
+
+    The recompute takes a, cum and cum_i - cum_j in float64 and the rest
+    in fp32. A chunk's cumulative decay reaches -200 at mamba2-370m's
+    widest heads (F21's regime), where fp32's spacing is 1.5e-5, so an fp32
+    cum_i - cum_j near 0 carries that error into exp and the sums over it:
+    1.1e-5 of dA_log's largest value against the exact recurrence, 5e-7
+    with the exponents in float64 (``tests/test_torch_ssd_grad.py`` holds
+    it to 1e-5 there).
+    Returns (dx, d_dt, dA_log, dB, dC, dD), each in its input's dtype."""
+    inputs = [t.detach().requires_grad_(True)
+              for t in (x, dt, A_log, B_mat, C_mat, D_vec)]
+    with torch.enable_grad():
+        y, state = _ssd_chunked(*inputs, chunk, torch.float64)
+        outs = [(o, g.to(o.dtype)) for o, g in ((y, d_y), (state, d_state))
+                if g is not None]
+        grads = torch.autograd.grad([o for o, _ in outs],
+                                    inputs, [g for _, g in outs],
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for t, g in zip(inputs, grads))

@@ -3,10 +3,12 @@
 ``--mode rl`` runs full PAAC RL (Algorithm 1) against the k-back echo
 ``TokenEnv`` — rollout with the current policy, synchronous update — on
 the card, or on the CPU with ``--device cpu`` (without a CUDA device the
-default raises). A token arch (the attention families: qwen2-7b,
+default raises). A token arch acts on the token context's last position
+and learns through K3 and its backward in its attention layers (qwen2-7b,
 glm4-9b, deepseek-coder-33b, minicpm3-4b, dbrx-132b, deepseek-v2-236b,
-pixtral-12b) acts on the token context's last position and learns through
-K3 and its backward; ``paac_vector`` acts on the raw token ids.
+pixtral-12b, seamless-m4t-large-v2, zamba2-7b's shared block) and K6 and
+its backward in its Mamba2 layers (mamba2-370m, the default, and
+zamba2-7b); ``paac_vector`` acts on the raw token ids.
 ``--mode synthetic`` is the profiling path with no env loop: a random
 trajectory batch (B = ``--n-envs``, T = ``--t-max``) through the token
 arch's trajectory train step (``launch.steps.build_train_step``), timed
@@ -50,34 +52,36 @@ K1.
 The parser takes every flag of the reference, with its defaults, plus
 ``--device``. Every ``SystemExit`` of the reference's flag validation comes
 in the reference's order with its text. What the port does not run yet
-raises ``NotImplementedError`` naming its ROADMAP Queue 1 item: the SSM
-and hybrid archs, mamba2-370m and zamba2-7b, in either mode (their
-training pass needs a backward through K6: item 11), and ``--mesh`` > 1
-and ``--rollout-plane mesh`` (item 14). So ``--arch`` defaults to
-``paac_vector``, the vector policy acting on the raw observations (the
-reference's default, ``mamba2-370m``, waits for item 11).
+raises ``NotImplementedError`` naming its ROADMAP Queue 1 item:
+``--mesh`` > 1 and ``--rollout-plane mesh`` (item 14). ``--arch``
+defaults to the reference's ``mamba2-370m`` at full width.
 
-Examples:
-    PYTHONPATH=src python -m repro_torch.launch.train --iterations 50
-    PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
-        --pipeline --num-actors 4 --n-envs 16
-    PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
-        --algo dqn
-    PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
-        --host-env --n-envs 32 --pipeline --metrics-jsonl hb.jsonl
-    PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
-        --n-envs 32 --pipeline --actor-backend process --num-actors 4
-    PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
-        --algo dqn --pipeline --replay --replay-capacity 32
-    PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
-        --pipeline --elastic --fault-kill 0:3 --checkpoint-dir ck \\
-        --checkpoint-every 10
-    PYTHONPATH=src python -m repro_torch.launch.train --iterations 50 \\
-        --pipeline --checkpoint-dir ck --resume
-    PYTHONPATH=src python -m repro_torch.launch.train --iterations 100 \\
-        --pipeline --sanitize locks,transfers
+Examples (``paac_vector`` for the agents and planes that need a vector
+policy):
+    PYTHONPATH=src python -m repro_torch.launch.train --iterations 20
+    PYTHONPATH=src python -m repro_torch.launch.train --mode synthetic \\
+        --arch zamba2-7b --reduced
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paac_vector \\
+        --iterations 50 --pipeline --num-actors 4 --n-envs 16
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paac_vector \\
+        --iterations 50 --algo dqn
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paac_vector \\
+        --iterations 50 --host-env --n-envs 32 --pipeline \\
+        --metrics-jsonl hb.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paac_vector \\
+        --iterations 50 --n-envs 32 --pipeline --actor-backend process \\
+        --num-actors 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paac_vector \\
+        --iterations 50 --algo dqn --pipeline --replay --replay-capacity 32
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paac_vector \\
+        --iterations 50 --pipeline --elastic --fault-kill 0:3 \\
+        --checkpoint-dir ck --checkpoint-every 10
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paac_vector \\
+        --iterations 50 --pipeline --checkpoint-dir ck --resume
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paac_vector \\
+        --iterations 100 --pipeline --sanitize locks,transfers
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
-        --iterations 4 --n-envs 4
+        --arch mamba2-370m --reduced --iterations 4 --n-envs 4
 """
 from __future__ import annotations
 
@@ -119,8 +123,6 @@ ASSIGNED_ARCHS = [
     "pixtral-12b",
     "mamba2-370m",
 ]
-# the SSM and hybrid archs: no training pass until item 11
-UNTRAINED_ARCHS = ("mamba2-370m", "zamba2-7b")
 
 
 def _refuse_invalid(args) -> None:
@@ -182,17 +184,10 @@ def _refuse_invalid(args) -> None:
 def _refuse_unported(args) -> None:
     """``NotImplementedError`` for each setting the port does not run yet,
     naming the ROADMAP Queue 1 item that ports it."""
-    unported = [
-        (args.arch in UNTRAINED_ARCHS, f"--arch {args.arch} (the SSM and "
-         "hybrid archs' training pass, which needs a backward through K6) "
-         "is item 11"),
-        (args.mesh > 1 or args.rollout_plane == "mesh", "--mesh > 1 and "
-         "--rollout-plane mesh (the mesh plane) are item 14"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(
-                f"repro_torch.launch.train: {what} of ROADMAP Queue 1")
+    if args.mesh > 1 or args.rollout_plane == "mesh":
+        raise NotImplementedError(
+            "repro_torch.launch.train: --mesh > 1 and --rollout-plane mesh "
+            "(the mesh plane) are item 14 of ROADMAP Queue 1")
 
 
 def _fault_plan(args):
@@ -417,10 +412,10 @@ def run_synthetic(args) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ASSIGNED_ARCHS + ["paac_vector"],
-                    default="paac_vector",
-                    help="paac_vector (default), or a token arch; the "
-                    "reference's default, mamba2-370m, and zamba2-7b wait "
-                    "for ROADMAP Queue 1 item 11 (a backward through K6)")
+                    default="mamba2-370m",
+                    help="a token arch (default mamba2-370m, the "
+                    "reference's) or paac_vector, the vector policy on the "
+                    "raw token ids")
     ap.add_argument("--mode", choices=("rl", "synthetic"), default="rl")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--iterations", type=int, default=50)

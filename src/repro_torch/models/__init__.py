@@ -14,8 +14,7 @@ seamless-m4t-large-v2), each with or without a sliding window:
 * ``init_policy(cfg, *, generator, device)``           -> params
 * ``policy_apply(params, cfg, obs/tokens, prefix_embeds=None, *, train,
   window)`` -> (logits, values, aux): the full pass, the training pass of
-  the token families (not yet of the SSM and hybrid ones: ROADMAP Queue 1
-  item 11)
+  every token family
 * ``init_policy_cache(cfg, batch, max_len, *, device)``  -> decode cache
 * ``policy_prefill(params, cfg, tokens, prefix_embeds=None, …)``
   -> (logits, values, cache)
@@ -56,8 +55,8 @@ def policy_apply(params, cfg, obs, prefix_embeds=None, *, train: bool = False,
     Token families: obs = tokens (B, S) -> per-position (logits (B, S', A),
     values (B, S')) and the aux dict of ``transformer.forward``;
     ``prefix_embeds`` as in ``policy_prefill``, ``train`` turns on
-    ``cfg.remat``. The SSM and hybrid families raise (ROADMAP Queue 1 item
-    11: a backward through K6)."""
+    ``cfg.remat``. Differentiable for every family: through K3's backward
+    in attention layers and K6's in Mamba2 layers."""
     if cfg.family == "cnn":
         h = cnn_forward(params["trunk"], cfg, obs)
         logits, value = apply_heads(params["heads"], cfg, h)

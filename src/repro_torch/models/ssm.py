@@ -5,10 +5,12 @@ separate (w_z, w_x, w_B, w_C, w_dt), as the reference lays them out, so its
 parameters bridge unchanged. The chunked SSD scan of prefill runs in kernel
 K6 through ``repro_torch.kernels.ops.ssd_scan`` (its plain version,
 ``ssd_chunked``'s algorithm, on the CPU), which also returns the final state
-for the decode cache. Decode is the O(1) recurrent form, plain PyTorch as in
-the reference: the state (B, H, P, N) fp32 plus (K-1)-deep causal conv
-buffers, updated in place in the cache, as ``gqa_decode`` updates its KV.
-``dt_bias``, ``A_log`` and ``D`` stay fp32 in a bf16 model.
+for the decode cache; with a gradient it runs through ``ops.SSDScan`` (K6
+forward, the plain backward). Decode is the O(1) recurrent form, plain
+PyTorch as in the reference: the state (B, H, P, N) fp32 plus (K-1)-deep
+causal conv buffers, updated in place in the cache, as ``gqa_decode``
+updates its KV. ``dt_bias``, ``A_log`` and ``D`` stay fp32 leaves in a bf16
+model, and take their gradients in fp32.
 """
 from __future__ import annotations
 

@@ -42,11 +42,12 @@ port's fills it: every Mamba2 layer's final state and conv tails and each
 shared application's K/V, as decoding the prompt token by token from the
 zero cache would leave them.
 
-``forward`` is the training pass of the attention trunks (dense, MoE,
-vision, audio encoder-decoder): no cache, gradients through K3's backward
-(``kernels.ops.FlashAttention``) and the MoE aux loss. The SSM and hybrid
-trunks have no training pass yet: it needs a gradient through K6 (ROADMAP
-Queue 1 item 11).
+``forward`` is the training pass of every trunk: no cache, gradients
+through K3's backward (``kernels.ops.FlashAttention``), K6's
+(``kernels.ops.SSDScan``) and the MoE aux loss. The SSM trunk runs each
+Mamba2 layer under one remat; the hybrid each group (its Mamba2 layers,
+then the shared block) under one, then each tail layer under its own, as
+the reference's scans are wrapped.
 """
 from __future__ import annotations
 
@@ -169,11 +170,14 @@ def init_ssm_block(generator, cfg, dtype):
             "mamba": ssm.init_mamba2(generator, cfg, dtype)}
 
 
-def ssm_block_forward(p, cfg, x):
+def ssm_block_forward(p, cfg, x, *, return_state: bool = True):
     """Full-sequence block. Returns (x, (state, conv tails)) — the cache
-    contents."""
+    contents — or, for the training pass (``return_state=False``), x."""
     h = rmsnorm(p["ln"], x, cfg.norm_eps)
-    y, contents = ssm.mamba2_forward(p["mamba"], cfg, h, return_state=True)
+    out = ssm.mamba2_forward(p["mamba"], cfg, h, return_state=return_state)
+    if not return_state:
+        return x + out
+    y, contents = out
     return x + y, contents
 
 
@@ -331,21 +335,45 @@ def _train_block(p, cfg, x, window: int, enc_out):
     return x, aux
 
 
+def _mamba_trunk(params, cfg, x, window: int, train: bool):
+    """The SSM or hybrid trunk's training pass over x (B, S, d): each
+    Mamba2 layer of an SSM trunk under its own ``_maybe_remat``; each
+    hybrid group (its Mamba2 layers, then the shared block) under one,
+    then each tail layer under its own. Returns x."""
+    block = _maybe_remat(
+        lambda p, x: ssm_block_forward(p, cfg, x, return_state=False), cfg,
+        train)
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            x = block(layer(params["layers"], i), x)
+        return x
+    every, n_groups, _ = _hybrid_dims(cfg)
+
+    def group(gp, shared, x):
+        for i in range(every):
+            x = ssm_block_forward(layer(gp, i), cfg, x, return_state=False)
+        return attn_block_forward(shared, cfg, x, window=window)[0]
+
+    group = _maybe_remat(group, cfg, train)
+    for g in range(n_groups):
+        x = group(layer(params["groups"], g), params["shared"], x)
+    if "tail" in params:
+        for i in range(_depth(params["tail"])):
+            x = block(layer(params["tail"], i), x)
+    return x
+
+
 def forward(params, cfg, tokens, prefix_embeds=None, *, train: bool = False,
             window: Optional[int] = None):
-    """Causal full-sequence pass of an attention trunk, the reference's
-    ``forward``: tokens (B, S) and, for a vision trunk, patch embeddings
-    put before them, or, for an encoder-decoder, the frame embeddings its
-    encoder reads. ``train`` turns on ``cfg.remat`` (``_maybe_remat``);
-    gradients flow whenever grad mode is on. Writes no cache. Returns
+    """Causal full-sequence pass, the reference's ``forward``: tokens
+    (B, S) and, for a vision trunk, patch embeddings put before them, or,
+    for an encoder-decoder, the frame embeddings its encoder reads.
+    ``train`` turns on ``cfg.remat`` (``_maybe_remat``): a layer of the
+    attention and SSM trunks, a group or a tail layer of the hybrid's.
+    Gradients flow whenever grad mode is on. Writes no cache. Returns
     (hidden (B, S', d), {"moe_aux": the Switch aux loss summed over the
-    MoE layers, 0 for a dense trunk})."""
+    MoE layers, 0 for a trunk without experts})."""
     _check_family(cfg)
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} trunk's training pass needs a "
-            "gradient through the SSD scan: ROADMAP Queue 1 item 11 (a "
-            "backward through K6)")
     win = cfg.sliding_window if window is None else window
     enc_out = None
     if cfg.is_encoder_decoder:
@@ -357,9 +385,12 @@ def forward(params, cfg, tokens, prefix_embeds=None, *, train: bool = False,
         x = embed_tokens(params, cfg, tokens)
     else:
         x = embed_tokens(params, cfg, tokens, prefix_embeds)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in ("ssm", "hybrid"):
+        x = _mamba_trunk(params, cfg, x, win, train)
+        return x_final(params, cfg, x), {"moe_aux": aux_total}
     block = _maybe_remat(
         lambda p, x, e: _train_block(p, cfg, x, win, e), cfg, train)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for name, n in _stacks(cfg):
         for i in range(n):
             x, aux = block(layer(params[name], i), x, enc_out)

@@ -522,8 +522,8 @@ def test_an_actors_read_back_passes_while_the_learner_is_guarded():
 # the trainer's --sanitize and the serving CLI's observers
 # ---------------------------------------------------------------------------
 
-CI_SHAPE = ["--device", "cpu", "--iterations", "8", "--pipeline",
-            "--num-actors", "2", "--n-envs", "8", "--sanitize",
+CI_SHAPE = ["--arch", "paac_vector", "--device", "cpu", "--iterations", "8",
+            "--pipeline", "--num-actors", "2", "--n-envs", "8", "--sanitize",
             "locks,transfers"]
 
 
@@ -573,9 +573,9 @@ def test_a_lock_order_finding_fails_the_launch(monkeypatch):
     monkeypatch.setattr(train, "PipelinedRL", Inverting)
     with pytest.raises(SystemExit, match=r"lockcheck: 1 cycle\(s\), 0 "
                        r"hazard\(s\)"):
-        train.main(["--device", "cpu", "--n-envs", "4", "--t-max", "3",
-                    "--iterations", "3", "--pipeline", "--sanitize",
-                    "locks"])
+        train.main(["--arch", "paac_vector", "--device", "cpu", "--n-envs",
+                    "4", "--t-max", "3", "--iterations", "3", "--pipeline",
+                    "--sanitize", "locks"])
 
 
 SERVE = ["--arch", "qwen2-7b", "--reduced", "--device", "cpu",

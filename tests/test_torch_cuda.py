@@ -26,8 +26,9 @@ shapes and reduced zamba2-7b on the card against the CPU; K4 and K5 with
 a window (F18), and reduced windowed qwen2-7b, minicpm3-4b and zamba2-7b,
 pixtral-12b and seamless-m4t-large-v2 on the card against the CPU; K3's
 log-sum-exp against the plain version's with the output bitwise the
-launch without it, and K3's gradient against autograd through the plain
-version.
+launch without it, and K3's and K6's gradients against autograd through
+their plain versions (K6's bf16 forward with a gradient bitwise the one
+without).
 
 Every test here needs a CUDA device (marker ``cuda``) and skips without
 one. This file imports no JAX, so it also runs on a machine that has
@@ -141,6 +142,70 @@ def test_flash_gradient_matches_autograd_through_the_plain_version(
     ref.flash_attention_ref(*y, causal=causal, window=window).backward(do)
     for gx, gy in zip(x, y):
         torch.testing.assert_close(gx.grad, gy.grad, rtol=1e-4, atol=1e-4)
+
+
+def _ssd_inputs(g, dev, B, S, H, P, N, dt_max):
+    """A Mamba2 layer's scan inputs: dt in [1e-3, dt_max), A_log =
+    log(1..H) as ``init_mamba2`` sets it, and the two cotangents."""
+    return ([torch.randn(B, S, H, P, generator=g, device=dev),
+             1e-3 + (dt_max - 1e-3) * torch.rand(B, S, H, generator=g,
+                                                  device=dev),
+             torch.log(torch.arange(1, H + 1, device=dev,
+                                    dtype=torch.float32)),
+             torch.randn(B, S, N, generator=g, device=dev) / N ** 0.5,
+             torch.randn(B, S, N, generator=g, device=dev) / N ** 0.5,
+             torch.randn(H, generator=g, device=dev)],
+            torch.randn(B, S, H, P, generator=g, device=dev),
+            torch.randn(B, H, P, N, generator=g, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dt_max", [
+    (2, 256, 8, 64, 128, 128, 0.01),
+    (1, 128, 32, 64, 16, 128, 0.1),  # F21: ssd_chunked's gradient is NaN
+    (2, 64, 4, 64, 32, 32, 0.1),
+])
+def test_ssd_gradient_matches_autograd_through_the_plain_version(
+        cuda, B, S, H, P, N, chunk, dt_max):
+    """The differentiable K6 launches the kernel once a forward; its y and
+    state agree with ``ssd_scan_ref``'s within 1e-4 (absolute and
+    relative); its six gradients, with cotangents on y and on the state,
+    are finite and agree with torch's autograd through ``ssd_scan_ref`` on
+    the card in fp32 within 1e-4 of each gradient's largest value."""
+    g = torch.Generator(cuda).manual_seed(S + H)
+    a, dy, ds = _ssd_inputs(g, cuda, B, S, H, P, N, dt_max)
+    x = [t.clone().requires_grad_(True) for t in a]
+    y = [t.clone().requires_grad_(True) for t in a]
+    before = ops.launches["ssd_scan"]
+    out = ops.ssd_scan(*x, chunk=chunk)
+    assert ops.launches["ssd_scan"] == before + 1
+    out_ref = ref.ssd_scan_ref(*y, chunk=chunk)
+    for o, r in zip(out, out_ref):
+        torch.testing.assert_close(o.detach(), r.detach(), rtol=1e-4,
+                                   atol=1e-4)
+    torch.autograd.backward(out, (dy, ds))
+    torch.autograd.backward(out_ref, (dy, ds))
+    for gx, gy in zip(x, y):
+        assert torch.isfinite(gx.grad).all()
+        scale = 1.0 + gy.grad.abs().max().item()
+        assert (gx.grad - gy.grad).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_ssd_bf16_forward_with_a_gradient_is_bitwise_the_forward_without(
+        cuda):
+    g = torch.Generator(cuda).manual_seed(0)
+    a, dy, _ = _ssd_inputs(g, cuda, 2, 256, 32, 64, 128, 0.1)
+    a = [t.to(torch.bfloat16) if i in (0, 3, 4) else t
+         for i, t in enumerate(a)]
+    with torch.no_grad():
+        y0, s0 = ops.ssd_scan(*a, chunk=128)
+    x = [t.clone().requires_grad_(True) for t in a]
+    y, s = ops.ssd_scan(*x, chunk=128)
+    assert torch.equal(y.detach(), y0) and torch.equal(s.detach(), s0)
+    y.backward(dy.to(torch.bfloat16))
+    assert [t.grad.dtype for t in x] == [t.dtype for t in a]
+    assert all(torch.isfinite(t.grad.float()).all() for t in x)
 
 
 @pytest.mark.cuda
@@ -730,8 +795,8 @@ def test_the_trainers_legs_on_the_card_launch_their_kernels(cuda, leg,
     from repro_torch.launch import train
 
     ops.reset_launches()
-    (res,) = train.main(["--n-envs", "32", "--t-max", "5", "--iterations",
-                         "6"] + leg)
+    (res,) = train.main(["--arch", "paac_vector", "--n-envs", "32",
+                         "--t-max", "5", "--iterations", "6"] + leg)
     want = {k: 6 if k == kernel else 0 for k in ops.launches}
     assert dict(ops.launches) == want
     assert res.steps == 6 * 32 * 5
@@ -845,8 +910,9 @@ def test_the_trainers_host_env_legs_on_the_card(cuda, leg, kernel):
     from repro_torch.launch import train
 
     ops.reset_launches()
-    (res,) = train.main(["--host-env", "--n-envs", "32", "--t-max", "5",
-                         "--iterations", "6", "--env-spin", "200"] + leg)
+    (res,) = train.main(["--arch", "paac_vector", "--host-env", "--n-envs",
+                         "32", "--t-max", "5", "--iterations", "6",
+                         "--env-spin", "200"] + leg)
     want = {k: 6 if k == kernel else 0 for k in ops.launches}
     assert dict(ops.launches) == want
     assert res.steps == 6 * 32 * 5

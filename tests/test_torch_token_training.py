@@ -1,10 +1,14 @@
 """The token policies' training pass against the JAX package's (CPU, fp32).
 
-Six reduced attention configs (qwen2-7b, minicpm3-4b, dbrx-132b,
-deepseek-v2-236b, pixtral-12b with 8 patch embeddings before the text,
-seamless-m4t-large-v2 with 16 frames through its encoder) are initialised
-in JAX and carried across with ``params_from_numpy``; the same numpy
-batch goes through both sides.
+Eight reduced configs (qwen2-7b, minicpm3-4b, dbrx-132b, deepseek-v2-236b,
+pixtral-12b with 8 patch embeddings before the text,
+seamless-m4t-large-v2 with 16 frames through its encoder, mamba2-370m and
+zamba2-7b, one group of 2 Mamba2 layers and the shared block), and
+zamba2-7b at 3 layers (a group and a tail layer, remat "full") over 64
+tokens (two chunks of 32), are initialised in JAX and carried across with
+``params_from_numpy``; the same numpy batch goes through both sides. The
+Mamba2 layers' gradients go through K6's plain backward
+(``ops.SSDScan``).
 
 * ``policy_apply(train=True)``: logits and values within 1e-4 (absolute
   and relative; the trunks' tolerance in ``tests/test_torch_models.py``)
@@ -14,8 +18,6 @@ batch goes through both sides.
   reference value (taken out of the optimizer, which hands it on), and
   every parameter after the update within 1e-5. Dones at a 20% rate, so
   the returns' bootstrap gradient is cut where the reference's is.
-* The SSM and hybrid families' training pass still raises, naming ROADMAP
-  Queue 1 item 11.
 """
 import numpy as np
 import pytest
@@ -37,28 +39,35 @@ from repro.optim import constant as jax_constant  # noqa: E402
 from repro.optim import make_optimizer as jax_make_optimizer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.agents.paac import PAACAgent, PAACConfig  # noqa: E402
-from repro_torch.models import init_policy, policy_apply  # noqa: E402
+from repro_torch.models import policy_apply  # noqa: E402
 from repro_torch.optim import Optimizer, constant, make_optimizer  # noqa: E402
 from repro_torch.utils.bridge import params_from_numpy, params_to_numpy  # noqa: E402
 
 ARCHS = ["qwen2-7b", "minicpm3-4b", "dbrx-132b", "deepseek-v2-236b",
-         "pixtral-12b", "seamless-m4t-large-v2"]
+         "pixtral-12b", "seamless-m4t-large-v2", "mamba2-370m", "zamba2-7b"]
+# (case, arch, config changes, T): each reduced arch at T 16, and the
+# hybrid with a tail layer and remat over two chunks
+CASES = [(arch, arch, {}, 16) for arch in ARCHS] + [
+    ("zamba2-7b-3-layers", "zamba2-7b", {"num_layers": 3, "remat": "full"},
+     64)]
 APPLY_TOL = 1e-4
 AUX_TOL = 1e-5
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 PARAM_TOL = 1e-5
 LR = 1e-3
-B, T = 2, 16
+B = 2
 
 _PAIRS = {}
 
 
-def _pair(arch):
+def _pair(case):
     """(jax cfg, torch cfg, jax params, torch params, numpy batch)."""
-    if arch not in _PAIRS:
-        cfg_j = jax_config(arch).reduced()
-        cfg = get_config(arch).reduced()
+    if case not in _PAIRS:
+        arch, change, T = next((a, c, t) for n, a, c, t in CASES
+                               if n == case)
+        cfg_j = jax_config(arch).reduced().replace(**change)
+        cfg = get_config(arch).reduced().replace(**change)
         pj = jax_init(jax.random.PRNGKey(0), cfg_j)
         pt = params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), "cpu")
         rng = np.random.default_rng(0)
@@ -74,8 +83,8 @@ def _pair(arch):
         if cfg.is_encoder_decoder:
             batch["frames"] = rng.standard_normal(
                 (B, cfg.encoder_seq_len, cfg.frontend_dim), dtype=np.float32)
-        _PAIRS[arch] = (cfg_j, cfg, pj, pt, batch)
-    return _PAIRS[arch]
+        _PAIRS[case] = (cfg_j, cfg, pj, pt, batch)
+    return _PAIRS[case]
 
 
 def _close(a, b, tol):
@@ -87,10 +96,11 @@ def _prefix(batch):
     return batch.get("prefix", batch.get("frames"))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_policy_apply_train_matches_the_reference(arch):
-    cfg_j, cfg, pj, pt, batch = _pair(arch)
+@pytest.mark.parametrize("case", [c[0] for c in CASES])
+def test_policy_apply_train_matches_the_reference(case):
+    cfg_j, cfg, pj, pt, batch = _pair(case)
     tokens = batch["tokens"][:, :-1]
+    T = tokens.shape[1]
     pre = _prefix(batch)
     lj, vj, aj = jax_apply(pj, cfg_j, jnp.asarray(tokens),
                            None if pre is None else jnp.asarray(pre),
@@ -124,9 +134,9 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_llm_train_step_matches_the_reference(arch):
-    cfg_j, cfg, pj, pt, batch = _pair(arch)
+@pytest.mark.parametrize("case", [c[0] for c in CASES])
+def test_llm_train_step_matches_the_reference(case):
+    cfg_j, cfg, pj, pt, batch = _pair(case)
     jopt = _capturing(jax_make_optimizer("rmsprop"), "jax")
     jstep = jax.jit(JaxPAAC(cfg_j, JaxPAACConfig()).make_llm_train_step(
         jopt, jax_constant(LR)))
@@ -173,13 +183,3 @@ def test_the_moe_aux_loss_carries_a_gradient_to_the_router():
                              train=True)
     (g,) = torch.autograd.grad(aux["moe_aux"], [w])
     assert torch.isfinite(g).all() and float(g.abs().max()) > 0
-
-
-@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
-def test_ssm_and_hybrid_policy_apply_raise_naming_item_11(arch):
-    cfg = get_config(arch).reduced()
-    params = init_policy(cfg, generator=torch.Generator().manual_seed(0),
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        policy_apply(params, cfg, torch.zeros((1, 32), dtype=torch.long),
-                     train=True)

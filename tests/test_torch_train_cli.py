@@ -2,21 +2,20 @@
 ``repro.launch.train`` (CPU, small shapes), and the port's two examples.
 
 * The parser has every flag of the reference with the reference's
-  defaults, except ``--arch``'s (``paac_vector`` until the SSM archs'
-  training pass is ported) and the added ``--device``.
+  defaults (``--arch mamba2-370m`` included), and the added ``--device``.
 * Every ``SystemExit`` of the reference's flag validation comes in the
   reference's order with the reference's text: each case below goes
   through both ``run_rl``s, several with more than one fault at once.
 * Each flag the port does not run raises ``NotImplementedError`` naming
-  its ROADMAP Queue 1 item (11: mamba2-370m and zamba2-7b in either mode;
-  14: the mesh). ``--sanitize`` runs (``tests/test_torch_analysis.py``
-  holds its legs).
+  its ROADMAP Queue 1 item (14: the mesh). ``--sanitize`` runs
+  (``tests/test_torch_analysis.py`` holds its legs).
 * The token archs run: ``--mode rl`` on the TokenEnv, synchronous and
-  ``--pipeline``, and ``--mode synthetic`` (a dense, a vision and an
-  encoder-decoder trunk).
-* ``--device cpu`` runs the three ported legs (PAAC synchronous,
-  ``--pipeline`` and ``--algo dqn``) on the reference's ``TokenEnv``
-  setting, the ``--host-env`` legs (synchronous and ``--pipeline``, with
+  ``--pipeline`` (attention, SSM and hybrid trunks), and ``--mode
+  synthetic`` (a dense, a vision, an encoder-decoder, an SSM and a hybrid
+  trunk).
+* ``--device cpu`` with ``--arch paac_vector`` runs the three ported
+  legs (PAAC synchronous, ``--pipeline`` and ``--algo dqn``) on the
+  reference's ``TokenEnv`` setting, the ``--host-env`` legs (synchronous and ``--pipeline``, with
   the reference's pool recipe), ``--pipeline --actor-backend process``,
   ``--pipeline --replay`` (uniform and prioritized) and ``--pipeline
   --algo dqn --replay``, ``--pipeline --rollout-plane host`` on the
@@ -51,8 +50,8 @@ from repro_torch.envs import TokenEnv  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-TINY = ["--device", "cpu", "--n-envs", "4", "--t-max", "3", "--iterations",
-        "4"]
+TINY = ["--arch", "paac_vector", "--device", "cpu", "--n-envs", "4",
+        "--t-max", "3", "--iterations", "4"]
 
 
 def test_flags_and_defaults_are_the_references(monkeypatch):
@@ -62,9 +61,8 @@ def test_flags_and_defaults_are_the_references(monkeypatch):
     ref_train.main()
     port = vars(train.build_parser().parse_args([]))
     assert port.pop("device") == "cuda"
-    assert port.pop("arch") == "paac_vector"
-    assert captured.pop("arch") == "mamba2-370m"
     assert port == captured
+    assert port["arch"] == "mamba2-370m"
     assert train.ASSIGNED_ARCHS == ASSIGNED_ARCHS
 
 
@@ -124,11 +122,6 @@ def test_every_reference_exit_is_among_the_cases(reference_exits):
 
 
 UNPORTED = [
-    (["--arch", "mamba2-370m", "--reduced"], "item 11"),
-    (["--arch", "zamba2-7b", "--reduced"], "item 11"),
-    (["--mode", "synthetic", "--arch", "mamba2-370m", "--reduced"],
-     "item 11"),
-    (["--mode", "synthetic", "--arch", "zamba2-7b", "--reduced"], "item 11"),
     (["--pipeline", "--mesh", "2"], "item 14"),
     (["--pipeline", "--rollout-plane", "mesh"], "item 14"),
 ]
@@ -145,6 +138,8 @@ TOKEN_LEGS = [
     ["--arch", "qwen2-7b", "--reduced"],
     ["--arch", "qwen2-7b", "--reduced", "--pipeline"],
     ["--arch", "dbrx-132b", "--reduced", "--pipeline", "--num-actors", "2"],
+    ["--arch", "mamba2-370m", "--reduced"],
+    ["--arch", "zamba2-7b", "--reduced", "--pipeline"],
 ]
 
 
@@ -165,7 +160,8 @@ def test_the_token_legs_run_on_the_cpu(leg):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "pixtral-12b",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2", "mamba2-370m",
+                                  "zamba2-7b"])
 def test_mode_synthetic_runs_on_the_cpu(arch, caplog):
     """``--mode synthetic``: 3 steps on one random batch (a vision trunk
     with its patch embeddings, an encoder-decoder with its frames), every
@@ -184,7 +180,8 @@ def test_mode_synthetic_runs_on_the_cpu(arch, caplog):
 
 def test_mode_synthetic_refuses_the_vector_policy():
     with pytest.raises(SystemExit, match="token arch"):
-        train.main(["--mode", "synthetic", "--device", "cpu"])
+        train.main(["--mode", "synthetic", "--arch", "paac_vector",
+                    "--device", "cpu"])
 
 
 @pytest.mark.parametrize("leg", [[], ["--pipeline"], ["--algo", "dqn"]],
