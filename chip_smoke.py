@@ -149,6 +149,18 @@ paths:
               busy at once) for (b), (c) and ParallelRL at n_e = 32; then
               ``paper_atari --arch paac_nature --n-envs 32 --iters 50
               --pipeline``;
+   mesh     — the mesh rollout plane at mesh_shape 1 (one lane, the mesh
+              ring, the sharded learner step) in the same setting: (a)
+              lockstep at depth 1, clips 1, 20 updates equal to the device
+              plane's bitwise (metrics and every parameter; cuDNN
+              deterministic), K2 launched 20 times and K1 never; (b) the
+              device and the mesh plane at depth 2 in turns (device, mesh,
+              mesh, device), 60 timed updates after 10 warm-up each:
+              updates/s, timesteps/s, staleness and learner idle, K2 60
+              times a run, every lane seq learned once, the plain V-trace
+              never called; (c) ``launch/train.py --arch paac_vector
+              --pipeline --rollout-plane mesh --mesh 1 --iterations 20``
+              (K2 20);
    agents   — the framework's other agents in the paper's setting
               (paac_nature, FrameStack(AtariLike(32)), fp32, RMSProp, lr
               0.0224, seed 0): (a) one update of DQN (a replayed batch of
@@ -290,7 +302,11 @@ paths:
               (absorbed and naive decode), mamba2-370m, dbrx-132b,
               deepseek-v2-236b (absorbed and naive; both MoE trunks at
               capacity factor 16) and zamba2-7b (5 layers: two groups of
-              2 and a tail of 1) in fp32, one set of weights on the CPU
+              2 and a tail of 1; also with 4 experts, top 2, its shared
+              block dense at the config's d_ff and an MoE block of
+              128-wide experts at d_ff 0, cf 16, each with one
+              make_llm_train_step card vs CPU within 1e-4, moe_aux 0) in
+              fp32, one set of weights on the CPU
               (plain versions) and on the card (kernels): prefill and
               four decode steps (per-row and scalar pos) must agree within
               1e-4 on the logits, and each kernel of the path must launch
@@ -411,9 +427,9 @@ paths:
 
 TF32 is off for matmuls and convolutions throughout. The line before the
 last is a JSON object with each kernel's numbers and its launches on each
-main path (training, pipeline, agents, train cli, host sync, host
-pipeline, host train cli, host process, host process train cli, replay,
-replay train cli, faults, faults train cli, the analysis legs, token
+main path (training, pipeline, mesh, mesh train cli, agents, train cli,
+host sync, host pipeline, host train cli, host process, host process
+train cli, replay, replay train cli, faults, faults train cli, the analysis legs, token
 training, the token cli legs and the token example, the six serving
 cells, the three window cells and the two prefixed cells, each read with
 the counts set to 0 just before it); K3's row also carries its time with
@@ -2035,6 +2051,128 @@ def phase_pipeline(torch, paper_atari, configs, ops, tree, card, dev="cuda",
     return counts["vtrace_returns"]
 
 
+def phase_mesh(torch, paper_atari, configs, ops, tree, train, card,
+               dev="cuda", n_envs=32, warmup=10, iters=60, lock_iters=20,
+               cli_iters=20):
+    """The mesh rollout plane at mesh_shape 1 (one card) in the paper's
+    setting: (a) lockstep at depth 1, clips 1, on the mesh plane against
+    the device plane, bitwise (cuDNN deterministic); (b) the device and
+    the mesh plane at depth 2 in turns (device, mesh, mesh, device), each
+    ``iters`` timed updates after ``warmup``: K2 once an update on the
+    mesh, K1 never, and the plain V-trace never called; (c)
+    ``launch/train.py --pipeline --rollout-plane mesh --mesh 1``. Returns
+    K2's launches in (b)'s first mesh run and in (c)."""
+    PipelineConfig = configs.PipelineConfig
+    real_plain = ops._ref.vtrace_returns_ref
+    plain_calls = []
+
+    def plain(rewards, *a, **kw):
+        plain_calls.append(rewards.device.type)
+        return real_plain(rewards, *a, **kw)
+
+    def build(plane, **kw):
+        return paper_atari.build("paac_nature", n_envs, SEED, dev,
+                                 PipelineConfig(rollout_plane=plane, **kw))
+
+    ops._ref.vtrace_returns_ref = plain
+    try:
+        # (a) lockstep, clips 1: the same K2 path on both planes
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            runs = {}
+            for plane in ("device", "mesh"):
+                rl = build(plane, queue_depth=1, lockstep=True)
+                ops.reset_launches()
+                runs[plane] = (rl.run(lock_iters), rl, dict(ops.launches))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        (rd, d, _), (rm, m, counts) = runs["device"], runs["mesh"]
+        check(m._plane == "mesh" and m._n_actors == 1,
+              f"mesh plane: plane {m._plane}, lanes {m._n_actors}")
+        check(counts["vtrace_returns"] == lock_iters
+              and counts["nstep_returns"] == 0,
+              f"mesh lockstep launches {counts}")
+        check(m.learned_ids == [(-1, s) for s in range(lock_iters)]
+              and m.staleness == [0.0] * lock_iters,
+              f"mesh lockstep: ids {m.learned_ids}, staleness {m.staleness}")
+        check_bitwise(torch, tree, rm, m, rd, d,
+                      "mesh plane (mesh_shape 1) vs device plane, lockstep")
+        say("mesh", f"(a) lockstep depth 1, clips 1, {lock_iters} updates: "
+            "the mesh plane (mesh_shape 1: one lane, the mesh ring, the "
+            "sharded step) equals the device plane bitwise in every metric "
+            f"and all {len(tree.tree_leaves(m.params))} parameter leaves; "
+            f"launches K2 {counts['vtrace_returns']}, K1 "
+            f"{counts['nstep_returns']}")
+        del runs, d, m
+
+        # (b) depth 2 in turns: the planes' timesteps/s at the same shape
+        rates = {"device": [], "mesh": []}
+        k2 = None
+        for plane in ("device", "mesh", "mesh", "device"):
+            rl = build(plane, queue_depth=2)
+            rl.run(warmup)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res = rl.run(iters)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(ops.launches)
+            check(counts["vtrace_returns"] == iters
+                  and counts["nstep_returns"] == 0,
+                  f"{plane} plane depth 2: launches {counts}")
+            check(all(math.isfinite(v) for v in res.mean_metrics.values()),
+                  f"{plane} plane: non-finite metrics {res.mean_metrics}")
+            if plane == "mesh":
+                check(rl.learned_ids == [(-1, s) for s in range(iters)],
+                      "mesh plane: a lane's seq was dropped or learned twice")
+                check(max(rl.staleness) <= 3,
+                      f"mesh plane: staleness {max(rl.staleness)} > depth + 1")
+                if k2 is None:
+                    k2 = counts["vtrace_returns"]
+            rates[plane].append(res.timesteps_per_sec)
+            say("mesh", f"(b) {plane} plane, depth 2, clips 1: {iters} "
+                f"updates after {warmup} warm-up in {wall:.3f} s, "
+                f"{iters / wall:.1f} updates/s, {res.timesteps_per_sec:.1f} "
+                f"timesteps/s, staleness {res.mean_metrics['staleness']:.3f}"
+                f", learner idle {res.learner_idle_s:.3f} s; launches K2 "
+                f"{counts['vtrace_returns']} ({card})")
+            del rl
+        check(not plain_calls, f"the plain V-trace ran on {plain_calls}")
+        lo, hi = min(rates["device"]), max(rates["device"])
+        say("mesh", "timesteps/s, device plane "
+            + ", ".join(f"{r:.1f}" for r in rates["device"])
+            + "; mesh plane " + ", ".join(f"{r:.1f}" for r in rates["mesh"])
+            + f"; mesh / device means "
+            f"{sum(rates['mesh']) / sum(rates['device']):.3f}, the device "
+            f"runs' own spread {(hi - lo) / lo:.3f}; the plain V-trace "
+            "called 0 times")
+
+        # (c) the trainer's mesh leg
+        argv = ["--arch", "paac_vector", "--pipeline", "--rollout-plane",
+                "mesh", "--mesh", "1", "--iterations", str(cli_iters),
+                "--device", str(dev)]
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = train.main(argv)
+        wall = time.perf_counter() - t0
+        cli = dict(ops.launches)
+        check(cli["vtrace_returns"] == cli_iters
+              and cli["nstep_returns"] == 0, f"train mesh: launches {cli}")
+        check(len(out) == 1 and out[0].steps == cli_iters * 16 * 8
+              and all(math.isfinite(v) for v in out[0].mean_metrics.values()),
+              f"train mesh: {out}")
+        check(not plain_calls, f"the plain V-trace ran on {plain_calls}")
+        say("mesh", f"(c) python -m repro_torch.launch.train "
+            f"{' '.join(argv)}: {out[0].steps} steps in {wall:.2f} s, "
+            f"{out[0].timesteps_per_sec:.1f} timesteps/s, launches K2 "
+            f"{cli['vtrace_returns']}")
+    finally:
+        ops._ref.vtrace_returns_ref = real_plain
+    return k2, cli["vtrace_returns"]
+
+
 def _grad_norm(torch, tree, loss_fn, params) -> float:
     """Global L2 norm of the gradient of ``loss_fn(params)[0]`` (zero for the
     leaves the loss does not reach)."""
@@ -2310,6 +2448,7 @@ def phase_agents(torch, configs, models, envs, A, replay, core, optim, tree,
 
 
 K3 = ("flash_attention",)
+HYBRID_EXPERTS = {"num_layers": 5, "num_experts": 4, "num_experts_per_tok": 2}
 MODEL_CASES = (  # (arch, config changes, prompt length, prefill kernels,
     #                decode kernel)
     ("qwen2-7b", {}, 37, K3, "decode_attention"),
@@ -2330,6 +2469,15 @@ MODEL_CASES = (  # (arch, config changes, prompt length, prefill kernels,
     # prefill, K4 twice a step); two chunks of 32
     ("zamba2-7b", {"num_layers": 5}, 64, ("ssd_scan", "flash_attention"),
      "decode_attention"),
+    # the hybrid with experts (4, top 2), the shared block as the
+    # reference builds it: dense while d_ff is set (the experts ignored),
+    # the MoE block at d_ff 0 (experts 128 wide, cf 16: no drops on
+    # either side)
+    ("zamba2-7b", HYBRID_EXPERTS, 64, ("ssd_scan", "flash_attention"),
+     "decode_attention"),
+    ("zamba2-7b", dict(HYBRID_EXPERTS, d_ff=0, moe_d_ff=128,
+                       moe_capacity_factor=16.0), 64,
+     ("ssd_scan", "flash_attention"), "decode_attention"),
     # a ring of 16 slots, wrapped by the prompt and the steps (K3 windowed)
     ("qwen2-7b", {"sliding_window": 16}, 37, K3, "decode_attention"),
     ("minicpm3-4b", {"mla_absorb": True, "sliding_window": 16}, 37, K3,
@@ -2374,10 +2522,11 @@ def prefix_offset(cfg) -> int:
     return cfg.prefix_len if cfg.family == "vlm" else 0
 
 
-def phase_model(torch, np, configs, models, ops, tree, dev="cuda"):
+def phase_model(torch, np, configs, models, ops, paac, optim, tree,
+                dev="cuda"):
     """Each of ``MODEL_CASES`` reduced, fp32: CPU (plain versions) against
     the card (kernels), prefill and four decode steps with per-row and
-    scalar positions."""
+    scalar positions; the hybrid with experts also one train step."""
     for arch, change, S, pre, dec in MODEL_CASES:
         cfg = configs.get_config(arch).reduced().replace(**change)
         cpu = models.init_policy(
@@ -2422,6 +2571,12 @@ def phase_model(torch, np, configs, models, ops, tree, dev="cuda"):
             "and scalar pos), card "
             f"vs CPU max |dlogit| {worst:.3g} <= {MODEL_ATOL}; launches "
             + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+        if cfg.family == "hybrid" and cfg.num_experts:
+            shared = gpu["trunk"]["shared"]
+            check(("moe" in shared) == (cfg.d_ff == 0),
+                  f"reduced {arch} {change}: shared block {sorted(shared)}")
+            train_step_card_vs_cpu(torch, np, models, ops, paac, optim, tree,
+                                   cfg, "model", dev)
 
 
 FLASH_GRAD = (  # (B, Sq, Sk, H, Hkv, D, Dv, causal, window, timed in bf16 as)
@@ -2712,6 +2867,46 @@ def train_counts(cfg):
              "nstep_returns": 1}, {"flash_attention": attn, "ssd_scan": mamba})
 
 
+def train_step_card_vs_cpu(torch, np, models, ops, paac, optim, tree, cfg,
+                           phase: str, dev="cuda") -> None:
+    """One ``make_llm_train_step`` (RMSProp) of ``cfg`` in fp32 on the CPU
+    (plain versions) and on the card (kernels) from the same weights and
+    batch: metrics and new params within ``TRAIN_TOL``, the kernels
+    launched as ``train_counts`` says."""
+    cpu = models.init_policy(
+        cfg, generator=torch.Generator().manual_seed(SEED), device="cpu")
+    gpu = tree.tree_map(lambda t: t.to(dev), cpu)
+    batch = train_batch(torch, np, cfg, 2, 16, SEED)
+    out = {}
+    for where, params, d in (("cpu", cpu, "cpu"), ("card", gpu, dev)):
+        opt = optim.make_optimizer("rmsprop")
+        step = paac.PAACAgent(cfg, paac.PAACConfig()).make_llm_train_step(
+            opt, optim.constant(1e-3))
+        ops.reset_launches()
+        new, _, m = step(params, opt.init(params),
+                         {k: v.to(d) for k, v in batch.items()}, 0)
+        out[where] = (new, m, dict(ops.launches))
+    (pc, mc, _), (pg, mg, counts) = out["cpu"], out["card"]
+    want = {k: 0 for k in counts}
+    want.update(train_counts(cfg)[0])
+    what = f"reduced {cfg.name}"
+    check(counts == want, f"{what} train step launches {counts}, expected "
+          f"{want}")
+    dl = max(abs(float(mc[k]) - float(mg[k])) / max(abs(float(mc[k])), 1.0)
+             for k in mc)
+    dp = max((a - b.cpu()).abs().max().item() for a, b in
+             zip(tree.tree_leaves(pc), tree.tree_leaves(pg)))
+    check(dl <= TRAIN_TOL and dp <= TRAIN_TOL,
+          f"{what} train step: card vs CPU metrics {dl:.3g}, params {dp:.3g}")
+    say(phase, f"{what} fp32 (L={cfg.num_layers} d={cfg.d_model}"
+        f"{', %d experts top %d, d_ff %d' % (cfg.num_experts, cfg.num_experts_per_tok, cfg.d_ff) if cfg.num_experts else ''}"
+        "), one make_llm_train_step (RMSProp) at B=2 T=16, card vs CPU: loss "
+        f"{float(mg['loss']):.5f}, moe_aux {float(mg.get('moe_aux', 0.0)):.3g}"
+        f", metrics within {dl:.3g}, new parameters within {dp:.3g} (<= "
+        f"{TRAIN_TOL}); launches " + ", ".join(
+            f"{k} {v}" for k, v in counts.items() if v))
+
+
 def phase_token_training(torch, np, configs, models, ops, paac, optim, train,
                          tree, card, first_cell, dev="cuda"):
     """The token policies' training path: (a) the full-width cells
@@ -2743,39 +2938,9 @@ def phase_token_training(torch, np, configs, models, ops, paac, optim, train,
         add(cell["counts"], cell["backward_calls"])
 
     for arch in TRAIN_ARCHS:
-        cfg = configs.get_config(arch).reduced()
-        cpu = models.init_policy(
-            cfg, generator=torch.Generator().manual_seed(SEED), device="cpu")
-        gpu = tree.tree_map(lambda t: t.to(dev), cpu)
-        batch = train_batch(torch, np, cfg, 2, 16, SEED)
-        out = {}
-        for where, params, d in (("cpu", cpu, "cpu"), ("card", gpu, dev)):
-            opt = optim.make_optimizer("rmsprop")
-            step = paac.PAACAgent(cfg, paac.PAACConfig()).make_llm_train_step(
-                opt, optim.constant(1e-3))
-            ops.reset_launches()
-            new, _, m = step(params, opt.init(params),
-                             {k: v.to(d) for k, v in batch.items()}, 0)
-            out[where] = (new, m, dict(ops.launches))
-        (pc, mc, _), (pg, mg, counts) = out["cpu"], out["card"]
-        want = {k: 0 for k in counts}
-        want.update(train_counts(cfg)[0])
-        check(counts == want, f"reduced {arch} train step launches {counts}, "
-              f"expected {want}")
-        dl = max(abs(float(mc[k]) - float(mg[k])) / max(abs(float(mc[k])), 1.0)
-                 for k in mc)
-        dp = max((a - b.cpu()).abs().max().item() for a, b in
-                 zip(tree.tree_leaves(pc), tree.tree_leaves(pg)))
-        check(dl <= TRAIN_TOL and dp <= TRAIN_TOL,
-              f"reduced {arch} train step: card vs CPU metrics {dl:.3g}, "
-              f"params {dp:.3g}")
-        say("token training", f"reduced {arch} fp32 (L={cfg.num_layers} "
-            f"d={cfg.d_model}), one make_llm_train_step (RMSProp) at B=2 "
-            f"T=16, card vs CPU: loss {float(mg['loss']):.5f}, metrics "
-            f"within {dl:.3g}, new parameters within {dp:.3g} (<= "
-            f"{TRAIN_TOL}); launches " + ", ".join(
-                f"{k} {v}" for k, v in counts.items() if v))
-        del cpu, gpu, pc, pg
+        train_step_card_vs_cpu(torch, np, models, ops, paac, optim, tree,
+                               configs.get_config(arch).reduced(),
+                               "token training", dev)
 
     with grad_norms() as norms:
         for arch, change, B, T in TRAIN_ONE_STEP:
@@ -5872,6 +6037,11 @@ def main(argv=None) -> int:
         torch, paper_atari, configs, ops, tree, card,
         trace_dir=args.trace_dir or None)}
     lap("pipeline")
+    mesh_k2, mesh_cli_k2 = phase_mesh(torch, paper_atari, configs, ops,
+                                      tree, train, card)
+    by_path["mesh"] = {"vtrace_returns": mesh_k2}
+    by_path["mesh train cli"] = {"vtrace_returns": mesh_cli_k2}
+    lap("mesh")
     by_path["agents"], by_path["train cli"] = phase_agents(
         torch, configs, models, envs, agents, replay, core, optim, tree, ops,
         train, card, trained)
@@ -5902,7 +6072,7 @@ def main(argv=None) -> int:
         tree, train, serve, analysis, sanitize, lockcheck, card))
     lap("analysis")
     torch.cuda.empty_cache()
-    phase_model(torch, np, configs, models, ops, tree)
+    phase_model(torch, np, configs, models, ops, paac, optim, tree)
     lap("model")
     by_path.update(phase_token_cli(torch, ops, train,
                                    Path(__file__).resolve().parent))

@@ -28,8 +28,9 @@ def main():
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch import analysis, configs, models, serving
+    from repro_torch import analysis, configs, models, optim, serving
     from repro_torch.analysis import sanitize
+    from repro_torch.core.agents import paac
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -50,7 +51,7 @@ def main():
     print(json.dumps({k: rows[k] for k in ("flash_attention",
                                            "decode_attention", "ssd_scan")}))
     cs.MODEL_CASES = tuple(c for c in cs.MODEL_CASES if c[0] == "zamba2-7b")
-    cs.phase_model(torch, np, configs, models, ops, tree)
+    cs.phase_model(torch, np, configs, models, ops, paac, optim, tree)
     cell = next(c for c in cs.SERVING_CELLS if c["arch"] == "zamba2-7b")
     counts = cs.phase_serving(torch, np, configs, models, ops, serve, serving,
                               tree, card, cell, analysis, sanitize)

@@ -190,11 +190,11 @@ class PipelineConfig:
     params before each rollout: synchronous semantics through the
     pipelined code path.
 
-    The port runs the device, host and replay rollout planes with thread
-    or process actors, elastic recovery, fault plans and checkpoints. The
-    mesh plane is validated here as in ``repro`` but ``PipelinedRL``
-    refuses it with ``NotImplementedError`` naming the ROADMAP item that
-    ports it (Queue 1 item 14). ``trace_path`` writes a Chrome trace of the
+    The port runs the device, host, mesh and replay rollout planes with
+    thread or process actors, elastic recovery, fault plans and
+    checkpoints; the mesh settings are validated here as in ``repro``
+    (``mesh_shape`` lanes, one a device; on the CPU, lanes that share
+    it). ``trace_path`` writes a Chrome trace of the
     run's spans, ``metrics_jsonl`` a JSONL heartbeat every
     ``heartbeat_s``, and ``stall_timeout_s`` > 0 arms the stall watchdog.
     """

@@ -30,19 +30,28 @@ import torch
 from repro_torch.device import resolve_device
 
 
-def narrow_vector_env(env: "VectorEnv", n_envs: int) -> "VectorEnv":
-    """A view of ``env`` batched over ``n_envs`` instances instead.
+def narrow_vector_env(env: "VectorEnv", n_envs: int,
+                      device=None) -> "VectorEnv":
+    """A view of ``env`` batched over ``n_envs`` instances instead, and
+    living on ``device`` when one is given.
 
     The vector API is shape-polymorphic, so a narrowed env is the same
     object graph with the batch width overridden — wrappers are narrowed
     recursively so e.g. a ``FrameStack`` delegates to an inner env of the
-    matching width.
+    matching width. With ``device``, the env's tables are copied there and
+    everything it makes (states, observations, rewards) is made there: the
+    mesh plane's lane ``i`` steps its own copy on its own device.
     """
     narrowed = copy.copy(env)
     narrowed.n_envs = n_envs
+    if device is not None:
+        narrowed.device = resolve_device(device)
+        for name, value in vars(env).items():
+            if isinstance(value, torch.Tensor):
+                setattr(narrowed, name, value.to(narrowed.device))
     inner = getattr(env, "env", None)
     if isinstance(inner, VectorEnv):
-        narrowed.env = narrow_vector_env(inner, n_envs)
+        narrowed.env = narrow_vector_env(inner, n_envs, device)
     return narrowed
 
 

@@ -27,7 +27,11 @@ implies ``--host-env``) runs each replica in a spawned worker subprocess
 over shared memory, the backend that scales GIL-holding emulators.
 ``--rollout-plane`` picks the trajectory plane: the device ring (tensor
 envs), or the host staging queue (``--host-env`` pools; on the TokenEnv
-the GA3C-style baseline). ``--replay`` swaps the FIFO ring for the sampled
+the GA3C-style baseline), or the mesh plane, which ``--mesh D`` > 1 also
+selects: one actor lane a device of a D-lane rollout mesh (on the CPU,
+with ``--device cpu``, D lanes that share it), each lane's shard of the
+env axis learned through the sharded step (V-trace through K2 on each
+lane's device, the gradients summed on lane 0). ``--replay`` swaps the FIFO ring for the sampled
 ``ReplayRing``: actors never block, and each update samples
 ``--replay-batch`` of the ``--replay-capacity`` resident rollouts
 (uniformly, or TD-error-weighted with ``--prioritized``); ``--algo paac``
@@ -51,10 +55,8 @@ K1.
 
 The parser takes every flag of the reference, with its defaults, plus
 ``--device``. Every ``SystemExit`` of the reference's flag validation comes
-in the reference's order with its text. What the port does not run yet
-raises ``NotImplementedError`` naming its ROADMAP Queue 1 item:
-``--mesh`` > 1 and ``--rollout-plane mesh`` (item 14). ``--arch``
-defaults to the reference's ``mamba2-370m`` at full width.
+in the reference's order with its text. ``--arch`` defaults to the
+reference's ``mamba2-370m`` at full width.
 
 Examples (``paac_vector`` for the agents and planes that need a vector
 policy):
@@ -82,6 +84,8 @@ policy):
         --iterations 100 --pipeline --sanitize locks,transfers
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --arch mamba2-370m --reduced --iterations 4 --n-envs 4
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --arch paac_vector --pipeline --mesh 2 --iterations 8 --n-envs 8
 """
 from __future__ import annotations
 
@@ -181,15 +185,6 @@ def _refuse_invalid(args) -> None:
             f"policy (e.g. --arch paac_vector), got {args.arch}")
 
 
-def _refuse_unported(args) -> None:
-    """``NotImplementedError`` for each setting the port does not run yet,
-    naming the ROADMAP Queue 1 item that ports it."""
-    if args.mesh > 1 or args.rollout_plane == "mesh":
-        raise NotImplementedError(
-            "repro_torch.launch.train: --mesh > 1 and --rollout-plane mesh "
-            "(the mesh plane) are item 14 of ROADMAP Queue 1")
-
-
 def _fault_plan(args):
     """The ``FaultPlan`` of ``--fault-kill``/``--fault-stall-learner``
     (``None`` without either), with the reference's exits on a malformed
@@ -220,7 +215,6 @@ def run_rl(args) -> Tuple[object, List[RunResult]]:
     call only; with ``locks`` a lock-order cycle or hazard in the run
     exits non-zero after it."""
     _refuse_invalid(args)
-    _refuse_unported(args)
     modes = parse_modes(args.sanitize)
     if not modes:
         return _run_rl(args)
@@ -281,6 +275,7 @@ def _run_rl(args) -> Tuple[object, List[RunResult]]:
                                     num_actors=args.num_actors,
                                     rollout_plane=args.rollout_plane,
                                     actor_backend=args.actor_backend,
+                                    mesh_shape=args.mesh,
                                     replay_plane=args.replay,
                                     replay_capacity=args.replay_capacity,
                                     replay_batch=args.replay_batch,
@@ -395,7 +390,6 @@ def run_synthetic(args) -> dict:
     """``--mode synthetic``: the reference's profiling path, ``--n-envs``
     rows of ``--t-max`` tokens for ``--iterations`` steps, and its log
     line."""
-    _refuse_unported(args)
     if args.arch == "paac_vector":
         raise SystemExit("--mode synthetic trains a token arch's trajectory "
                          "step: give --arch one of the token archs")
@@ -443,11 +437,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rollout-plane",
                     choices=("auto", "device", "host", "mesh"),
                     default="auto",
-                    help="trajectory queue plane: auto, device or host "
-                    "(mesh is ROADMAP Queue 1 item 14)")
+                    help="trajectory queue plane: auto, device, host or "
+                    "mesh (one actor lane a device, sharded learner)")
     ap.add_argument("--mesh", type=int, default=1,
-                    help="mesh rollout plane over this many devices (ROADMAP "
-                    "Queue 1 item 14)")
+                    help="mesh rollout plane over this many devices (with "
+                    "--device cpu, lanes that share the CPU)")
     ap.add_argument("--algo", choices=("paac", "dqn"), default="paac",
                     help="agent family: on-policy PAAC (V-trace under the "
                     "pipeline) or value-based DQN (synchronous, with its own "

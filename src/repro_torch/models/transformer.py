@@ -9,9 +9,14 @@ loop over that axis. An MoE trunk (DeepSeek-V2, DBRX) runs its
 ``"first"``, before ``"layers"``, whose blocks carry a ``"moe"`` FFN
 (``moe.py``). A hybrid trunk (Zamba2) runs ``"groups"``, a stack of stacks
 (n_groups, shared_attn_every, ...) of Mamba2 blocks, each group followed by
-one application of the single ``"shared"`` attention + dense FFN block
-(one weight copy, no layer axis), then a ``"tail"`` stack of the remaining
-``num_layers % shared_attn_every`` Mamba2 blocks. Every cache leaf is per
+one application of the single ``"shared"`` attention block (one weight
+copy, no layer axis), then a ``"tail"`` stack of the remaining
+``num_layers % shared_attn_every`` Mamba2 blocks. The shared block's FFN
+is built as the reference builds it, ``dense_ff=cfg.d_ff``: a dense MLP
+when ``d_ff`` is set (a config's experts are then ignored), the MoE block
+when ``d_ff`` is 0 and the config has experts; the hybrid's ``forward``
+drops that block's aux loss, as the reference's group does, so its
+``moe_aux`` is 0 in both forms. Every cache leaf is per
 layer ``(L, B, ...)``, as in the reference: GQA's ``{"k", "v"}`` (L, B,
 slots, Hkv, D), MLA's ``{"c", "kr"}`` (L, B, slots, rank / rope), Mamba2's
 conv buffers and fp32 state; an MoE trunk's cache is ``{"first": {"attn":
@@ -83,7 +88,11 @@ def _check_family(cfg) -> None:
         "audio": (plain and cfg.attention == "gqa" and cfg.is_encoder_decoder
                   and cfg.encoder_layers >= 1),
         "moe": attention and cfg.num_experts,
-        "hybrid": plain and 1 <= cfg.shared_attn_every <= cfg.num_layers,
+        # the shared block's FFN: dense of d_ff when set (experts ignored),
+        # else the MoE block
+        "hybrid": (attention and (cfg.d_ff or cfg.num_experts)
+                   and not cfg.first_dense_layers
+                   and 1 <= cfg.shared_attn_every <= cfg.num_layers),
         "ssm": True,
     }
     front = cfg.family in ("vlm", "audio")
@@ -93,8 +102,7 @@ def _check_family(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with these settings is not "
             "a trunk of the port (dense, MoE, SSM, hybrid, vision, audio "
-            "encoder-decoder); a hybrid with experts waits for ROADMAP.md "
-            "Queue 1, item 11")
+            "encoder-decoder)")
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +360,8 @@ def _mamba_trunk(params, cfg, x, window: int, train: bool):
     def group(gp, shared, x):
         for i in range(every):
             x = ssm_block_forward(layer(gp, i), cfg, x, return_state=False)
+        # an MoE shared block's aux loss is dropped, as the reference's
+        # group drops it (``x, _, _ = attn_block_forward(...)``)
         return attn_block_forward(shared, cfg, x, window=window)[0]
 
     group = _maybe_remat(group, cfg, train)

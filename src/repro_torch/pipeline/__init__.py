@@ -1,5 +1,6 @@
 """Asynchronous actor/learner pipeline of the port (``repro.pipeline``):
-the device, host and replay rollout planes with thread or process actors.
+the device, host, mesh and replay rollout planes with thread or process
+actors.
 
 ``PipelinedRL`` splits Algorithm 1 into ``num_actors`` actor replicas and
 one learner joined by a bounded stream: the ``DeviceTrajectoryRing`` for
@@ -22,8 +23,10 @@ reference). Fault tolerance: a ``FaultPlan`` armed a run by a
 ``FaultInjector`` (planned kills raise ``InjectedActorFault``), and with
 ``elastic`` an ``ActorSupervisor`` that respawns or degrades dying
 replicas over a ``QuotaLedger``; checkpoints live in
-``repro_torch.checkpoint``. The mesh plane waits for ROADMAP.md Queue 1
-item 14.
+``repro_torch.checkpoint``. The mesh plane (``mesh_shape`` lanes, one a
+device of a ``repro_torch.launch.mesh.RolloutMesh``) feeds a
+``MeshTrajectoryRing`` of per-lane sub-rings and learns through
+``make_sharded_learner_step``.
 """
 from repro_torch.configs.base import PipelineConfig
 from repro_torch.pipeline.actor import (
@@ -42,7 +45,8 @@ from repro_torch.pipeline.faults import (
     FaultPlan,
     InjectedActorFault,
 )
-from repro_torch.pipeline.learner import make_learner_step
+from repro_torch.pipeline.learner import (make_learner_step,
+                                          make_sharded_learner_step)
 from repro_torch.pipeline.offpolicy import (
     SyncReplayDQN,
     make_dqn_collect_fn,
@@ -51,7 +55,7 @@ from repro_torch.pipeline.offpolicy import (
 from repro_torch.pipeline.orchestrator import PipelinedRL
 from repro_torch.pipeline.queue import CLOSED, QueueClosed, TrajectoryQueue
 from repro_torch.pipeline.replay_ring import ReplayRing
-from repro_torch.pipeline.ring import DeviceTrajectoryRing
+from repro_torch.pipeline.ring import DeviceTrajectoryRing, MeshTrajectoryRing
 from repro_torch.pipeline.shm import ShmParamSlot, ShmParamView, ShmStagingSet
 from repro_torch.pipeline.supervisor import ActorSupervisor, QuotaLedger
 from repro_torch.pipeline.worker import ProcessActorDrainer, ProcessActorPlane
@@ -66,6 +70,7 @@ __all__ = [
     "FaultPlan",
     "HostStagingRing",
     "InjectedActorFault",
+    "MeshTrajectoryRing",
     "ParamSlot",
     "PingPongParamSlot",
     "PipelineConfig",
@@ -87,4 +92,5 @@ __all__ = [
     "make_dqn_learner_step",
     "make_host_act_step",
     "make_learner_step",
+    "make_sharded_learner_step",
 ]

@@ -38,11 +38,23 @@ the learner's working params and optimizer state are new tensors each
 update, private to the learner thread, and actors only ever see the two
 published buffers.
 
-The reference's ``make_sharded_learner_step`` (the mesh plane) waits for
-ROADMAP Queue 1 item 14.
+``make_sharded_learner_step`` is the mesh plane's twin: the same update
+on a batch split over the lanes of a ``RolloutMesh``. Lane ``i`` computes
+its bootstrap, its loss (V-trace through K2, or n-step through K1 at
+ρ̄ = c̄ = ∞) and its backward on its own device with its own param
+replica; the lanes' shards are equal, so the global batch mean is the
+mean of the lanes' means, and each lane's loss is scaled by 1/D before
+its backward. The partial gradients are summed in lane order on lane 0's
+device, and only then clipped at the global norm (inside
+``optimizer.update``) and applied: one RMSProp update on shared
+statistics, as the reference's all-reduce followed by its replicated
+update. The new params are copied to every lane's replica. One process,
+one learner thread: no process group. At D = 1 the step is
+``make_learner_step``'s, bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable
 
@@ -52,20 +64,17 @@ import torch.nn.functional as F
 from repro_torch.core.agents.paac import (paac_losses, trajectory_forward,
                                           trajectory_logits_values)
 from repro_torch.core.returns import vtrace_returns
+from repro_torch.distributed.sharding import replicated_sharding
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
-__all__ = ["make_learner_step"]
+__all__ = ["make_learner_step", "make_sharded_learner_step"]
 
 
-def make_learner_step(agent, optimizer, lr_schedule, rho_bar: float = 1.0,
-                      c_bar: float = 1.0,
-                      fused_publish: bool = False) -> Callable:
-    """Build the pipelined learner's update step for a PAAC agent.
-
-    ``fused_publish=False`` (default): the plain update. ``fused_publish=
-    True``: the extra ``publish_dst`` argument and ``published`` output of
-    the module docstring.
-    """
+def _make_grad_fn(agent, rho_bar: float, c_bar: float) -> Callable:
+    """``grad_fn(params, traj, last_obs, scale=1) -> (grads, metrics)``:
+    the bootstrap under ``params``, the loss (``scale`` times it, when not
+    1, goes into the backward) and its gradients, leaf for leaf in
+    ``tree_leaves(params)`` order, with the update's metrics."""
     cfg, hp = agent.cfg, agent.hp
     act = agent.act_fn()
     # the infinite-clip (synchronous) limit takes the sync path's loss
@@ -112,17 +121,15 @@ def make_learner_step(agent, optimizer, lr_schedule, rho_bar: float = 1.0,
 
     loss_fn = loss_sync if exact_sync else loss_vtrace
 
-    def _update(params, opt_state, traj, last_obs, step):
+    def grad_fn(params, traj, last_obs, scale: float = 1.0):
         with torch.no_grad():  # V(s_{tmax+1}) under the learner's params
             _, bootstrap = act(params, last_obs)
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         with torch.enable_grad():
             loss, metrics, rho = loss_fn(tree_unflatten(params, leaves), traj,
                                          bootstrap)
-            grads = torch.autograd.grad(loss, leaves)
-        params, opt_state = optimizer.update(tree_unflatten(params, grads),
-                                             opt_state, params,
-                                             lr_schedule(step))
+            grads = torch.autograd.grad(loss if scale == 1.0
+                                        else loss * scale, leaves)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["rho_mean"] = rho.mean()
         metrics["rho_clip_frac"] = (rho > rho_bar).float().mean()
@@ -130,6 +137,34 @@ def make_learner_step(agent, optimizer, lr_schedule, rho_bar: float = 1.0,
         metrics["loss"] = loss.detach()
         metrics["reward_sum"] = traj.reward.sum()
         metrics["episodes"] = traj.done.sum()
+        return grads, metrics
+
+    return grad_fn
+
+
+def _publish(publish_dst, params) -> None:
+    """The new params copied over the stale ping-pong buffer, in place."""
+    with torch.no_grad():
+        for dst, src in zip(tree_leaves(publish_dst), tree_leaves(params)):
+            dst.copy_(src)
+
+
+def make_learner_step(agent, optimizer, lr_schedule, rho_bar: float = 1.0,
+                      c_bar: float = 1.0,
+                      fused_publish: bool = False) -> Callable:
+    """Build the pipelined learner's update step for a PAAC agent.
+
+    ``fused_publish=False`` (default): the plain update. ``fused_publish=
+    True``: the extra ``publish_dst`` argument and ``published`` output of
+    the module docstring.
+    """
+    grad_fn = _make_grad_fn(agent, rho_bar, c_bar)
+
+    def _update(params, opt_state, traj, last_obs, step):
+        grads, metrics = grad_fn(params, traj, last_obs)
+        params, opt_state = optimizer.update(tree_unflatten(params, grads),
+                                             opt_state, params,
+                                             lr_schedule(step))
         return params, opt_state, metrics
 
     if not fused_publish:
@@ -139,9 +174,86 @@ def make_learner_step(agent, optimizer, lr_schedule, rho_bar: float = 1.0,
         params, opt_state, metrics = _update(params, opt_state, traj,
                                              last_obs, step)
         # bitwise snapshot for the actors, written over the stale buffer
-        with torch.no_grad():
-            for dst, src in zip(tree_leaves(publish_dst), tree_leaves(params)):
-                dst.copy_(src)
+        _publish(publish_dst, params)
         return params, opt_state, publish_dst, metrics
+
+    return learner_step
+
+
+def _on_device(device):
+    """Make ``device`` current while a lane's work is issued (on the CPU,
+    nothing): a kernel wrapper that launches on ``current_stream()`` then
+    takes the lane device's stream."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+# the metrics that are sums over the batch; every other one is a batch mean
+_SUMMED = ("reward_sum", "episodes")
+
+
+def make_sharded_learner_step(agent, optimizer, lr_schedule, mesh,
+                              rho_bar: float = 1.0, c_bar: float = 1.0,
+                              fused_publish: bool = True) -> Callable:
+    """The mesh plane's twin of ``make_learner_step`` over ``mesh`` (a
+    ``repro_torch.launch.mesh.RolloutMesh`` of D lanes).
+
+    ``(replicas, opt_state, traj, last_obs, step[, publish_dst]) ->
+    (replicas, opt_state[, published], metrics)``: ``replicas`` holds one
+    param tree a lane, lane ``i``'s on ``mesh.devices[i]``, and lane 0's is
+    the learner's; ``traj`` and ``last_obs`` hold one part a lane, lane
+    ``i``'s on its device (``MeshTrajectoryRing.get``'s ``Lanes``);
+    ``opt_state`` lives on lane 0's device; ``publish_dst`` holds one stale
+    ping-pong tree a lane. The math is ``make_learner_step``'s on the
+    lanes' parts put side by side along the env axis (module docstring);
+    the metrics are global: batch means averaged over the lanes, sums
+    summed, in lane order on lane 0's device. The update issues each
+    lane's work with the lane's device current, on that device's current
+    stream.
+    """
+    devices = list(mesh.devices)
+    D, dev0 = len(devices), devices[0]
+    grad_fn = _make_grad_fn(agent, rho_bar, c_bar)
+    replicate = replicated_sharding(mesh)
+
+    def _update(replicas, opt_state, traj, last_obs, step):
+        if not len(replicas) == len(traj) == len(last_obs) == D:
+            raise ValueError(
+                f"the sharded step runs {D} lanes; got {len(replicas)} "
+                f"replicas and {len(traj)}/{len(last_obs)} trajectory parts")
+        grads, metrics = None, None
+        for i, d in enumerate(devices):
+            with _on_device(d):
+                # equal shards: the global mean is the mean of the lanes'
+                g_i, m_i = grad_fn(replicas[i], traj[i], last_obs[i],
+                                   1.0 / D)
+            if i == 0:
+                grads, metrics = list(g_i), m_i
+                continue
+            # lane order, on lane 0's device: the reduction the reference's
+            # all-reduce makes, before the clip
+            grads = [a + b.to(dev0) for a, b in zip(grads, g_i)]
+            metrics = {k: v + m_i[k].to(dev0) for k, v in metrics.items()}
+        if D > 1:
+            metrics = {k: v if k in _SUMMED else v / D
+                       for k, v in metrics.items()}
+        p0 = replicas[0]
+        with _on_device(dev0):
+            p0, opt_state = optimizer.update(tree_unflatten(p0, grads),
+                                             opt_state, p0, lr_schedule(step))
+        # the replicated output: lane i's copy (a lane on lane 0's device
+        # shares lane 0's tensors, which no update writes in place)
+        return replicate.split(p0), opt_state, metrics
+
+    if not fused_publish:
+        return _update
+
+    def learner_step(replicas, opt_state, traj, last_obs, step, publish_dst):
+        replicas, opt_state, metrics = _update(replicas, opt_state, traj,
+                                               last_obs, step)
+        for d, dst, src in zip(devices, publish_dst, replicas):
+            with _on_device(d):
+                _publish(dst, src)
+        return replicas, opt_state, publish_dst, metrics
 
     return learner_step

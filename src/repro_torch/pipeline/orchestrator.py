@@ -106,13 +106,34 @@ reference exempts the host plane's learner, whose staged payload is a
 transfer; in torch a copy from page-locked memory is asynchronous, no
 sync, so the port guards it too.
 
+The *mesh plane* (``rollout_plane="mesh"``, or ``"auto"`` with
+``mesh_shape`` > 1) runs one actor lane a device of a ``RolloutMesh``
+(``repro_torch.launch.mesh``; on the CPU, ``mesh_shape`` lanes that share
+it): ``num_actors`` is 1 or ``mesh_shape`` and becomes ``mesh_shape``, the
+env axis is split into equal lane slices (or a list gives each lane its
+own env), each lane steps its own copy of its env on its device
+(``narrow_vector_env(..., device=)``), and each lane's carried env state,
+generators and actor stream live there. The lanes feed a
+``MeshTrajectoryRing``; every update takes one rollout of each lane (a
+lane's quota is ``iterations``, and an update learns ``mesh_shape`` lane
+rollouts) and runs ``make_sharded_learner_step``: each lane's V-trace (K2)
+and backward on its device, the gradients summed on lane 0, one clipped
+RMSProp update there, the params copied to every lane's replica. The
+learner keeps ``params`` (lane 0's, the replica the caller reads) and the
+optimizer state on lane 0; the ping-pong slot holds one tree a lane, and
+lane ``i`` collects with its own. It is one process and one learner
+thread, as the reference's single controller is. At ``mesh_shape`` 1 the
+plane is the device plane bit for bit (the lockstep tests pin it).
+Checkpoints on it are warm restarts, and ``elastic`` is refused (a dead
+lane leaves no set complete), as in the reference.
+
 It drives plain ``PAACAgent`` on every plane and ``DQNAgent`` on the
 replay plane, as the reference does; the reference's other agents are
-refused as it refuses them. The reference's mesh plane (ROADMAP Queue 1
-item 14) is refused with ``NotImplementedError``.
+refused as it refuses them.
 """
 from __future__ import annotations
 
+import contextlib
 import queue as _stdlib_queue
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -131,20 +152,24 @@ from repro_torch.core.framework import (MetricsAccumulator, RunResult,
                                         init_rl_common)
 from repro_torch.core.rollout import make_collect_fn
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import replicated_sharding
 from repro_torch.envs.base import VectorEnv, narrow_vector_env
 from repro_torch.envs.host_env import HostEnvPool, HostEnvSpec
+from repro_torch.launch.mesh import make_rollout_mesh
 from repro_torch.pipeline.actor import (ActorThread, HostStagingRing,
                                         PingPongParamSlot, Rollout,
                                         _copy_tree, collect_host,
-                                        make_host_act_step, on_stream,
-                                        record_event, to_device)
+                                        make_host_act_step, record_event,
+                                        to_device)
 from repro_torch.pipeline.faults import FaultInjector, FaultPlan
-from repro_torch.pipeline.learner import make_learner_step
+from repro_torch.pipeline.learner import (make_learner_step,
+                                          make_sharded_learner_step)
 from repro_torch.pipeline.offpolicy import (make_dqn_collect_fn,
                                             make_dqn_learner_step)
 from repro_torch.pipeline.queue import CLOSED, TrajectoryQueue
 from repro_torch.pipeline.replay_ring import ReplayRing
-from repro_torch.pipeline.ring import DeviceTrajectoryRing, adopt
+from repro_torch.pipeline.ring import (DeviceTrajectoryRing,
+                                       MeshTrajectoryRing, adopt)
 from repro_torch.pipeline.supervisor import ActorSupervisor, QuotaLedger
 from repro_torch.pipeline.worker import ProcessActorPlane
 from repro_torch.telemetry import (LEARNER_UPDATE, LEASE, PUBLISH,
@@ -161,17 +186,23 @@ def _is_host(env) -> bool:
     return isinstance(env, HostEnvSpec) or hasattr(env, "step_host")
 
 
-def _refuse_unported(cfg: PipelineConfig) -> None:
-    """``NotImplementedError`` for each setting outside the device, host and
-    replay planes and the thread and process backends, naming the ROADMAP
-    item that ports it."""
-    unported = [
-        (cfg.rollout_plane == "mesh" or cfg.mesh_shape > 1, "the mesh plane "
-         "(rollout_plane='mesh', mesh_shape > 1) is ROADMAP Queue 1 item 14"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(f"PipelinedRL of the port: {what}")
+def _on_streams(streams):
+    """Each stream made its device's current stream for this thread (one
+    a lane device; lane 0's entered last, so its device is current), or
+    nothing on the CPU."""
+    stack = contextlib.ExitStack()
+    for s in reversed(streams):
+        if s is not None:
+            stack.enter_context(torch.cuda.stream(s))
+    return stack
+
+
+def _lane_generators(seed: int, devices) -> List[tuple]:
+    """Replica ``i``'s (act, env) generator pair, on ``devices[i]`` (a
+    mesh lane's device): the seeds follow ``ParallelRL``'s three."""
+    n = len(devices)
+    return [tuple(seeded_generators(seed, 3 + 2 * n, d)[3 + 2 * i:5 + 2 * i])
+            for i, d in enumerate(devices)]
 
 
 class PipelinedRL:
@@ -205,9 +236,22 @@ class PipelinedRL:
         n_actors = pipeline.num_actors
         if n_actors < 1:
             raise ValueError(f"num_actors must be >= 1, got {n_actors}")
-        if pipeline.lockstep and n_actors > 1:
-            raise ValueError("lockstep (synchronous semantics) requires "
-                             "num_actors == 1")
+        # the mesh plane runs one actor lane a mesh device: num_actors is
+        # normalized to mesh_shape (PipelineConfig rejects anything else)
+        want_mesh = pipeline.rollout_plane == "mesh" or (
+            pipeline.rollout_plane == "auto" and pipeline.mesh_shape > 1)
+        if want_mesh:
+            if n_actors not in (1, pipeline.mesh_shape):
+                raise ValueError(
+                    "the mesh plane runs exactly one actor lane per mesh "
+                    f"device: num_actors must be 1 (auto) or mesh_shape="
+                    f"{pipeline.mesh_shape}, got {n_actors}")
+            n_actors = pipeline.mesh_shape
+        if pipeline.lockstep and n_actors > 1 and not want_mesh:
+            raise ValueError(
+                "lockstep (synchronous semantics) requires num_actors == 1 "
+                "(or the mesh plane, whose lanes are consumed in lockstep "
+                "sets — one rollout a lane an update)")
         per_actor_envs = list(env) if isinstance(env, (list, tuple)) else None
         if per_actor_envs is not None and len(per_actor_envs) != n_actors:
             raise ValueError(f"got {len(per_actor_envs)} per-actor envs "
@@ -230,7 +274,6 @@ class PipelinedRL:
                 "plane: the ReplayRing retains sampled rollouts on the "
                 "device, which host-born payloads (HostEnvPool / process "
                 "backend) cannot do")
-        _refuse_unported(pipeline)
         if pipeline.fault_plan is not None and not isinstance(
                 pipeline.fault_plan, FaultPlan):
             raise TypeError(
@@ -267,6 +310,11 @@ class PipelinedRL:
         self.device = dev
         self._n_actors = n_actors
         self._seed = seed  # the ReplayRing's sample stream
+        # the mesh plane's lanes: lane i runs on self._mesh.devices[i]
+        self._mesh = (make_rollout_mesh(pipeline.mesh_shape, device=dev.type)
+                      if self._plane == "mesh" else None)
+        lane_devs = (list(self._mesh.devices) if self._mesh is not None
+                     else [dev] * n_actors)
         try:
             self._init_state(env, per_actor_envs, agent, optimizer,
                              lr_schedule, seed)
@@ -289,25 +337,39 @@ class PipelinedRL:
             self._updates = 0
             self._update_step = make_dqn_learner_step(
                 agent, self.optimizer, self.lr_schedule, fused_publish=True)
+        elif self._mesh is not None:
+            # the sharded twin: the same math, each lane's shard on its
+            # device, the partial gradients summed on lane 0
+            self._update_step = make_sharded_learner_step(
+                agent, self.optimizer, self.lr_schedule, self._mesh,
+                rho_bar=pipeline.rho_bar, c_bar=pipeline.c_bar,
+                fused_publish=True)
         else:
             self._update_step = make_learner_step(
                 agent, self.optimizer, self.lr_schedule,
                 rho_bar=pipeline.rho_bar, c_bar=pipeline.c_bar,
                 fused_publish=True)
         if dev.type == "cuda":
-            self._learner_stream = torch.cuda.Stream(dev)
+            # one learner stream a lane device (lane 0's is the update's)
+            self._lane_streams = [torch.cuda.Stream(d) for d in
+                                  (lane_devs if self._mesh is not None
+                                   else [dev])]
             # process actors act in their own processes, on their own streams
             self._actor_streams = (
-                [torch.cuda.Stream(dev) for _ in range(n_actors)]
+                [torch.cuda.Stream(d) for d in lane_devs]
                 if self._backend == "thread" else [])
         else:
-            self._learner_stream = None
+            self._lane_streams = [None]
             self._actor_streams = [None] * n_actors
+        self._learner_stream = self._lane_streams[0]
         self.total_steps = 0
-        # one learned rollout = one actor shard's n_envs·t_max timesteps
+        # one learned rollout = one actor shard's n_envs·t_max timesteps —
+        # except on the mesh plane, where every update learns one rollout
+        # of each of the n_actors lanes
         shard_envs = (self._proc_specs[0].n_envs if self._proc_specs
                       else self._actor_envs[0].n_envs)
-        self._steps_per_iter = shard_envs * agent.hp.t_max
+        lanes_per_update = n_actors if self._mesh is not None else 1
+        self._steps_per_iter = lanes_per_update * shard_envs * agent.hp.t_max
         # (actor_id, seq) and staleness of every payload consumed by the
         # last run() — the never-drop contract the tests pin down
         self.learned_ids: List[Tuple[int, int]] = []
@@ -340,8 +402,9 @@ class PipelinedRL:
         if n_actors == 1:
             gens = [(act_gen, env_gen)]
         else:  # fresh streams, independent of the three above
-            more = seeded_generators(seed, 3 + 2 * n_actors, dev)[3:]
-            gens = list(zip(more[0::2], more[1::2]))
+            gens = _lane_generators(seed, self._mesh.devices
+                                    if self._mesh is not None
+                                    else [dev] * n_actors)
         self._actor_keys = gens
         if self._backend == "process":
             # no parent-side acting or env state: each worker owns its pool,
@@ -367,7 +430,16 @@ class PipelinedRL:
         """One update through the agent family's learner step, threading
         the learner-private state it carries; returns ``(published,
         metrics)``."""
-        if self._dqn:
+        if self._mesh is not None:
+            self._replicas, self.opt_state, published, metrics = \
+                self._update_step(self._replicas, self.opt_state, traj,
+                                  last_obs, step, publish_dst)
+            self.params = self._replicas[0]
+            # the publish's ready event is recorded on lane 0's stream: it
+            # covers the other lanes' copies once that stream waits on them
+            for s in self._lane_streams[1:]:
+                self._learner_stream.wait_stream(s)
+        elif self._dqn:
             (self.params, self.opt_state, self._target, self._updates,
              published, metrics) = self._update_step(
                 self.params, self.opt_state, self._target, self._updates,
@@ -390,11 +462,13 @@ class PipelinedRL:
         if plane not in ("auto", "device", "host", "mesh"):
             raise ValueError("rollout_plane must be 'auto', 'device', 'host' "
                              f"or 'mesh', got {plane!r}")
-        if self._host and (plane == "mesh" or cfg.mesh_shape > 1):
-            raise ValueError(
-                "rollout_plane='mesh' requires a batched tensor env: "
-                "HostEnvPool rollouts are born in host memory and cannot "
-                "ride per-device sub-rings")
+        if plane == "mesh" or (plane == "auto" and cfg.mesh_shape > 1):
+            if self._host:
+                raise ValueError(
+                    "rollout_plane='mesh' requires a batched tensor env: "
+                    "HostEnvPool rollouts are born in host memory and "
+                    "cannot ride per-device sub-rings")
+            return "mesh"
         if plane == "auto":
             return "host" if self._host else "device"
         if plane == "device" and self._host:
@@ -423,6 +497,12 @@ class PipelinedRL:
                     f"cannot split {env.n_envs} envs across {n_actors} actors")
             envs = [narrow_vector_env(env, env.n_envs // n_actors)
                     for _ in range(n_actors)]
+        if self._mesh is not None:
+            # pin each lane to its device: the lane steps its own copy of
+            # its env there, so its carried state, its observations and
+            # the rollouts it puts in its sub-ring are born on that device
+            envs = [narrow_vector_env(e, e.n_envs, device=d)
+                    for e, d in zip(envs, self._mesh.devices)]
         if self._host:
             return envs, [e.reset() for e in envs], [None for _ in envs]
         states = [e.reset(env_gen) for e, (_, env_gen) in
@@ -483,6 +563,9 @@ class PipelinedRL:
 
             return collect
         collect_fn = make_collect_fn(self.agent.act_fn(), env, t_max)
+        # mesh lane i collects with its own replica of the published set,
+        # on its device, under the same lease
+        mesh = self._mesh is not None
         staging = None
         if self._plane == "host":
             obs_dtype = torch.empty(0, dtype=self._actor_obs[i].dtype).numpy()
@@ -496,8 +579,8 @@ class PipelinedRL:
             # the forced host plane stages to the host below, unguarded
             with sanitize.guard(active=warm[0] and staging is None):
                 env_state, last_obs, traj = collect_fn(
-                    params, self._actor_env_state[i], self._actor_obs[i],
-                    act_gen, env_gen)
+                    params[i] if mesh else params, self._actor_env_state[i],
+                    self._actor_obs[i], act_gen, env_gen)
             warm[0] = True
             self._actor_env_state[i] = env_state
             self._actor_obs[i] = last_obs
@@ -585,8 +668,9 @@ class PipelinedRL:
 
     @staticmethod
     def _ticket_counts(ring) -> Tuple[int, int]:
-        return (int(getattr(ring, "tickets_issued", 0)),
-                int(getattr(ring, "tickets_consumed", 0)))
+        # the mesh ring counts a lane at a time
+        return tuple(int(np.sum(getattr(ring, name, 0))) for name in
+                     ("tickets_issued", "tickets_consumed"))
 
     def _save_checkpoint(self, ring, step_value: int) -> str:
         """Save the full pipeline state after the update that just
@@ -679,12 +763,24 @@ class PipelinedRL:
         elif self._plane == "host":
             ring = TrajectoryQueue(cfg.queue_depth, producers=n_actors,
                                    telemetry=hub)
+        elif self._mesh is not None:
+            ring = MeshTrajectoryRing(cfg.queue_depth, self._mesh,
+                                      telemetry=hub)
         else:
             ring = DeviceTrajectoryRing(cfg.queue_depth, producers=n_actors,
                                         telemetry=hub, device=self.device)
-        quota = [iterations // n_actors + (1 if i < iterations % n_actors
-                                           else 0)
-                 for i in range(n_actors)]
+        if self._mesh is not None:
+            # every lane contributes one rollout to every update: the quota
+            # is `iterations` a lane, not split across lanes
+            quota = [iterations] * n_actors
+            # one replica of the learner's params a lane (restore() or a
+            # caller may have replaced them); lane 0's holds their tensors
+            self._replicas = replicated_sharding(self._mesh).split(
+                self.params)
+        else:
+            quota = [iterations // n_actors + (1 if i < iterations % n_actors
+                                               else 0)
+                     for i in range(n_actors)]
         # the fault harness: the injector with or without elastic (fail-
         # fast chaos runs), the ledger and the supervisor only with it
         injector = (FaultInjector(cfg.fault_plan)
@@ -708,24 +804,26 @@ class PipelinedRL:
         learner_stream = self._learner_stream
         if learner_stream is not None:
             # the params, optimizer state and env states were made on the
-            # caller's stream: both sides start after it
-            caller = torch.cuda.current_stream(self.device)
-            learner_stream.wait_stream(caller)
-            for s in self._actor_streams:
-                s.wait_stream(caller)
+            # caller's streams: both sides start after them
+            for s in self._lane_streams + self._actor_streams:
+                s.wait_stream(torch.cuda.current_stream(s.device))
         # the actor-plane split: thread replicas collecting in this process,
         # or worker subprocesses behind parent-side drainers; below it the
         # learner loop sees the same payloads and the same reserve/commit
         # slot protocol from both
-        with on_stream(learner_stream):
+        with _on_streams(self._lane_streams):
             if self._process_plane is not None:
                 slot, actors = self._process_plane.begin_run(
                     ring, quota, cfg.lockstep, self.params, telemetry=hub,
                     ledger=ledger, injector=injector)
             else:
-                slot = PingPongParamSlot(self.params, version=0)
+                slot = PingPongParamSlot(
+                    tuple(self._replicas) if self._mesh is not None
+                    else self.params, version=0)
                 actors = [
-                    ActorThread(self._make_collect(i), ring, slot,
+                    ActorThread(self._make_collect(i),
+                                ring.lane(i) if self._mesh is not None
+                                else ring, slot,
                                 self._actor_keys[i], quota[i],
                                 lockstep=cfg.lockstep, actor_id=i,
                                 telemetry=hub, start_seq=start_seqs[i],
@@ -784,7 +882,7 @@ class PipelinedRL:
         # while update i runs. Host plane: eager — reading the metrics back
         # waits for the update and the payload's copy before it on the
         # learner's stream, which certifies the staging set's release()
-        acc = MetricsAccumulator(lazy=self._plane == "device")
+        acc = MetricsAccumulator(lazy=self._plane in ("device", "mesh"))
         self.learned_ids, self.staleness = [], []
         for a in actors:
             a.start()
@@ -816,7 +914,7 @@ class PipelinedRL:
         # design and stays outside
         san = sanitize.transfers_enabled()
         try:
-            with on_stream(learner_stream):
+            with _on_streams(self._lane_streams):
                 for i in range(iterations):
                     if injector is not None:
                         injector.stall_learner(i)
@@ -829,7 +927,10 @@ class PipelinedRL:
                         if payload is CLOSED:  # an actor died early
                             break
                         assert isinstance(payload, Rollout)
-                        adopt(payload, learner_stream)
+                        # a mesh payload: each lane's part on its stream
+                        adopt(payload, self._lane_streams
+                              if self._mesh is not None
+                              else self._learner_stream)
                         # claim the stale ping-pong buffer; bounded by one
                         # in-flight collect (actors release before blocking
                         # on the ring), so a long wait means an actor died
@@ -973,10 +1074,8 @@ class PipelinedRL:
                 if p.release is not None:
                     p.release()
             if learner_stream is not None:
-                caller = torch.cuda.current_stream(self.device)
-                caller.wait_stream(learner_stream)
-                for s in self._actor_streams:
-                    caller.wait_stream(s)
+                for s in self._lane_streams + self._actor_streams:
+                    torch.cuda.current_stream(s.device).wait_stream(s)
             # the run's lock-order verdict, attached to the hub (and so to
             # the trace) on every exit path, for the trainer to fail on
             if locks_enabled():

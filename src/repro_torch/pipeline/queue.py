@@ -18,9 +18,10 @@ stdlib ``queue.Queue``:
   draining.
 
 The condition is the lock-order sanitizer's site ``queue.cond``
-(``repro_torch.analysis.lockcheck``). The reference's check that no
-mesh-sharded JAX array rides the host queue waits with the mesh plane
-(ROADMAP Queue 1 item 14).
+(``repro_torch.analysis.lockcheck``). As in the reference, ``put``
+refuses a mesh-plane rollout: a payload assembled by
+``MeshTrajectoryRing`` (its fields are ``Lanes``, one part a lane) on the
+host queue is a plumbing fault, and it raises at the boundary.
 """
 from __future__ import annotations
 
@@ -32,6 +33,20 @@ from typing import Any, Optional
 from repro_torch.analysis.lockcheck import make_condition
 from repro_torch.telemetry.spans import (QUEUE_GET_WAIT, QUEUE_PUT_WAIT,
                                          SpanEmitter)
+
+
+class Lanes(tuple):
+    """One field of a mesh-assembled rollout: the lanes' parts in lane
+    order (``repro_torch.pipeline.ring.MeshTrajectoryRing``)."""
+
+
+def _refuse_mesh_payload(item: Any) -> None:
+    if isinstance(getattr(item, "traj", None), Lanes):
+        raise TypeError(
+            "TrajectoryQueue.put: a mesh-plane rollout leaked to the host "
+            "queue (its fields are per-lane parts). Mesh rollouts must stay "
+            "on the MeshTrajectoryRing (rollout_plane='mesh'); the host "
+            "plane carries single-device payloads only.")
 
 
 class Closed:
@@ -82,8 +97,10 @@ class TrajectoryQueue:
         """Blocking put; accumulates the time spent waiting on a full queue.
 
         Raises ``QueueClosed`` if the queue is (or becomes, while blocked)
-        closed, and stdlib ``queue.Full`` when ``timeout`` elapses first.
+        closed, stdlib ``queue.Full`` when ``timeout`` elapses first, and
+        ``TypeError`` for a mesh-plane rollout.
         """
+        _refuse_mesh_payload(item)
         t0 = time.perf_counter()
         try:
             with self._cond:

@@ -19,6 +19,11 @@ layers, no tail) and at ``num_layers`` 5 (two groups of 2 and a tail of
   state, conv tail and shared K/V leaf within 1e-4, K/V slots past the
   prompt zero; then 4 decode steps go on from both caches, logits within
   5e-4.
+* **Experts** — with ``num_experts`` 4, top 2, in both forms of the
+  shared block (``d_ff`` set: dense, the experts ignored; ``d_ff`` 0: the
+  MoE block): ``policy_apply(train=True)`` with ``moe_aux`` 0, prefill,
+  then 4 decode steps from the port's filled cache carried to the
+  reference's decode, and one ``make_llm_train_step``.
 * **Serving** — the engine's ``_place`` writes only the leased row, at
   every depth of the cache, at W = 1 and W = 3; continuous batching equals
   a solo rerun, bitwise, torch against torch; the launcher serves the
@@ -35,18 +40,25 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jax_config  # noqa: E402
+from repro.core.agents.paac import PAACAgent as JaxPAAC  # noqa: E402
+from repro.core.agents.paac import PAACConfig as JaxPAACConfig  # noqa: E402
 from repro.models import init_policy as jax_init  # noqa: E402
 from repro.models import init_policy_cache as jax_cache  # noqa: E402
+from repro.models import policy_apply as jax_apply  # noqa: E402
 from repro.models import policy_decode as jax_decode  # noqa: E402
 from repro.models import policy_prefill as jax_prefill  # noqa: E402
+from repro.optim import constant as jax_constant  # noqa: E402
+from repro.optim import make_optimizer as jax_make_optimizer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.agents.paac import PAACAgent, PAACConfig  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import (init_policy, init_policy_cache,  # noqa: E402
-                                policy_decode, policy_prefill)
+                                policy_apply, policy_decode, policy_prefill)
 from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.serving.engine import _place  # noqa: E402
-from repro_torch.utils.bridge import params_from_numpy  # noqa: E402
+from repro_torch.optim import constant, make_optimizer  # noqa: E402
+from repro_torch.utils.bridge import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.utils.tree import tree_map  # noqa: E402
 
 PREFILL_TOL = 1e-4
@@ -241,11 +253,97 @@ def test_prefill_and_decode_go_through_k6_k3_and_k4(monkeypatch):
     assert calls == ["decode_attention"] * 2
 
 
-@pytest.mark.parametrize("change", [{"num_experts": 4}], ids=["moe"])
+# the hybrid with experts in both forms of its shared block: d_ff set (a
+# dense MLP, the experts ignored) and d_ff 0 (the MoE block, its experts
+# 128 wide as the reduced MoE trunks' are: at moe_d_ff 0 they would take
+# d_ff's width, 0)
+EXPERTS = {"num_experts": 4, "num_experts_per_tok": 2}
+MOE_FORMS = {"moe": EXPERTS, "moe_dff0": dict(EXPERTS, d_ff=0, moe_d_ff=128)}
+_MOE_PAIRS = {}
+
+
+def _moe_pair(form):
+    """(jax cfg, torch cfg, jax params, torch params) of reduced zamba2-7b
+    with experts, bridged from the reference's ``PRNGKey(0)`` draw."""
+    if form not in _MOE_PAIRS:
+        cfg_j = jax_config("zamba2-7b").reduced().replace(**MOE_FORMS[form])
+        cfg = get_config("zamba2-7b").reduced().replace(**MOE_FORMS[form])
+        pj = jax_init(jax.random.PRNGKey(0), cfg_j)
+        pt = params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), "cpu")
+        _MOE_PAIRS[form] = (cfg_j, cfg, pj, pt)
+    return _MOE_PAIRS[form]
+
+
+@pytest.mark.parametrize("change", list(MOE_FORMS), ids=list(MOE_FORMS))
 def test_unported_hybrid_settings_raise_and_name_the_roadmap(change):
-    cfg = get_config("zamba2-7b").reduced().replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_policy(cfg, generator=torch.Generator(), device="cpu")
+    """The hybrid with experts, which the port once refused, against the
+    reference: the shared block is the reference's (dense when d_ff is
+    set, MoE when it is 0); ``policy_apply(train=True)`` within 1e-4 with
+    ``moe_aux`` 0 on both sides (the group drops the block's aux loss);
+    prefill within 1e-4; then 4 decode steps from the port's filled cache,
+    carried across to the reference's decode, within 5e-4."""
+    cfg_j, cfg, pj, pt = _moe_pair(change)
+    shared = pt["trunk"]["shared"]
+    assert ("moe" in shared) == (cfg.d_ff == 0)
+    assert ("mlp" in shared) == bool(cfg.d_ff)
+    if "moe" in shared:
+        assert shared["moe"]["wi"].shape == (4, cfg.d_model, 128)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S))
+    lj, vj, aj = jax_apply(pj, cfg_j, jnp.asarray(tokens), train=True)
+    lt, vt, at = policy_apply(pt, cfg, torch.from_numpy(tokens), train=True)
+    _close(lt.detach(), lj, PREFILL_TOL)
+    _close(vt.detach(), vj, PREFILL_TOL)
+    assert float(at["moe_aux"]) == float(aj["moe_aux"]) == 0.0
+    lj, vj, _ = jax_prefill(pj, cfg_j, jnp.asarray(tokens), max_len=ML)
+    lt, vt, cache = policy_prefill(pt, cfg, torch.from_numpy(tokens),
+                                   max_len=ML)
+    _close(lt, lj, PREFILL_TOL)
+    _close(vt, vj, PREFILL_TOL)
+    # copies: the port's decode updates its cache in place
+    ref_cache = jax.tree_util.tree_map(lambda t: jnp.array(t.numpy().copy()),
+                                       cache)
+    step = jax.jit(lambda p, c, t, pos: jax_decode(p, cfg_j, c, t, pos))
+    rng = np.random.default_rng(4)
+    for i in range(4):
+        tok = rng.integers(0, cfg.vocab_size, (B, 1))
+        lj, vj, ref_cache = step(pj, ref_cache, jnp.asarray(tok),
+                                 jnp.int32(S + i))
+        lt, vt, cache = policy_decode(pt, cfg, cache, torch.from_numpy(tok),
+                                      S + i)
+        _close(lt, lj, DECODE_TOL)
+        _close(vt, vj, DECODE_TOL)
+
+
+@pytest.mark.parametrize("form", list(MOE_FORMS))
+def test_a_train_step_of_the_hybrid_with_experts_matches_the_reference(form):
+    """One ``make_llm_train_step`` with RMSProp on both sides: the loss and
+    each metric within 1e-5, every parameter after the update within 1e-5
+    (``tests/test_torch_token_training.py``'s bounds), over T 16."""
+    cfg_j, cfg, pj, pt = _moe_pair(form)
+    rng = np.random.default_rng(0)
+    T = 16
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, T + 1)
+                                    ).astype(np.int32),
+             "rewards": rng.random((B, T), dtype=np.float32),
+             "dones": rng.random((B, T)) < 0.2}
+    jstep = jax.jit(JaxPAAC(cfg_j, JaxPAACConfig()).make_llm_train_step(
+        jax_make_optimizer("rmsprop"), jax_constant(1e-3)))
+    opt = make_optimizer("rmsprop")
+    pj_new, _, mj = jstep(pj, jax_make_optimizer("rmsprop").init(pj),
+                          {k: jnp.asarray(v) for k, v in batch.items()},
+                          jnp.int32(0))
+    pt_new, _, mt = PAACAgent(cfg, PAACConfig()).make_llm_train_step(
+        opt, constant(1e-3))(pt, opt.init(pt),
+                             {k: torch.from_numpy(np.asarray(v))
+                              for k, v in batch.items()}, 0)
+    assert set(mt) == set(mj)
+    for k in mj:
+        np.testing.assert_allclose(float(mt[k]), float(mj[k]), rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+    for a, b in zip(jax.tree_util.tree_leaves(params_to_numpy(pt_new)),
+                    jax.tree_util.tree_leaves(
+                        jax.tree_util.tree_map(np.asarray, pj_new))):
+        _close(a, b, 1e-5)
 
 
 # ---------------------------------------------------------------- serving

@@ -819,14 +819,22 @@ def test_host_plane_refusals_and_the_run_observers(tmp_path, caplog):
     assert names == {"learner", "queue", "actor0"}
 
 
-# ---------------------------------------------------------------- refusals
-@pytest.mark.parametrize("setting,item", [
-    (dict(rollout_plane="mesh"), "item 14"),
-    (dict(mesh_shape=2), "item 14"),
-], ids=lambda x: next(iter(x)) if isinstance(x, dict) else x)
-def test_unported_settings_raise(setting, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _pipelined(**setting)
+# ------------------------------------------------------- the mesh settings
+# once refused naming ROADMAP item 14 (the ids keep that item's name)
+@pytest.mark.parametrize("setting,lanes", [
+    (dict(rollout_plane="mesh"), 1),
+    (dict(mesh_shape=2), 2),
+], ids=["rollout_plane-item 14", "mesh_shape-item 14"])
+def test_unported_settings_raise(setting, lanes):
+    """The mesh settings run: one lane a mesh device, each update learning
+    one rollout of every lane (the lanes' seqs in step), never stale under
+    lockstep."""
+    prl = _pipelined(queue_depth=1, lockstep=True, **setting)
+    assert prl._plane == "mesh" and prl._n_actors == lanes
+    res = prl.run(4)
+    assert res.steps == 4 * lanes * (8 // lanes) * 5
+    assert prl.learned_ids == [(-1, i) for i in range(4)]
+    assert prl.staleness == [0.0] * 4
 
 
 def test_a_fault_plan_that_is_not_one_raises_the_references_type_error():
