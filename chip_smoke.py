@@ -423,7 +423,34 @@ paths:
               ms, ms a step, tok/s, a profiled step's busy share; then
               seamless in fp32 at 2 + 2 layers (``encdec_parity``: prefill
               of 64 tokens + 8 steps vs a one-token prefill and the decode
-              loop, 1e-3 + 1e-3 |logit|).
+              loop, 1e-3 + 1e-3 |logit|);
+9. dryrun   — the dry-run plane: (a) two pairs of ``python -m
+              repro_torch.launch.dryrun`` at 16 x 16 on a fake process
+              group, glm4-9b at decode_32k and deepseek-coder-33b at
+              prefill_32k, each in a child process on the host (no card,
+              no group left behind), started beside the kernels' build
+              and waited for right after it, so that no timed phase runs
+              beside them: each must print OK, its report must count
+              FLOPs, bytes and collectives; (b) glm4-9b (40 layers) and
+              deepseek-coder-33b (62 layers) served at every published
+              width and depth in bf16 (``DRYRUN_CELLS``), 4 requests over
+              4 slots, prompts of 128 and 512 tokens, 16 new tokens
+              each: K3 once a layer a prefill, K4 once a layer a step,
+              every other kernel never; (c) before each cell the plan
+              (``dryrun.plan_bytes``: a fake init's leaves, one device's
+              on the 1 x 1 host mesh) of its parameters and of a cache of
+              its slots and max_len, held after ``init_policy`` and after
+              ``init_policy_cache`` against the bytes the caching
+              allocator counts as requested (within 512 B a tensor) and
+              against ``torch.cuda.memory_allocated()``: within 512 B a
+              tensor of the plan's leaves in the allocator's blocks
+              (``allocator_blocks``: a leaf that leaves 1 MiB or less of
+              its 2 MiB-rounded segment may hold all of it); (d) one
+              B = 4 x 512 prefill timed with CUDA events (median of 5):
+              model FLOPs 2 N tokens (N the active parameters without
+              the embedding table, a gather) over time x 989e12, the
+              port's first MFU of a step, beside the card's name and
+              power limit.
 
 TF32 is off for matmuls and convolutions throughout. The line before the
 last is a JSON object with each kernel's numbers and its launches on each
@@ -431,7 +458,8 @@ main path (training, pipeline, mesh, mesh train cli, agents, train cli,
 host sync, host pipeline, host train cli, host process, host process
 train cli, replay, replay train cli, faults, faults train cli, the analysis legs, token
 training, the token cli legs and the token example, the six serving
-cells, the three window cells and the two prefixed cells, each read with
+cells, the three window cells, the two prefixed cells and the two
+dry-run serving cells, each read with
 the counts set to 0 just before it); K3's row also carries its time with
 the LSE, the LSE's error and, under ``"backward"``, the plain backward's
 numbers and its calls on each path, and so does K6's;
@@ -444,6 +472,7 @@ spans) there.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import gc
 import importlib.util
@@ -735,6 +764,12 @@ FLASH_SWEEP = (  # (B, S, H, Hkv, D, Dv, window, timed in bf16 as), causal
     # seamless-m4t-large-v2 encoder over 1024 frames (causal, F17)
     (4, 1536, 32, 8, 128, 128, 0, "pixtral-12b prefill"),
     (4, 1024, 16, 16, 64, 64, 0, "seamless-m4t-large-v2 encoder"),
+    # phase 9's serving cells: glm4-9b's 16 query heads a KV head (one
+    # prompt, then the four-row prefill the MFU is timed on) and
+    # deepseek-coder-33b's 7
+    (1, 512, 32, 2, 128, 128, 0, "glm4-9b prefill"),
+    (4, 512, 32, 2, 128, 128, 0, ""),
+    (1, 512, 56, 8, 128, 128, 0, "deepseek-coder-33b prefill"),
 )
 FLASH_CROSS = (  # (B, Sq, Sk, H, Hkv, D, timed in bf16 as), non-causal
     (4, 128, 1024, 16, 16, 64, "seamless-m4t-large-v2 cross prefill"),
@@ -2784,8 +2819,17 @@ def phase_ssd_grad(torch, ref, ops, rows, dev="cuda"):
         fwd_flops = B * H * (nc * (2 * N * tri + 2 * P * tri + 2 * Q * P * N)
                              + (nc - 1) * 2 * Q * N * P)
         b_ms, b_by = bound(nbytes, 2 * fwd_flops, "bfloat16")
+        # the forward's own bound, counted as phase_latent_kernels counts
+        # it: x, B, C read and y written in bf16; dt, A_log, D read and the
+        # state written in fp32
+        x0, b0 = bf[0], bf[3]
+        fwd_b_ms, fwd_b_by = bound(
+            2 * (2 * x0.numel() + 2 * b0.numel())
+            + 4 * (bf[1].numel() + 2 * H + B * H * P * N),
+            fwd_flops, "bfloat16")
         t = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                  bound_by=b_by, forward_ms=fwd_ms,
+                 forward_bound_ms=fwd_b_ms, forward_bound_by=fwd_b_by,
                  shape=f"bf16 B={B} S={S} H={H} P={P} N={N} chunk={Q} "
                  f"({timed})")
         if "ms" in back:
@@ -2795,7 +2839,8 @@ def phase_ssd_grad(torch, ref, ops, rows, dev="cuda"):
         say("ssd grad", f"K6 forward and backward timed ({t['shape']}): K6's "
             f"y and state max_abs_err {bf_err:.3g} (y: atol {BF16_TOL} + rtol "
             f"{BF16_TOL}; state: atol {SSD_TOL} + rtol {SSD_TOL}); K6 "
-            f"{fwd_ms:.4f} ms; ref.ssd_scan_bwd (exponents in float64) {ms:.4f} "
+            f"{fwd_ms:.4f} ms (bound {fwd_b_ms:.4g} ms, {fwd_b_by}); "
+            f"ref.ssd_scan_bwd (exponents in float64) {ms:.4f} "
             f"ms, autograd through the plain version (fp32) {plain_ms:.4f} "
             f"ms, bound {b_ms:.4f} ms ({b_by}), library none; the forward "
             "with a gradient bitwise the one without")
@@ -5911,6 +5956,221 @@ def _frame_agent(configs, A):
 # decode_combine_kernel, mla_decode_kernel and ssd_scan_kernel (bf16) are
 # the earlier designs' kernels, so a profile of those designs reads the
 # same way.
+DRYRUN_PAIRS = (("glm4-9b", "decode_32k"), ("deepseek-coder-33b",
+                                            "prefill_32k"))
+DRYRUN_TIMEOUT = 420  # s for a pair's child, counted from its start
+# the two dense GQA models the port registers and had never served at
+# width: every published width and depth, bf16 (deepseek-coder-33b's 66.7
+# GB of parameters fit beside the cache)
+DRYRUN_CELLS = (
+    {"arch": "glm4-9b", "change": {},
+     "full": {"num_layers": 40, "d_model": 4096, "num_heads": 32,
+              "num_kv_heads": 2, "head_dim": 128, "qkv_bias": True,
+              "d_ff": 13696, "vocab_size": 151552,
+              "param_dtype": "bfloat16"}},
+    {"arch": "deepseek-coder-33b", "change": {},
+     "full": {"num_layers": 62, "d_model": 7168, "num_heads": 56,
+              "num_kv_heads": 8, "head_dim": 128, "d_ff": 19200,
+              "vocab_size": 32256, "param_dtype": "bfloat16"}},
+)
+DRYRUN_SLOTS, DRYRUN_PROMPTS, DRYRUN_GEN = 4, (128, 512), 16
+ALLOC_ROUND = 512  # bytes: the caching allocator rounds each block up to it
+MiB = 1 << 20
+
+
+def allocator_blocks(nbytes: int):
+    """(least, most) bytes ``torch.cuda.memory_allocated()`` counts for a
+    request of ``nbytes`` (c10/cuda/CUDACachingAllocator.cpp): rounded up
+    to 512 B; a request over 1 MiB that gets a segment of its own, rounded
+    up to 2 MiB (20 MiB under 10 MiB), keeps the whole segment when 1 MiB
+    or less is left, as the allocator splits only a larger rest; carved
+    from a larger cached block, it is split to its own size."""
+    size = max(ALLOC_ROUND, -(-nbytes // ALLOC_ROUND) * ALLOC_ROUND)
+    if size <= MiB:
+        return size, size
+    segment = 20 * MiB if size < 10 * MiB else -(-size // (2 * MiB)) * 2 * MiB
+    return size, (segment if segment - size <= MiB else size)
+
+
+def start_dryrun_pairs(root: Path):
+    """Starts each ``DRYRUN_PAIRS`` entry's ``python -m
+    repro_torch.launch.dryrun`` in a child process on the host (no card
+    visible), writing its report under a temporary directory; returns
+    (proc, arch, shape, out dir, start time) for ``dryrun_pairs``."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": os.pathsep.join(
+               [str(root / "src")] + ([os.environ["PYTHONPATH"]]
+                                      if os.environ.get("PYTHONPATH")
+                                      else []))}
+    started = []
+    for arch, shape in DRYRUN_PAIRS:
+        out = tempfile.mkdtemp(prefix="dryrun_")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", out], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        started.append((proc, arch, shape, out, time.perf_counter()))
+    # a build that fails before they are read leaves none running
+    atexit.register(lambda: [p.kill() for p, *_ in started
+                             if p.poll() is None])
+    return started
+
+
+def dryrun_pairs(started) -> None:
+    """(a): each child's OK line and its seconds; its report's counts."""
+    for proc, arch, shape, out, t_start in started:
+        left = max(DRYRUN_TIMEOUT - (time.perf_counter() - t_start), 1.0)
+        try:
+            stdout, stderr = proc.communicate(timeout=left)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise SmokeFailure(f"dryrun {arch} {shape}: no result within "
+                               f"{DRYRUN_TIMEOUT} s")
+        wall = time.perf_counter() - t_start
+        ok = [ln for ln in stdout.splitlines() if ln.startswith("OK ")]
+        check(proc.returncode == 0 and len(ok) == 1,
+              f"dryrun {arch} {shape}: exit {proc.returncode}, stdout "
+              f"{stdout[-2000:]!r}, stderr {stderr[-2000:]!r}")
+        with open(os.path.join(out, f"{arch}_{shape}_16x16.json")) as f:
+            rep = json.load(f)
+        shutil.rmtree(out, ignore_errors=True)
+        check(rep["chips"] == 256 and rep["flops_per_chip"] > 0
+              and rep["bytes_per_chip"] > 0
+              and rep["collectives"]["total_wire_bytes"] > 0
+              and sum(rep["collective_counts"].values()) > 0,
+              f"dryrun {arch} {shape}: empty counts in {rep}")
+        say("dryrun", f"{ok[0].strip()} [child process on the host, "
+            f"{wall:.1f} s from its start; argument bytes a device "
+            f"{rep['memory_analysis']['argument_bytes']:.4g}, peak "
+            f"{rep['memory_analysis']['peak_bytes']}, collectives "
+            f"{rep['collective_counts']}]")
+
+
+def dryrun_cell(torch, configs, models, ops, serve, dryrun, analysis, card,
+                cell, dev="cuda") -> dict:
+    """(b)-(d) for one ``DRYRUN_CELLS`` entry; returns its launches."""
+    arch = cell["arch"]
+    cfg = configs.get_config(arch).replace(**cell["change"])
+    check(all(getattr(cfg, k) == v for k, v in cell["full"].items()),
+          f"not the full {arch} config: {cfg}")
+    L, slots = cfg.num_layers, DRYRUN_SLOTS
+    max_len = max(DRYRUN_PROMPTS) + DRYRUN_GEN
+    t_cell = time.perf_counter()
+    plan = dryrun.plan_bytes(cfg, batch=slots, max_len=max_len)
+    torch.cuda.empty_cache()
+
+    def counts():
+        return (torch.cuda.memory_stats()["requested_bytes.all.current"],
+                torch.cuda.memory_allocated())
+
+    base = counts()
+    params = models.init_policy(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
+    torch.cuda.synchronize()
+    after_p = counts()
+    cache = models.init_policy_cache(cfg, slots, max_len, device=dev)
+    torch.cuda.synchronize()
+    after_c = counts()
+    del cache
+    said = []
+    for what, (req0, al0), (req1, al1), leaves in (
+            ("parameters", base, after_p, plan["param_leaves"]),
+            ("cache", after_p, after_c, plan["cache_leaves"])):
+        req, got, n = req1 - req0, al1 - al0, len(leaves)
+        least = sum(allocator_blocks(b)[0] for b in leaves)
+        most = sum(allocator_blocks(b)[1] for b in leaves)
+        check(abs(req - sum(leaves)) <= ALLOC_ROUND * n
+              and least - ALLOC_ROUND * n <= got <= most + ALLOC_ROUND * n,
+              f"{arch}: {what}: the plan {sum(leaves)} B in {n} "
+              f"tensors ({least}-{most} B in the allocator's blocks); "
+              f"requested {req} B, allocated {got} B (at most {ALLOC_ROUND} "
+              "B a tensor off)")
+        said.append(f"{what}: plan {sum(leaves)} B in {n} tensors, "
+                    f"requested {req} B ({req - sum(leaves):+d}), allocated "
+                    f"{got} B ({got - sum(leaves):+d}; the allocator's blocks "
+                    f"{least}-{most} B)")
+    say("dryrun", f"{arch}, {L} layers, every width as published, host "
+        f"mesh, {slots} slots x {max_len}: " + "; ".join(said)
+        + f"; within {ALLOC_ROUND} B a tensor")
+
+    ops.reset_launches()
+    res = serve.serve_continuous(
+        cfg, params, requests=4, slots=slots, max_len=max_len,
+        prompt_lens=DRYRUN_PROMPTS, gen_range=(DRYRUN_GEN, DRYRUN_GEN),
+        rate_hz=0.0, seed=SEED, device=dev)
+    counts = dict(ops.launches)
+    for r in res["requests"]:
+        check(r.status == "done" and len(r.tokens) == DRYRUN_GEN,
+              f"{arch} request {r.rid}: {r.status} {r.error}")
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()),
+              f"{arch} request {r.rid}: token out of [0, {cfg.vocab_size})")
+    want = {name: 0 for name in ops.launches}
+    want["flash_attention"] = L * res["admitted"]
+    want["decode_attention"] = L * res["steps"]
+    check(len(res["requests"]) == 4 and res["admitted"] == 4
+          and counts == want,
+          f"{arch}: {len(res['requests'])} requests, {res['admitted']} "
+          f"admitted, launches {counts}, expected {want}")
+    say("dryrun", f"{arch} continuous, bf16, {slots} slots, 4 requests "
+        f"(prompts {sorted(len(r.prompt) for r in res['requests'])}, "
+        f"{DRYRUN_GEN} new tokens each): {res['tokens']} tokens, "
+        f"{res['tok_s']:.1f} tok/s, p50 {res['p50_ms']:.1f} ms p99 "
+        f"{res['p99_ms']:.1f} ms, {res['steps']} decode steps; launches "
+        f"flash_attention {counts['flash_attention']} (= {L} x 4 "
+        f"prefills), decode_attention {counts['decode_attention']} (= {L} "
+        f"x {res['steps']} steps), every other kernel 0 ({card})")
+
+    # (d) one B = 4 x 512 prefill, CUDA events
+    B, S = 4, max(DRYRUN_PROMPTS)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device=dev)
+    ms = []
+    with torch.no_grad():
+        for i in range(6):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            logits, values, _ = models.policy_prefill(params, cfg, tokens)
+            t1.record()
+            torch.cuda.synchronize()
+            if i:  # the first is a warm-up
+                ms.append(t0.elapsed_time(t1))
+    check(logits.shape == (B, S, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(values).all()),
+          f"{arch} prefill: logits {tuple(logits.shape)} not finite")
+    ms = sorted(ms)[len(ms) // 2]
+    # N: the active parameters less the embedding table, a gather
+    flops = 2.0 * analysis.mfu_params(cfg, params) * B * S
+    mfu = flops / (ms / 1e3 * analysis.PEAK_FLOPS_BF16)
+    say("dryrun", f"{arch} prefill B={B} x {S} (policy_prefill, bf16): "
+        f"{ms:.3f} ms (CUDA events, median of 5), model FLOPs 2 N tokens "
+        f"(N without the embedding) = {flops:.4g}: MFU {100 * mfu:.2f}% of "
+        f"989 TFLOP/s ({card})")
+    del params, logits, values
+    torch.cuda.empty_cache()
+    say("dryrun", f"{arch} cell took {time.perf_counter() - t_cell:.1f} s")
+    return counts
+
+
+def phase_dryrun(torch, configs, models, ops, serve, card,
+                 dev="cuda") -> dict:
+    """Phase 9: the dry-run's two serving cells (its pairs ran beside the
+    build); returns each cell's launches by path."""
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch import mesh as launch_mesh
+
+    check(analysis.PEAK_FLOPS_BF16 == launch_mesh.PEAK_FLOPS_BF16 == 989e12
+          and PEAK_FLOPS["bfloat16"] == 989e12,
+          "the roofline's bf16 peak is not the H100's 989e12")
+    return {f"{cell['arch']} dryrun serving": dryrun_cell(
+        torch, configs, models, ops, serve, dryrun, analysis, card, cell,
+        dev) for cell in DRYRUN_CELLS}
+
+
 PROFILE_NAMES = {
     "flash_attention": ("flash_fwd_kernel", "flash_fwd_bf16_kernel"),
     "decode_attention": ("decode_split_kernel", "split_combine_kernel",
@@ -6007,8 +6267,13 @@ def main(argv=None) -> int:
         laps.append((name, time.perf_counter() - t0 - done))
 
     first_cell = start_train_cell(TRAIN_CELLS[0])  # it waits to run
+    # beside the build, and waited for before phase 1: no timed phase runs
+    # beside them
+    dryrun_procs = start_dryrun_pairs(Path(__file__).resolve().parent)
     card = phase_card(torch, _build)
     lap("card")
+    dryrun_pairs(dryrun_procs)
+    lap("dryrun pairs")
     # first on the card: the full-width training cells need all but a few
     # GB of its memory, which later phases leave fragmented
     by_path = {}
@@ -6086,6 +6351,9 @@ def main(argv=None) -> int:
         by_path[f"{cell['arch']} prefixed"] = phase_prefixed(
             torch, np, configs, models, ops, tree, card, cell)
         lap(f"prefixed {cell['arch']}")
+    torch.cuda.empty_cache()
+    by_path.update(phase_dryrun(torch, configs, models, ops, serve, card))
+    lap("dryrun")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -5,14 +5,35 @@ registered by one file under ``repro_torch/configs``. Each config also
 exposes a ``reduced()`` variant (<=2 layers, d_model<=256, fp32) used by
 the CPU tests. ``PipelineConfig`` holds the knobs of the asynchronous
 actor/learner pipeline (``repro_torch.pipeline``). The port keeps its own
-copy rather than importing ``repro``; the input-shape table waits for the
-slice that uses it.
+copy rather than importing ``repro``. ``INPUT_SHAPES`` holds the four
+global input shapes of the dry-run (``repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Input shapes (global, as the reference assigns them)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
 
 @dataclass(frozen=True)
 class ArchConfig:

@@ -43,10 +43,38 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
+def _by_columns(fn, rewards, dones, bootstrap):
+    """``fn`` on each device's columns of DTensor inputs (the dry-run's):
+    K1 computes each column alone, so the env axis may be split over the
+    mesh (rewards' ``Shard(1)``, the bootstrap's ``Shard(0)``) and every
+    other mesh dim is replicated. Returns a DTensor placed as the columns
+    were."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+
+    mesh = rewards.device_mesh
+    cols = tuple(Shard(1) if p == Shard(1) else Replicate()
+                 for p in rewards.placements)
+    vec = tuple(Shard(0) if p == Shard(1) else Replicate() for p in cols)
+
+    def local(x, placements):
+        if isinstance(x, DTensor):
+            return x.redistribute(mesh, placements).to_local()
+        return distribute_tensor(x, mesh, placements).to_local()
+
+    out = fn(local(rewards, cols), local(dones, cols),
+             local(bootstrap, vec))
+    return DTensor.from_local(out, mesh, cols, shape=rewards.shape,
+                              stride=rewards.stride())
+
+
 def nstep_returns(rewards, dones, bootstrap, gamma: float):
     """K1. Time-major rewards (T, E) float32, dones (T, E) bool, bootstrap
     (E,) float32 -> returns (T, E) float32. Both routes refuse the same
-    inputs."""
+    inputs. DTensors (the dry-run's) run on each device's columns."""
+    if hasattr(rewards, "device_mesh"):
+        return _by_columns(lambda r, d, b: nstep_returns(r, d, b, gamma),
+                           rewards, dones, bootstrap)
     if rewards.device.type == "cpu":
         _check_nstep(rewards, dones, bootstrap)
         return _ref.nstep_returns_ref(rewards, dones, bootstrap, gamma)

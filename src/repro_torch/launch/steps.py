@@ -4,16 +4,17 @@
   lines 16-18) over a trajectory batch of a token policy: the learning
   forward with gradients, K1's n-step returns, the backward and one
   optimizer update.
+* ``build_prefill_step(cfg)`` — batched full-context policy evaluation
+  (the dry-run's ``prefill_32k``): the last position's logits and value,
+  and the filled cache.
 * ``build_serve_step(cfg)`` — the master's batched action selection
   (paper §3): one token per actor against the cache, all rows at one
   position (a scalar ``pos``).
-
-The reference's prefill step builder waits for the slice that uses it.
 """
 from __future__ import annotations
 
 from repro_torch.core.agents.paac import PAACAgent, PAACConfig
-from repro_torch.models import policy_decode
+from repro_torch.models import policy_decode, policy_prefill
 from repro_torch.optim import make_optimizer, paac_scaled_lr
 from repro_torch.utils.sampling import categorical
 
@@ -25,6 +26,19 @@ def build_train_step(cfg, *, optimizer: str = "rmsprop", n_e: int = 256):
     opt = make_optimizer(optimizer)
     step = agent.make_llm_train_step(opt, paac_scaled_lr(n_e))
     return step, opt
+
+
+def build_prefill_step(cfg):
+    def prefill_step(params, batch):
+        """``batch`` holds ``tokens`` (B, S) and, for a vision or an
+        encoder-decoder trunk, ``prefix`` or ``frames``. Returns (logits
+        (B, A), value (B,), cache) of the last position."""
+        tokens = batch["tokens"]
+        prefix = batch.get("prefix", batch.get("frames"))
+        logits, values, cache = policy_prefill(params, cfg, tokens, prefix)
+        return logits[:, -1], values[:, -1], cache
+
+    return prefill_step
 
 
 def build_serve_step(cfg):

@@ -28,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.distributed.constraints import constrain, mesh_axis_size
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF, live_slots
 from repro_torch.models.common import (apply_rope, init_linear, init_rmsnorm,
@@ -72,6 +73,21 @@ def project_kv(p, cfg, src):
             linear(p["wv"], src).reshape(B, Sk, Hkv, D))
 
 
+def _attention(q, k, v, **kw):
+    """K3 over q (B, Sq, H, D) and k, v (B, Sk, Hkv, ·). On a mesh whose
+    ``"model"`` axis does not divide the heads, the queries are split over
+    it along the sequence and K/V replicated, as the reference's
+    ``chunked_attention`` places them (scores stay local); off a mesh the
+    constraints change nothing."""
+    msize = mesh_axis_size("model")
+    Sq, H = q.shape[1], q.shape[2]
+    if msize > 1 and H % msize != 0 and Sq % msize == 0 and Sq > 1:
+        q = constrain(q, "data", "model", None, None)
+        k = constrain(k, "data", None, None, None)
+        v = constrain(v, "data", None, None, None)
+    return ops.flash_attention(q, k, v, **kw)
+
+
 def cross_forward(p, cfg, x, k, v):
     """Cross-attention of x (B, S, d_model) over the K/V (B, Sk, Hkv, D)
     that ``project_kv`` made of the encoder's output: K3, non-causal, no
@@ -80,7 +96,7 @@ def cross_forward(p, cfg, x, k, v):
     B, S, _ = x.shape
     H, D = cfg.num_heads, cfg.head_dim
     q = linear(p["wq"], x).reshape(B, S, H, D)
-    out = ops.flash_attention(q, k, v, causal=False)
+    out = _attention(q, k, v, causal=False)
     return linear(p["wo"], out.reshape(B, S, H * D))
 
 
@@ -107,7 +123,7 @@ def gqa_prefill(p, cfg, x, *, window: int = 0):
     pos = torch.arange(S, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    out = _attention(q, k, v, causal=True, window=window)
     return linear(p["wo"], out.reshape(B, S, H * D)), (k, v)
 
 
@@ -230,8 +246,8 @@ def mla_forward(p, cfg, x, *, window: int = 0):
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     v = kv[..., nope:].contiguous()
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
-                              scale=1.0 / math.sqrt(nope + rope))
+    out = _attention(q, k, v, causal=True, window=window,
+                     scale=1.0 / math.sqrt(nope + rope))
     y = linear(p["wo"], out.reshape(B, S, H * cfg.v_head_dim))
     return y, (c, k_rope)
 

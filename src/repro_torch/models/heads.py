@@ -2,11 +2,13 @@
 
 A single trunk feeds two output layers: a softmax policy head (one logit per
 action — for token-manipulation environments the action space is the
-vocabulary) and a single linear value node. The reference's ``constrain``
-is a sharding hint; on one device there is nothing to hint.
+vocabulary) and a single linear value node. The logits are constrained
+to (data, ..., model), as the reference's are; off a mesh that changes
+nothing.
 """
 from __future__ import annotations
 
+from repro_torch.distributed.constraints import constrain
 from repro_torch.models.common import dtype_of, init_linear, linear
 
 
@@ -25,5 +27,7 @@ def apply_heads(p, cfg, hidden, embed=None):
         logits = hidden @ embed.T
     else:
         logits = linear(p["policy"], hidden)
+    axes = ("data",) + (None,) * (logits.ndim - 2) + ("model",)
+    logits = constrain(logits.float(), *axes)
     value = linear(p["value"], hidden).float()[..., 0]
-    return logits.float(), value
+    return logits, value

@@ -41,6 +41,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.constraints import constrain
 from repro_torch.models.common import dense_init
 from repro_torch.models.mlp import init_mlp, mlp_forward
 
@@ -147,6 +148,8 @@ def moe_forward(p, cfg, x):
     logits = xg.float() @ p["router"]["w"].float()  # (G, T, E)
     expert_in, slot, top_w, aux, _, _ = _route_group(xg, logits, k,
                                                      capacity, E)
+    # (G, E, C, d): the experts over "model", as the reference places them
+    expert_in = constrain(expert_in, "data", "model", None, None)
     # the experts: one batched product over E, each on its G*C rows
     h_in = expert_in.transpose(0, 1).reshape(E, G * capacity, d)
     h = F.silu(h_in @ p["wi"]) * (h_in @ p["wg"])
@@ -162,7 +165,7 @@ def moe_forward(p, cfg, x):
     y = picked[:, :, 0] * w[..., 0, None]
     for j in range(1, k):
         y = y + picked[:, :, j] * w[..., j, None]
-    y = y.reshape(B, S, d)
+    y = constrain(y, "data", None, None).reshape(B, S, d)
 
     if "shared" in p:
         y = y + mlp_forward(p["shared"], x)

@@ -62,6 +62,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.constraints import constrain, place_cache
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.common import (
@@ -154,7 +155,7 @@ def attn_block_forward(p, cfg, x, *, window: int = 0, cross_kv=None):
         h = rmsnorm(p["ln_x"], x, cfg.norm_eps)
         x = x + attn.cross_forward(p["xattn"], cfg, h, *cross_kv)
     y, aux = _ffn(p, cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))
-    return x + y, aux, kv
+    return constrain(x + y, "data", None, None), aux, kv
 
 
 def attn_block_decode(p, cfg, x, cache, pos, *, window: int = 0,
@@ -184,9 +185,9 @@ def ssm_block_forward(p, cfg, x, *, return_state: bool = True):
     h = rmsnorm(p["ln"], x, cfg.norm_eps)
     out = ssm.mamba2_forward(p["mamba"], cfg, h, return_state=return_state)
     if not return_state:
-        return x + out
+        return constrain(x + out, "data", None, None)
     y, contents = out
-    return x + y, contents
+    return constrain(x + y, "data", None, None), contents
 
 
 def ssm_block_decode(p, cfg, x, cache):
@@ -293,7 +294,7 @@ def embed_tokens(p, cfg, tokens, prefix_embeds=None):
     x = p["embed"][tokens].to(dtype_of(cfg.compute_dtype))
     if prefix_embeds is not None:
         x = torch.cat([_front(p, cfg, prefix_embeds), x], dim=1)
-    return x
+    return constrain(x, "data", None, None)
 
 
 
@@ -531,13 +532,18 @@ def prefill(params, cfg, tokens, prefix_embeds=None, *,
     else:
         x = embed_tokens(params, cfg, tokens, prefix_embeds)
     B, S, _ = x.shape
-    cache = init_cache(cfg, B, max_len or S, device=x.device)
-    if enc_out is not None and enc_out.shape[1] != cfg.encoder_seq_len:
-        # the cross cache follows the frames given, as the reference's
-        n, _, _, Hkv, D = cache["cross"]["k"].shape
-        cache["cross"] = {k: torch.zeros((n, B, enc_out.shape[1], Hkv, D),
-                                         dtype=v.dtype, device=v.device)
-                          for k, v in cache["cross"].items()}
+
+    def build(device):
+        cache = init_cache(cfg, B, max_len or S, device=device)
+        if enc_out is not None and enc_out.shape[1] != cfg.encoder_seq_len:
+            # the cross cache follows the frames given, as the reference's
+            n, _, _, Hkv, D = cache["cross"]["k"].shape
+            cache["cross"] = {k: torch.zeros((n, B, enc_out.shape[1], Hkv, D),
+                                             dtype=v.dtype, device=device)
+                              for k, v in cache["cross"].items()}
+        return cache
+
+    cache = place_cache(build, x.device)
     if cfg.family == "ssm":
         x = _ssm_prefill(params["layers"], cache["layers"], cfg, x)
     elif cfg.family == "hybrid":
